@@ -16,14 +16,34 @@ Phases (each prints its own lines; any failure exits non-zero):
             the plain version, and to the NumPy oracle over all frames.
 5. sharded  the same session with id_bits=18 (the gid-range-sharded
             z-buffer, 4 sub-ranges): exactly equal to phase 4.
+6. attention  the two attention kernels (spatial-reduction and
+            neighbourhood) against their plain versions at the segmenter's
+            shapes, a ragged float32 case each and the neighbourhood
+            kernel's backward; timed (in CUDA graphs, between CUDA events)
+            beside the plain version, a bound and
+            `scaled_dot_product_attention` (timed here, used nowhere else).
+7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
+            on a textured synthetic session: the shipped checkpoint through
+            the fused spatial-reduction kernel (launches counted, pixel
+            accuracy against ground truth, masks against the same forward
+            through the plain versions, frames/s), then B2 width with a
+            neighbourhood-attention first stage (the shipped weights less
+            that stage's reduction conv), and `predict`'s contract.
+8. stream   `stream_segment` on that session: votes' contract, run twice
+            bit-identical, classes against predict_batch + vote_and_classify.
 
-Then one JSON line per the kernels, the nvidia-smi line, and last
+Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
+`--phases attention,segmenter,stream` runs a subset while iterating (device
+and build always run; `stream` needs `segmenter`; the last line then names
+the phases that ran).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,7 +54,16 @@ HERE = Path(__file__).resolve().parent
 NPTS, NFRAMES, HW, NCLASSES = 1_000_000, 300, (256, 192), 133
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor float32 (the table's only non-tensor rate)
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
 AGREEMENT_BAR = 0.9995
+BF16_BAR, F32_BAR = 2e-2, 1e-4  # attention kernels vs plain versions, unit-normal inputs
+PIXEL_ACC_BAR, MASK_AGREE_BAR, STREAM_AGREE_BAR = 0.95, 0.999, 0.9
+# the neighbourhood stage runs weights that were not trained for it: its logits
+# are less decisive, so more near-ties flip between kernel and plain version
+NAT_MASK_AGREE_BAR = 0.995
+LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
+KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
+ALL_PHASES = ["label", "attention", "segmenter", "stream"]
 
 
 def log(*a):
@@ -61,50 +90,39 @@ def event_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def main():
-    sys.path.insert(0, str(HERE))
-    try:
-        import torch
-        import fusion3dseg_tpu_torch
-    except ImportError as e:
-        fail(f"cannot import the port beside this script: {e}")
-    if Path(fusion3dseg_tpu_torch.__file__).resolve().parent.parent != HERE:
-        fail(f"fusion3dseg_tpu_torch came from {fusion3dseg_tpu_torch.__file__}, "
-             f"not from {HERE}")
-    import numpy as np
+def graph_ms(fn, iters, replays=5):
+    """Device time of one `fn()` in ms: `iters` calls captured in one CUDA
+    graph, so that no host launch cost lies between them, replayed `replays`
+    times between two CUDA events. For kernels shorter than their launch."""
+    import torch
 
-    from fusion3dseg_tpu_torch import cuda
+    fn()  # warm-up outside the capture: builds, plans, allocations
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def label_phases(card):
+    """Phases 3-5: K1 and the session label lifter. Returns K1's entry."""
+    import numpy as np
+    import torch
+
     from fusion3dseg_tpu_torch.io.workload import cpu_label_fuse, make_workload
     from fusion3dseg_tpu_torch.ops import histogram as hist
     from fusion3dseg_tpu_torch.ops import label_fuse as lf
 
-    # ---- 1. device
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    card = f"[{smi}]"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"device: {kind} x{count}; nvidia-smi: {smi}")
-    log(f"device: torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    built = cuda.build(["histogram"])
-    log(f"build: {len(built)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
-    for b in built.values():
-        log(f"build: {b.name}.cu nvcc {b.seconds:.2f} s -> {b.path.name}")
-        for line in b.ptxas.splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
-                log(f"build: ptxas: {line.strip()}")
 
     # ---- 3. K1 against its plain version, and timed
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -257,7 +275,7 @@ def main():
             fail(f"id_bits=18 {name} differs from the id_bits=20 headline")
     log("sharded: classes, total, vmax exactly equal to the id_bits=20 headline")
 
-    kernels = [{
+    return {
         "name": "histogram_classify",
         "route": "cuda",
         "source": "fusion3dseg_tpu_torch/csrc/histogram.cu",
@@ -269,11 +287,382 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]
+    }
+
+
+def _bound(nbytes, ops, dtype_name):
+    """(bound_ms, bound_by): bytes over the memory rate against operations
+    over the peak rate of the inputs' type."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / (BF16_OPS_PER_S if dtype_name == "bf16" else F32_OPS_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _window_pairs(n, r):
+    """Number of (query, key) index pairs along one axis of length n with
+    |query - key| <= r, both inside [0, n)."""
+    return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
+
+
+def attention_phase(card):
+    """Phase 6: K3 and K2 against their plain versions. Returns their
+    entries for the kernels line (`launches` still 0: phase 7 counts them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def qkv(shape_q, shape_kv, dtype):
+        return [torch.randn(s, device=dev, generator=gen).to(dtypes[dtype])
+                for s in (shape_q, shape_kv, shape_kv)]
+
+    def held(name, got, want, dtype, what):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        bar = BF16_BAR if dtype == "bf16" else F32_BAR
+        if got.shape != want.shape or got.dtype != want.dtype or not err <= bar:
+            fail(f"{name} {what}: max abs err {err} against its plain version (bar {bar})")
+        return err
+
+    def timed(entry, name, shape, dtype, kernel, plain, library, nbytes, ops):
+        # these kernels are shorter than a launch from Python: time them in
+        # CUDA graphs (with events around single calls the host's launch
+        # rate, about 0.05 ms a call, is what shows)
+        k_ms = graph_ms(kernel, iters=50)
+        p_ms = graph_ms(plain, iters=5)
+        l_ms = graph_ms(library, iters=50)
+        b_ms, by = _bound(nbytes, ops, dtype)
+        log(f"attention: {name} {shape} {dtype} {card}: kernel {k_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), "
+            f"{100 * b_ms / k_ms:.1f}% of bound; plain version {p_ms:.4f} ms; "
+            f"scaled_dot_product_attention {l_ms:.4f} ms")
+        row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": by, "library_ms": l_ms}
+        if "ms" not in entry:  # the first timed shape is the entry's own
+            entry.update(row)
+        else:
+            entry.setdefault("other_shapes", []).append(row)
+
+    # ---- K3, spatial-reduction attention
+    sra = {"name": "sr_attention", "route": "cuda",
+           "source": "fusion3dseg_tpu_torch/csrc/sr_attention.cu",
+           "replaces": "fusion3dseg_tpu/ops/attention.py:30", "launches": 0,
+           "max_abs_err": 0.0}
+    for B, N, H, D, M, dtype, time_it in (
+            (8, 4096, 1, 64, 64, "bf16", True), (8, 1024, 2, 64, 64, "bf16", True),
+            (2, 16384, 1, 64, 256, "bf16", True), (1, 1000, 3, 32, 37, "f32", False)):
+        q, k, v = qkv((B, N, H, D), (B, M, H, D), dtype)
+        shape = f"[{B},{N},{H},{D}]x[{B},{M},{H},{D}]"
+        err = held("sr_attention", attn.sr_attention(q, k, v),
+                   attn.sr_attention_reference(q, k, v), dtype, shape)
+        sra["max_abs_err"] = max(sra["max_abs_err"], err)
+        log(f"attention: sr_attention {shape} {dtype}: max abs err {err:.3e} vs plain version")
+        if time_it:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            timed(sra, "sr_attention", shape, dtype,
+                  lambda: attn.sr_attention(q, k, v),
+                  lambda: attn.sr_attention_reference(q, k, v),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                  nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                  ops=4 * B * H * N * M * D)
+
+    # ---- K2, neighbourhood attention
+    nat = {"name": "neighborhood_attention", "route": "cuda",
+           "source": "fusion3dseg_tpu_torch/csrc/neighborhood_attention.cu",
+           "replaces": "fusion3dseg_tpu/ops/attention.py:151", "launches": 0,
+           "max_abs_err": 0.0}
+    for B, h, w, H, D, window, dtype, time_it in (
+            (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", False),
+            (1, 9, 11, 2, 8, 5, "f32", False)):
+        N = h * w
+        q, k, v = qkv((B, N, H, D), (B, N, H, D), dtype)
+        shape = f"[{B},{h}*{w},{H},{D}] window {window}"
+        err = held("neighborhood_attention", attn.neighborhood_attention(q, k, v, h, w, window),
+                   attn.neighborhood_attention_reference(q, k, v, h, w, window), dtype, shape)
+        nat["max_abs_err"] = max(nat["max_abs_err"], err)
+        log(f"attention: neighborhood_attention {shape} {dtype}: max abs err {err:.3e} "
+            "vs plain version")
+        if time_it:
+            r = window // 2
+            iy, ix = torch.arange(h, device=dev), torch.arange(w, device=dev)
+            near = ((iy[:, None] - iy[None, :]).abs() <= r)[:, None, :, None] & \
+                   ((ix[:, None] - ix[None, :]).abs() <= r)[None, :, None, :]
+            mask = near.reshape(N, N)  # [query, key] window membership
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+            held("scaled_dot_product_attention with the window mask", lib,
+                 attn.neighborhood_attention_reference(q, k, v, h, w, window), dtype, shape)
+            timed(nat, "neighborhood_attention", shape, dtype,
+                  lambda: attn.neighborhood_attention(q, k, v, h, w, window),
+                  lambda: attn.neighborhood_attention_reference(q, k, v, h, w, window),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                  nbytes=4 * q.numel() * q.element_size(),
+                  ops=4 * B * H * D * _window_pairs(h, r) * _window_pairs(w, r))
+            del mask, near, lib
+
+    # K2's backward: through the kernel's autograd.Function against the
+    # plain version's own autograd
+    for h, w, H, D, window, dtype in ((9, 11, 2, 8, 5, "f32"), (32, 32, 1, 64, 7, "bf16")):
+        q, k, v = qkv((2, h * w, H, D), (2, h * w, H, D), dtype)
+        wgt = torch.randn(q.shape, device=dev, generator=gen)
+        grads = []
+        for fn in (attn.neighborhood_attention, attn.neighborhood_attention_reference):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (fn(*leaves, h, w, window).float() * wgt).sum().backward()
+            grads.append([t.grad for t in leaves])
+        err = max(held("neighborhood_attention backward", g, p, dtype, f"d{n}")
+                  for g, p, n in zip(*grads, "qkv"))
+        log(f"attention: neighborhood_attention backward [2,{h}*{w},{H},{D}] window "
+            f"{window} {dtype}: max abs err {err:.3e} vs the plain version's autograd")
+    return [sra, nat]
+
+
+def segmenter_phase(card):
+    """Phase 7: Segmenter2D at B2 width on the card. Returns the session,
+    the kernel-path segmenter and (K3, K2) launches of the main-path runs."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.io import synthetic
+    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.models import convert
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    nframes, batch = 16, 8
+    t0 = time.perf_counter()
+    session = synthetic.make_session(
+        nframes=nframes, depth_hw=(96, 72), appearance="textured",
+        room=synthetic.RoomSpec(seed=(1 << 30) + 990_000))
+    log(f"segmenter: textured session, {nframes} frames at 96x72, built in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    frames, gts = session.colors, session.gt_mask
+
+    def masks_of(seg):
+        return np.concatenate([seg.predict_batch(frames[i:i + batch], 0.017)
+                               for i in range(0, nframes, batch)])
+
+    def logits_of(seg):
+        x = seg._model_input(frames[:batch])
+        return seg._logits_sem_conf(x, 0.017, frames.shape[1:3])[0]
+
+    def compare(name, seg, plain, per_forward, counter, bar):
+        """Masks and logits of the kernel path against the plain versions."""
+        counter.launches = 0
+        got = masks_of(seg)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        forwards = nframes // batch
+        if launches != per_forward * forwards:
+            fail(f"{name}: {counter.__name__} launched {launches} times in {forwards} "
+                 f"forwards (want {per_forward} each)")
+        want = masks_of(plain)
+        if counter.launches != launches:
+            fail(f"{name}: use_cuda_attention=False launched the kernel")
+        agree = float((got == want).mean())
+        diff = float((logits_of(seg) - logits_of(plain)).abs().max())
+        log(f"segmenter: {name}: {counter.__name__} launches {launches} in {forwards} "
+            f"forwards; masks agree with the plain-version forward on {agree:.6f} of "
+            f"pixels (bar {bar}); max logit difference {diff:.4f} (bar {LOGIT_DIFF_BAR})")
+        if got.shape != gts.shape or got.dtype != np.uint8 or agree < bar \
+                or not diff <= LOGIT_DIFF_BAR:
+            fail(f"{name}: mask agreement {agree}, max logit difference {diff} against "
+                 "the plain-version forward")
+        return got, launches
+
+    # the shipped B2 checkpoint through the fused spatial-reduction kernel
+    cfg = dataclasses.replace(SegFormerConfig.b2(), use_pallas_attention=True)
+    ckpt = convert.shipped_checkpoint("b2")
+    if ckpt is None:
+        fail("checkpoints/shipped_b2_textured.npz is missing")
+    t0 = time.perf_counter()
+    seg = Segmenter2D(cfg, ckpt, batch_size=batch, device="cuda")
+    plain = Segmenter2D(cfg, ckpt, batch_size=batch, device="cuda", use_cuda_attention=False)
+    nparams = sum(p.numel() for p in seg.model.parameters())
+    log(f"segmenter: SegFormer-B2 {nparams / 1e6:.2f}M parameters, {cfg.dtype}, input "
+        f"{seg.input_hw}, batch {batch}, loaded twice in {time.perf_counter() - t0:.2f} s")
+    if seg.input_hw != (256, 256):
+        fail(f"the checkpoint's input size resolved to {seg.input_hw}")
+    masks_of(seg)  # warm-up: cuDNN/cuBLAS plans
+    got, sra_launches = compare("shipped B2, use_pallas_attention", seg, plain, 7,
+                                attn.sr_attention, MASK_AGREE_BAR)
+    acc = float((got == gts).mean())
+    log(f"segmenter: pixel accuracy against ground truth {acc:.4f} (bar {PIXEL_ACC_BAR})")
+    if acc < PIXEL_ACC_BAR:
+        fail(f"pixel accuracy {acc} below {PIXEL_ACC_BAR}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        masks_of(seg)  # ends in a copy to the host
+        times.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    masks_of(seg)
+    log(f"segmenter: predict_batch {card}: {nframes} frames in "
+        f"{[round(t, 4) for t in times]} s, best {nframes / min(times):.1f} frames/s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # B2 width with a neighbourhood-attention first stage. The weights are the
+    # shipped checkpoint's without the first stage's reduction conv and its
+    # norm, which a neighbourhood stage does not have: not trained for this
+    # attention, but decisive logits, so that masks can be compared (seeded
+    # random weights give near-flat logits whose argmax flips on rounding)
+    cfg_nat = dataclasses.replace(SegFormerConfig.b2(), nat_windows=(7, 0, 0, 0))
+    flat = {k: v for k, v in convert.flatten_params(convert.load_params_npz(ckpt)).items()
+            if not (k.startswith("stage0_") and ("/sr/" in k or
+                                                 "EfficientAttention_0/LayerNorm_0" in k))}
+    state = convert.from_flax_params(flat, cfg_nat)
+    seg_nat, plain_nat = (Segmenter2D(cfg_nat, input_hw=(256, 256), batch_size=batch,
+                                      device="cuda", use_cuda_attention=use)
+                          for use in (True, False))
+    for s in (seg_nat, plain_nat):
+        s.model.load_state_dict(state)
+    _, nat_launches = compare("B2 width, nat_windows=(7,0,0,0), shipped weights less the "
+                              "first stage's reduction", seg_nat, plain_nat, 3,
+                              attn.neighborhood_attention, NAT_MASK_AGREE_BAR)
+    del seg_nat, plain_nat, plain
+
+    # predict: the reference predictor's output contract
+    out = seg.predict(frames[0][:, :, ::-1])
+    sem, (idimage, info), inst = out.values()
+    h, w = frames.shape[1:3]
+    ok = (sem.shape == (133, h, w) and sem.dtype == np.float32 and np.isfinite(sem).all()
+          and idimage.shape == (h, w) and idimage.dtype == np.int32
+          and sorted(s["id"] for s in info) == list(range(1, len(info) + 1))
+          and set(inst) == {"pred_classes", "pred_masks", "scores"}
+          and inst["pred_masks"].shape[1:] == (h, w)
+          and (sem.argmax(0) == got[0])[got[0] != 133].all())
+    if not ok:
+        fail("Segmenter2D.predict broke its output contract")
+    log(f"segmenter: predict: sem_seg {sem.shape} {sem.dtype}, {len(info)} panoptic "
+        f"segments, {len(inst['pred_classes'])} instances")
+    return session, seg, (sra_launches, nat_launches)
+
+
+def stream_phase(card, session, seg):
+    """Phase 8: stream_segment on the card against predict_batch + voting."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.io.rtab import SessionData
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.ops.voting import vote_and_classify
+    from fusion3dseg_tpu_torch.pipeline.streaming import stream_segment
+
+    sd = SessionData.from_arrays(session.colors, session.depth, session.K,
+                                 session.quats_wxyz[:, [1, 2, 3, 0]], session.translations,
+                                 device="cuda")
+    nf, (hd, wd) = sd.nframes, sd.depth_hw
+    if sd.points.shape != (nf, hd * wd, 3) or sd.points.device.type != "cuda" \
+            or not bool(torch.isfinite(sd.normals).all()):
+        fail("SessionData.from_arrays: wrong shapes, device or values")
+    # injective random pixel -> point maps: a real z-buffer lets a point win
+    # at most one pixel per frame
+    rng = np.random.default_rng(0)
+    npts, npix = 5000, hd * wd
+    uv2pt = np.full((nf, npix), -1, np.int32)
+    for f in range(nf):
+        uv2pt[f, rng.choice(npix, size=npts, replace=False)] = rng.permutation(npts)
+
+    attn.sr_attention.launches = 0
+    t0 = time.perf_counter()
+    votes, classes = stream_segment(sd, seg, uv2pt, npts=npts, nclasses=133,
+                                    batch_size=seg.batch_size)
+    dt = time.perf_counter() - t0
+    launches = attn.sr_attention.launches
+    if launches != 7 * -(-nf // seg.batch_size):
+        fail(f"stream_segment launched the spatial-reduction kernel {launches} times")
+    if votes.shape != (npts, 134) or votes.dtype != np.int32 or classes.shape != (npts,) \
+            or votes.sum(axis=1).max() > nf or classes.max() > 133:
+        fail("stream_segment broke its votes/classes contract")
+    v2, c2 = stream_segment(sd, seg, uv2pt, npts=npts, nclasses=133,
+                            batch_size=seg.batch_size)
+    if not (np.array_equal(votes, v2) and np.array_equal(classes, c2)):
+        fail("stream_segment is not bit-identical across two runs")
+    # the mask route: predict_batch on the uint8 frames (already at depth
+    # resolution, so the nearest resize is the identity), then voting
+    masks = np.concatenate([seg.predict_batch(session.colors[i:i + seg.batch_size])
+                            for i in range(0, nf, seg.batch_size)])
+    _, classes_m = vote_and_classify(uv2pt, masks.reshape(nf, -1), npts, 133, 0.5,
+                                     device="cuda")
+    agree = float((classes_m.cpu().numpy() == classes).mean())
+    log(f"stream: stream_segment {card}: {nf} frames, {npts} points in {dt:.3f} s, "
+        f"K3 launches {launches}; votes per point <= {int(votes.sum(axis=1).max())}; "
+        f"bit-identical twice; classes agree with predict_batch + vote_and_classify on "
+        f"{agree:.4f} of points (bar {STREAM_AGREE_BAR}); labeled share "
+        f"{float((classes != 133).mean()):.4f}")
+    if agree <= STREAM_AGREE_BAR:
+        fail(f"stream agreement {agree} not above {STREAM_AGREE_BAR}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of " + ",".join(ALL_PHASES))
+    phases = ap.parse_args().phases.split(",")
+    if set(phases) - set(ALL_PHASES) or ("stream" in phases and "segmenter" not in phases):
+        fail(f"--phases {phases}: choose from {ALL_PHASES}; stream needs segmenter")
+    sys.path.insert(0, str(HERE))
+    try:
+        import torch
+        import fusion3dseg_tpu_torch
+    except ImportError as e:
+        fail(f"cannot import the port beside this script: {e}")
+    if Path(fusion3dseg_tpu_torch.__file__).resolve().parent.parent != HERE:
+        fail(f"fusion3dseg_tpu_torch came from {fusion3dseg_tpu_torch.__file__}, "
+             f"not from {HERE}")
+    from fusion3dseg_tpu_torch import cuda
+
+    # ---- 1. device
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {kind} x{count}; nvidia-smi: {smi}")
+    log(f"device: torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    built = cuda.build(KERNEL_SOURCES)
+    log(f"build: {len(built)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
+    for b in built.values():
+        log(f"build: {b.name}.cu nvcc {b.seconds:.2f} s -> {b.path.name}")
+        for line in b.ptxas.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log(f"build: ptxas: {line.strip()}")
+
+    card = f"[{smi}]"
+    kernels = []
+    t_start = time.perf_counter()
+    if "label" in phases:
+        kernels.append(label_phases(card))
+    if "attention" in phases:
+        kernels += attention_phase(card)
+    if "segmenter" in phases:
+        session, seg, launches = segmenter_phase(card)
+        for entry, n in zip(kernels[-2:] if "attention" in phases else (), launches):
+            entry["launches"] = n
+        if "stream" in phases:
+            stream_phase(card, session, seg)
+    log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": count}}), flush=True)
+    result = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}
+    if phases != ALL_PHASES:
+        result["phases"] = phases  # a partial run says so
+    print(json.dumps(result), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ loaded with `ctypes`. Nothing is compiled when a module is imported.
 
 The build directory is `build/` beside the package, or the directory named
 by `F3S_TORCH_BUILD_DIR`. Each library's file name carries a hash of its
-source and flags, so an edited source builds anew.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+builds anew.
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ BUILDS: dict[str, Built] = {}
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's identity
+    src = b"".join(p.read_bytes() for p in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

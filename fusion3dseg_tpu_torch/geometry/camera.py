@@ -104,14 +104,15 @@ def project_points(
 
 
 def backproject_depth(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Depth image [H, W] -> camera-frame points [H*W, 3], row-major pixels:
-    x = (u - cx) * depth / fx, y = (v - cy) * depth / fy, z = depth."""
-    h, w = depth.shape
+    """Depth images [..., H, W] -> camera-frame points [..., H*W, 3],
+    row-major pixels: x = (u - cx) * depth / fx, y = (v - cy) * depth / fy,
+    z = depth."""
+    h, w = depth.shape[-2:]
     u = torch.arange(w, dtype=depth.dtype, device=depth.device).expand(h, w)
     v = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None].expand(h, w)
     x = (u - K[0, 2]) * depth / K[0, 0]
     y = (v - K[1, 2]) * depth / K[1, 1]
-    return torch.stack([x, y, depth], dim=-1).reshape(-1, 3)
+    return torch.stack([x, y, depth], dim=-1).reshape(*depth.shape[:-2], h * w, 3)
 
 
 def camera_to_world(

@@ -1,0 +1,209 @@
+"""The segmenter's two fused attention kernels (K3 and K2).
+
+Counterpart of `fusion3dseg_tpu/ops/attention.py`.
+
+* `sr_attention` (K3): dense attention of a long query axis against the
+  short, spatially reduced key/value axis of SegFormer's encoder.
+* `neighborhood_attention` (K2): sliding-window attention on the token
+  grid, masked (not shifted) at the image borders.
+
+Each wrapper launches its hand-written CUDA kernel (`csrc/sr_attention.cu`,
+`csrc/neighborhood_attention.cu`) on CUDA tensors and runs its plain PyTorch
+version (`*_reference`) on CPU tensors. Nothing else selects between them: a
+CUDA tensor either launches the kernel or raises. Both take q pre-scaling on
+themselves (callers must not scale) and read `[B, tokens, H, D]` tensors
+through their strides.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from fusion3dseg_tpu_torch import cuda
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128  # the kernels keep a query's share of D in registers
+_ERRORS = {
+    -1: f"head dim exceeds {MAX_HEAD_DIM}",
+    -2: "the keys and values one block needs exceed an SM's shared memory",
+    -3: "unsupported dtype",
+}
+
+
+def _check(q, k, v, name):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: q [B,N,H,D] and k, v [B,M,H,D] expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
+                         "on batch, heads or head dim")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v lie on {q.device}, {k.device}, {v.device}")
+    if k.shape[1] < 1:
+        raise ValueError(f"{name}: no keys")
+
+
+def _scale(q) -> float:
+    """1/sqrt(D) rounded to q's dtype, as a Python float (no device copy)."""
+    return float(torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=q.dtype))
+
+
+def _scaled(q):
+    """q / sqrt(D) in q's own dtype, the scale itself rounded to that dtype
+    first (what `q * scale` gives in the JAX package for a bfloat16 q)."""
+    return q * _scale(q)
+
+
+def _launch(fn_name, lib_name, tensors, out, ints):
+    """One launch of a `csrc` attention kernel on the current stream."""
+    q = tensors[0]
+    B, _, H, D = q.shape
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{fn_name}: {_ERRORS[-1]} (D={D})")
+    if B * H > 65535:
+        raise ValueError(f"{fn_name}: batch x heads = {B * H} exceeds the grid's 65535")
+    strides = []
+    for t in (*tensors, out):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{fn_name}: the head-dim axis must be contiguous")
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    fn = getattr(cuda.load(lib_name), fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (1 + len(ints))
+                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), _DTYPES[q.dtype],
+                 *ints, (ctypes.c_int64 * 12)(*strides), _scale(q), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: " + _ERRORS.get(err, f"launch failed, cudaError {err}"))
+    return out
+
+
+# ---------------------------------------------------------------- K3
+
+def sr_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `sr_attention`, with the kernel's roundings:
+    q scaled in its own dtype, scores accumulated in float32, softmax in
+    float32, probabilities cast to v's dtype, the second product accumulated
+    in float32, output in q's dtype."""
+    _check(q, k, v, "sr_attention")
+    scores = torch.einsum("bnhd,bmhd->bhnm", _scaled(q).float(), k.float())
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
+
+
+def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Fused spatial-reduction attention: q [B, N, H, D] against k, v
+    [B, M, H, D]; returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D)
+    happens here. Any N; D <= 128; K and V of one (batch, head) must fit an
+    SM's shared memory (M = 512 at D = 64 in bfloat16 does), else it raises.
+    bfloat16 runs on the tensor cores, float32 on the CUDA cores.
+
+    Forward only, like the JAX package's kernel: raises when an input
+    requires grad while grad is enabled. A CUDA tensor launches the kernel
+    (and adds one to `sr_attention.launches`); a CPU tensor runs
+    `sr_attention_reference`.
+    """
+    _check(q, k, v, "sr_attention")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("sr_attention is forward only; run it under torch.no_grad() "
+                           "or train with use_pallas_attention=False")
+    if q.device.type == "cuda":
+        B, N, H, D = q.shape
+        out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+        _launch("f3s_sr_attention", "sr_attention", (q, k, v), out, (B, N, k.shape[1], H, D))
+        sr_attention.launches += 1
+        return out
+    if q.device.type == "cpu":
+        return sr_attention_reference(q, k, v)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+sr_attention.launches = 0
+
+
+# ---------------------------------------------------------------- K2
+
+def _check_window(q, height, width, window):
+    if q.shape[1] != height * width:
+        raise ValueError(f"neighborhood_attention: N={q.shape[1]} is not "
+                         f"height*width = {height}*{width}")
+    if window < 1 or window % 2 == 0:
+        raise ValueError(f"neighborhood_attention: window must be odd, got {window}")
+
+
+def neighborhood_attention_reference(q, k, v, height: int, width: int, window: int):
+    """Plain PyTorch version of `neighborhood_attention` (gathers every
+    query's window; differentiable, and the route of the kernel's backward).
+    q, k, v: [B, N = height*width, H, D]. Roundings as in the kernel: q scaled
+    in its own dtype, everything else in float32, output in q's dtype. The
+    window is masked at the borders: a corner query sees only its in-image
+    neighbours."""
+    _check(q, k, v, "neighborhood_attention")
+    _check_window(q, height, width, window)
+    r = window // 2
+    dev = q.device
+    off = torch.arange(-r, r + 1, device=dev)
+    ny = torch.arange(height, device=dev)[:, None, None, None] + off[None, None, :, None]
+    nx = torch.arange(width, device=dev)[None, :, None, None] + off[None, None, None, :]
+    valid = ((ny >= 0) & (ny < height) & (nx >= 0) & (nx < width)).reshape(-1, window * window)
+    idx = (ny.clamp(0, height - 1) * width + nx.clamp(0, width - 1)).reshape(-1, window * window)
+    kg = k[:, idx].float()  # [B, N, W2, H, D]
+    vg = v[:, idx].float()
+    s = torch.einsum("bnhd,bnwhd->bnhw", _scaled(q).float(), kg)
+    s = s.masked_fill(~valid[None, :, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bnhw,bnwhd->bnhd", p, vg).to(q.dtype)
+
+
+class _NeighborhoodAttention(torch.autograd.Function):
+    """Forward through the kernel, backward through the plain version's
+    autograd, gradients cast back to the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, height, width, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.geometry = (height, width, window)
+        B, N, H, D = q.shape
+        out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+        _launch("f3s_neighborhood_attention", "neighborhood_attention", (q, k, v), out,
+                (B, height, width, window, H, D))
+        neighborhood_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = neighborhood_attention_reference(q, k, v, *ctx.geometry)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g.to(out.dtype))
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
+    """Fused sliding-window attention: q, k, v [B, N = height*width, H, D];
+    returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D) happens here.
+    Any height and width, odd `window`, D <= 128.
+
+    A CUDA tensor launches the kernel (and adds one to
+    `neighborhood_attention.launches`), with its gradient taken through
+    `neighborhood_attention_reference`; a CPU tensor runs that plain version.
+    """
+    _check(q, k, v, "neighborhood_attention")
+    _check_window(q, height, width, window)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("neighborhood_attention: k, v must have q's token count")
+    if q.device.type == "cuda":
+        return _NeighborhoodAttention.apply(q, k, v, height, width, window)
+    if q.device.type == "cpu":
+        return neighborhood_attention_reference(q, k, v, height, width, window)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+neighborhood_attention.launches = 0

@@ -1,0 +1,75 @@
+"""Device-resident 2D->3D streaming: model masks feed voting without host IO.
+
+Counterpart of `fusion3dseg_tpu/pipeline/streaming.py`. The stage contract
+elsewhere moves masks through PNG files; here RGB frames are the only input,
+and inference -> confidence thresholding -> nearest resize to depth
+resolution -> vote accumulation all run on the segmenter's device, batch by
+batch. No mask files, no host round trips between stages.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fusion3dseg_tpu_torch.ops import voting as voting_ops
+from fusion3dseg_tpu_torch.pipeline.get2dseg import resize_bilinear
+
+
+def _vote_logits(votes, logits, uv2pt, depth_hw, nclasses, conf_threshold):
+    """Threshold + resize + vote a batch of logits into `votes`, in place.
+
+    votes [npts, nclasses+1] int32; logits [B, H, W, nclasses+1] float32;
+    uv2pt [B, Hd*Wd] int. Returns `votes`."""
+    # argmax class + softmax confidence -> the unclassified rule
+    sem = logits.argmax(dim=-1)
+    conf = torch.softmax(logits, dim=-1).amax(dim=-1)
+    # the threshold as a float32, compared in float32 (no device copy)
+    sem = torch.where(conf < float(np.float32(conf_threshold)), nclasses, sem)
+    # nearest resize to depth resolution, sampling floor((i + 0.5) * scale)
+    sem = F.interpolate(sem[:, None].float(), size=tuple(depth_hw), mode="nearest-exact")
+    masks = sem[:, 0].reshape(len(logits), -1).to(torch.uint8)
+    for uv, m in zip(uv2pt, masks):
+        voting_ops.vote_frame(votes, uv, m, dedup=True)
+    return votes
+
+
+@torch.no_grad()
+def stream_segment(
+    session,  # io.rtab.SessionData (for the RGB frames)
+    segmenter,  # pipeline.get2dseg.Segmenter2D
+    uv2pt: np.ndarray,  # [F, Hd*Wd] int32 (fusion artifact, frame order of session)
+    npts: int,
+    nclasses: int = 133,
+    threshold: float = 0.5,
+    conf_threshold: float = 0.017,
+    filter_classes: Optional[Tuple[int, ...]] = None,
+    batch_size: int = 8,
+    verbose: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Run the model over every session frame and vote on the segmenter's
+    device.
+
+    Returns (votes [npts, nclasses+1] int32, classes [npts] int32) as NumPy
+    arrays: the contract of voting a session's mask files and classifying,
+    computed without writing or reading masks.
+    """
+    dev = segmenter.device
+    hd, wd = session.depth_hw
+    nf = session.nframes
+    rgb = torch.as_tensor(session.colors, device=dev).reshape(nf, hd, wd, 3)  # [0,1] float
+    uv2pt = torch.as_tensor(np.asarray(uv2pt, np.int32), device=dev)
+    votes = torch.zeros((npts, nclasses + 1), dtype=torch.int32, device=dev)
+
+    for i in range(0, nf, batch_size):
+        imgs = resize_bilinear(rgb[i:i + batch_size].float(), segmenter.input_hw)
+        _vote_logits(votes, segmenter.model(imgs), uv2pt[i:i + batch_size], (hd, wd),
+                     nclasses, conf_threshold)
+        if verbose:
+            print(f"streamed {min(i + batch_size, nf)}/{nf} frames")
+
+    classes = voting_ops.classify(votes, threshold, nclasses, filter_classes)
+    return votes.cpu().numpy(), classes.cpu().numpy()

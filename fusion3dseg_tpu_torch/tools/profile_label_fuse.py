@@ -13,20 +13,13 @@ the kernels by device time. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
-import time
 
 import numpy as np
 import torch
 
 from fusion3dseg_tpu_torch.io.workload import make_workload
 from fusion3dseg_tpu_torch.ops import label_fuse as lf
-
-
-def _device_us(e):
-    # renamed from self_cuda_time_total in newer torch releases
-    t = getattr(e, "self_device_time_total", None)
-    return e.self_cuda_time_total if t is None else t
+from fusion3dseg_tpu_torch.tools.profiling import profile_run
 
 
 def main(argv=None):
@@ -38,10 +31,6 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
     hw, nclasses = (256, 192), 133
     points, K, quats, trans, masks = make_workload(npts, frames, hw)
     cells_table, cell_lists, counts = lf.build_cell_index(points, K, quats, trans, hw,
@@ -60,24 +49,8 @@ def main(argv=None):
     run(*dev_args)
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run(*dev_args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(_device_us(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    print(f"card: {smi}")
-    print(f"profiled run: {npts} pts x {frames} frames, id_bits {args.id_bits}, wall {wall * 1e3:.2f} ms "
-          f"(profiler on); device kernel time {dev_us / 1e3:.2f} ms in {launches} "
-          f"launches; device busy share {dev_us / 1e6 / wall:.3f}")
-    kernels.sort(key=lambda e: -_device_us(e))
-    for e in kernels[:25]:
-        print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
-              f"{100 * _device_us(e) / max(dev_us, 1):5.1f}%  {e.key[:90]}")
+    profile_run(lambda: run(*dev_args),
+                f"{npts} pts x {frames} frames, id_bits {args.id_bits}")
 
 
 if __name__ == "__main__":

@@ -93,3 +93,125 @@ def test_label_fuse_session_cuda_matches_cpu(cuda_device):
     agree = (cls_g.cpu() == cls_c).double().mean().item()
     assert agree >= 0.999, agree
     assert (vmax_g.cpu() <= tot_g.cpu()).all()
+
+
+# ---------------------------------------------------------------- attention
+
+BF16_BAR, F32_BAR = 2e-2, 1e-4  # unit-normal inputs; outputs are O(1)
+
+
+def _qkv(shape_q, shape_kv, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype).to(device)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,D,M,dtype", [
+    (8, 4096, 1, 64, 64, torch.bfloat16),  # B2 stage 0 at 256x256
+    (8, 1024, 2, 64, 64, torch.bfloat16),  # B2 stage 1
+    (1, 1000, 3, 32, 37, torch.float32),  # ragged everything
+    (2, 77, 2, 8, 5, torch.float32),  # the smallest lane chunk
+    (1, 512, 1, 128, 300, torch.bfloat16),  # the largest head dim, M past 48 KB
+    (1, 300, 2, 24, 40, torch.bfloat16),  # D between chunk sizes: zero-padded rows
+])
+def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    q, k, v = _qkv((B, N, H, D), (B, M, H, D), dtype, cuda_device)
+    before = attn.sr_attention.launches
+    got = attn.sr_attention(q, k, v)
+    assert attn.sr_attention.launches == before + 1
+    want = attn.sr_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
+    assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    # q, k, v as slices of one fused projection: token and head strides differ
+    qkv = torch.randn((2, 640, 3, 2, 16), device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :40, 1], qkv[:, :40, 2]
+    got = attn.sr_attention(q, k, v)
+    want = attn.sr_attention_reference(q.contiguous(), k.contiguous(), v.contiguous())
+    assert (got - want).abs().max().item() <= F32_BAR
+    with pytest.raises(RuntimeError, match="forward only"):
+        attn.sr_attention(q.clone().requires_grad_(True), k, v)
+    big = torch.zeros((1, 8, 1, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.sr_attention(big, big, big)
+    many = torch.zeros((1, 5000, 1, 128), device=cuda_device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        attn.sr_attention(many, many, many)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,w,H,D,window,dtype", [
+    (8, 64, 64, 1, 64, 7, torch.bfloat16),  # B2 stage 0 at 256x256
+    (1, 9, 11, 2, 8, 5, torch.float32),  # a grid no tile divides
+    (2, 16, 24, 2, 16, 5, torch.float32),
+    (1, 20, 7, 1, 24, 3, torch.bfloat16),  # D between chunk sizes
+    (1, 5, 5, 1, 128, 9, torch.bfloat16),  # the window wider than the image
+])
+def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D, window, dtype):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    q, k, v = _qkv((B, h * w, H, D), (B, h * w, H, D), dtype, cuda_device)
+    before = attn.neighborhood_attention.launches
+    got = attn.neighborhood_attention(q, k, v, h, w, window)
+    assert attn.neighborhood_attention.launches == before + 1
+    want = attn.neighborhood_attention_reference(q, k, v, h, w, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
+    assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_neighborhood_attention_backward(cuda_device, dtype):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    h, w, window = 9, 11, 5
+    qkv = _qkv((2, h * w, 2, 8), (2, h * w, 2, 8), dtype, cuda_device)
+    wgt = torch.randn(qkv[0].shape, device=cuda_device)
+    grads = []
+    for fn in (attn.neighborhood_attention, attn.neighborhood_attention_reference):
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        (fn(*leaves, h, w, window).float() * wgt).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, p in zip(*grads):
+        assert g.dtype == dtype
+        assert (g.float() - p.float()).abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"use_pallas_attention": True}, {"nat_windows": (5, 0, 0, 0)}],
+                         ids=["sr_kernel", "nat_kernel"])
+def test_segmenter_cuda_matches_cpu(cuda_device, kw):
+    # the segmenter on the card (through the kernels) against the port on
+    # the CPU (which the CPU tests hold to JAX): float32, a tiny config at
+    # 128x128 so that stage 0 has N = 1024 and takes the fused branch
+    from fusion3dseg_tpu_torch.io.synthetic import make_session
+    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    cfg = SegFormerConfig(num_classes=134, embed_dims=(8, 16, 24, 32), depths=(1, 1, 1, 1),
+                          num_heads=(1, 2, 3, 4), decoder_dim=32, dtype=torch.float32, **kw)
+    frames = make_session(nframes=2, depth_hw=(48, 36), appearance="textured").colors
+    counter = attn.sr_attention if "use_pallas_attention" in kw else attn.neighborhood_attention
+    before = counter.launches
+    on_card = Segmenter2D(cfg, input_hw=(128, 128), batch_size=2, seed=0, device="cuda")
+    on_cpu = Segmenter2D(cfg, input_hw=(128, 128), batch_size=2, seed=0, device="cpu")
+    x = on_cpu._model_input(frames)
+    lg = on_card._logits_sem_conf(x.cuda(), 0.0, (48, 36))[0].cpu()
+    lc = on_cpu._logits_sem_conf(x, 0.0, (48, 36))[0]
+    assert counter.launches == before + 1
+    assert (lg - lc).abs().max().item() <= 1e-3
+    agree = (on_card.predict_batch(frames, 0.0) == on_cpu.predict_batch(frames, 0.0)).mean()
+    assert agree >= 0.98, agree

@@ -16,10 +16,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "fusion3dseg_tpu" or m.startswith("fusion3dseg_tpu."))
+             if m.split(".")[0] in ("jax", "flax", "cv2", "fusion3dseg_tpu"))
 print(len(names), "modules;", "bad:", bad)
-assert len(names) >= 9 and not bad, bad
+assert len(names) >= 26 and not bad, bad
 
 import numpy as np, pytest
 from fusion3dseg_tpu_torch.ops import label_fuse
@@ -30,6 +29,9 @@ for call in (
         pts, np.eye(3), np.tile([1.0, 0, 0, 0], (2, 1)), np.zeros((2, 3)),
         np.zeros((2, 12), np.uint8), (3, 4), device="cuda"),
     lambda: label_fuse.tpu_label_fuse(4, 10, (3, 4)),  # the default device
+    lambda: __import__("fusion3dseg_tpu_torch.pipeline.get2dseg", fromlist=["x"]).Segmenter2D(),
+    lambda: __import__("fusion3dseg_tpu_torch.ops.voting", fromlist=["x"]).vote_and_classify(
+        np.zeros((1, 4), np.int32), np.zeros((1, 4), np.uint8), 3, 5),
 ):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -59,7 +61,7 @@ def test_chip_smoke_imports_and_refusals(tmp_path):
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module or "")
     for m in mods:
-        assert m.split(".")[0] not in ("jax", "fusion3dseg_tpu", "bench"), m
+        assert m.split(".")[0] not in ("jax", "flax", "cv2", "fusion3dseg_tpu", "bench"), m
     # without a card: non-zero exit and no result line
     r = _run([str(ROOT / "chip_smoke.py")], cwd=ROOT)
     assert r.returncode != 0 and '"ok"' not in r.stdout, r.stdout + r.stderr
