@@ -8,8 +8,10 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device   the card's name, count and power limit; TF32 off for the run.
 2. build    every CUDA kernel from `fusion3dseg_tpu_torch/csrc/`, one nvcc
             per source, all started together.
-3. kernels  each kernel against its plain PyTorch version on the card at the
-            main path's shapes (exact), and both timed with CUDA events.
+3. kernels  the histogram kernel against its plain PyTorch version on the
+            card (exact) at the main path's shape on the label lifter's own
+            row pitch, sparse and dense, on an odd pitch, on ragged shapes and
+            with 254 classes; timed in a CUDA graph beside its bound.
 4. headline the session label lifter `label_fuse_session` on the 1M-point,
             300-frame, 256x192, 133-class workload: timed, its kernel
             launches counted, held exactly to the same run classified by
@@ -127,10 +129,13 @@ def label_phases(card):
     # ---- 3. K1 against its plain version, and timed
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def random_c(F, N, nclasses, stride_extra=0):
-        C = torch.randint(0, nclasses + 1, (F, N + stride_extra), device=dev,
-                          dtype=torch.int32, generator=gen)
-        invalid = torch.rand((F, N + stride_extra), device=dev, generator=gen) < 0.85
+    def random_c(F, N, nclasses, pitch, invalid_share=0.85):
+        """[F, N] view of rows `pitch` bytes apart; 85% invalid is what a
+        sparse session leaves (a point is seen in few frames), 10% a point
+        seen in most."""
+        C = torch.randint(0, nclasses + 1, (F, pitch), device=dev, dtype=torch.int32,
+                          generator=gen)
+        invalid = torch.rand((F, pitch), device=dev, generator=gen) < invalid_share
         return torch.where(invalid, 255, C).to(torch.uint8)[:, :N]
 
     def check(C, nclasses, threshold):
@@ -142,33 +147,65 @@ def label_phases(card):
             err = max(err, int((g.long() - w.long()).abs().max()))
         if err != 0:
             fail(f"K1 disagrees with its plain version at {tuple(C.shape)}, "
-                 f"nclasses={nclasses}: max abs err {err}")
+                 f"stride {C.stride(0)}, nclasses={nclasses}: max abs err {err}")
         return err
 
+    def timed_k1(C, name):
+        k_ms = graph_ms(lambda: hist.histogram_classify(C, NCLASSES, 0.5), iters=20)
+        F, N = C.shape
+        bytes_moved = F * N + 3 * 4 * N
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * F * N / F32_OPS_PER_S * 1e3  # one compare + one increment per byte
+        return {"shape": f"[{F}, {N}] {name}", "ms": k_ms, "plain_ms": None,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None}, bytes_moved
+
     max_err = 0
-    # the main path's layout: rows npts + 1 bytes apart (the trash column)
-    C_main = random_c(NFRAMES, NPTS, NCLASSES, stride_extra=1)
-    cases = [(C_main, NCLASSES, 0.5), (random_c(301, 1_000_003, NCLASSES), NCLASSES, 0.6),
-             (random_c(NFRAMES, NPTS, 254), 254, 0.5)]
-    for C, nc, thr in cases:
+    # the main path's layout: the label lifter's own row pitch (rows start on
+    # 16-byte boundaries: the tiled kernel), sparse and dense; then a pitch of
+    # N + 1 and ragged shapes on an odd pitch (the byte kernel) and an
+    # aligned one, and the largest class count
+    pitch = hist.row_pitch(NPTS + 1)
+    rows = []  # the first timed layout is the entry's own
+    for name, make, nc, thr, time_it in (
+            ("aligned pitch, 85% invalid", lambda: random_c(NFRAMES, NPTS, NCLASSES, pitch),
+             NCLASSES, 0.5, True),
+            ("aligned pitch, 10% invalid",
+             lambda: random_c(NFRAMES, NPTS, NCLASSES, pitch, 0.10), NCLASSES, 0.5, True),
+            ("odd pitch N + 1, 85% invalid",
+             lambda: random_c(NFRAMES, NPTS, NCLASSES, NPTS + 1), NCLASSES, 0.5, True),
+            ("ragged, odd pitch", lambda: random_c(301, 1_000_003, NCLASSES, 1_000_003),
+             NCLASSES, 0.6, False),
+            ("ragged, aligned pitch",
+             lambda: random_c(301, 1_000_003, NCLASSES, hist.row_pitch(1_000_003)),
+             NCLASSES, 0.6, False),
+            ("nclasses 254, aligned pitch", lambda: random_c(NFRAMES, NPTS, 254, pitch),
+             254, 0.5, False)):
+        C = make()
+        tiled = hist.rows_aligned(C.data_ptr(), C.stride(0), C.shape[0])
         max_err = max(max_err, check(C, nc, thr))
-        log(f"kernels: histogram_classify {tuple(C.shape)} stride {C.stride(0)} "
-            f"nclasses={nc} threshold={thr}: exact vs plain version")
-    F, N = C_main.shape
-    k_ms = event_ms(lambda: hist.histogram_classify(C_main, NCLASSES, 0.5), iters=50)
-    p_ms = event_ms(lambda: hist.histogram_classify_reference(C_main, NCLASSES, 0.5),
-                    iters=3, warmup=1)
-    bytes_moved = F * N + 3 * 4 * N
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * F * N / F32_OPS_PER_S * 1e3  # one compare + one increment per byte
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"kernels: histogram_classify [{F}, {N}] {card}: kernel {k_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s), "
-        f"{100 * bound_ms / k_ms:.1f}% of bound, "
-        f"{bytes_moved / (k_ms * 1e-3) / 1e12:.3f} TB/s; plain version {p_ms:.3f} ms")
-    del C_main, cases
-    torch.cuda.empty_cache()
+        log(f"kernels: histogram_classify {tuple(C.shape)} stride {C.stride(0)} ({name}; "
+            f"{'tiled' if tiled else 'byte'} kernel) nclasses={nc} threshold={thr}: "
+            "exact vs plain version")
+        if time_it:
+            row, bytes_moved = timed_k1(C, name)
+            extra = ""
+            if not rows:  # there also the plain version, and the time between
+                # CUDA events around single calls, as earlier runs read it
+                row["plain_ms"] = event_ms(
+                    lambda: hist.histogram_classify_reference(C, NCLASSES, 0.5), iters=3, warmup=1)
+                e_ms = event_ms(lambda: hist.histogram_classify(C, NCLASSES, 0.5), iters=50)
+                extra = (f"; between events around single calls {e_ms:.4f} ms; "
+                         f"plain version {row['plain_ms']:.3f} ms")
+            log(f"kernels: histogram_classify {row['shape']} {card}: kernel {row['ms']:.4f} ms "
+                f"(in a CUDA graph), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                f"{bytes_moved / 1e6:.1f} MB at 3.35 TB/s), "
+                f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
+                f"{bytes_moved / (row['ms'] * 1e-3) / 1e12:.3f} TB/s{extra}")
+            rows.append(row)
+        del C
+        torch.cuda.empty_cache()
 
     # ---- 4. the headline: 1M points x 300 frames through label_fuse_session
     t0 = time.perf_counter()
@@ -282,11 +319,8 @@ def label_phases(card):
         "replaces": "fusion3dseg_tpu/ops/histogram.py:33",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
+        **rows[0],
+        "other_shapes": rows[1:],
     }
 
 
@@ -376,8 +410,15 @@ def attention_phase(card):
            "replaces": "fusion3dseg_tpu/ops/attention.py:151", "launches": 0,
            "max_abs_err": 0.0}
     for B, h, w, H, D, window, dtype, time_it in (
-            (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", False),
-            (1, 9, 11, 2, 8, 5, "f32", False)):
+            (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", True),
+            (1, 9, 11, 2, 8, 5, "f32", False),
+            # windows 3, 9, 13 on grids no tile divides; head dims 24 and 128;
+            # head dims that rule out 16-byte (20) and 4-byte (7) accesses
+            (1, 20, 23, 2, 32, 3, "bf16", False), (2, 17, 19, 1, 64, 9, "bf16", False),
+            (1, 12, 30, 1, 64, 13, "bf16", False), (1, 13, 9, 1, 16, 13, "f32", False),
+            (1, 20, 7, 2, 24, 3, "bf16", False), (2, 10, 12, 2, 128, 5, "bf16", False),
+            (1, 11, 10, 1, 20, 5, "bf16", False), (1, 9, 9, 3, 7, 3, "bf16", False),
+            (1, 9, 9, 3, 7, 3, "f32", False)):
         N = h * w
         q, k, v = qkv((B, N, H, D), (B, N, H, D), dtype)
         shape = f"[{B},{h}*{w},{H},{D}] window {window}"
@@ -403,6 +444,20 @@ def attention_phase(card):
                   nbytes=4 * q.numel() * q.element_size(),
                   ops=4 * B * H * D * _window_pairs(h, r) * _window_pairs(w, r))
             del mask, near, lib
+
+    # q, k, v as slices of one fused projection [B, N, 3, H, D]: token and
+    # head strides differ from the shapes', bases are offset
+    for dtype in ("bf16", "f32"):
+        B, h, w, H, D, window = 2, 24, 20, 3, 32, 7
+        fused = torch.randn((B, h * w, 3, H, D), device=dev, generator=gen).to(dtypes[dtype])
+        q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+        err = held("neighborhood_attention", attn.neighborhood_attention(q, k, v, h, w, window),
+                   attn.neighborhood_attention_reference(q.contiguous(), k.contiguous(),
+                                                         v.contiguous(), h, w, window),
+                   dtype, "slices of a fused projection")
+        nat["max_abs_err"] = max(nat["max_abs_err"], err)
+        log(f"attention: neighborhood_attention [{B},{h}*{w},{H},{D}] window {window} {dtype}, "
+            f"q, k, v slices of one [B,N,3,H,D] tensor: max abs err {err:.3e} vs plain version")
 
     # K2's backward: through the kernel's autograd.Function against the
     # plain version's own autograd

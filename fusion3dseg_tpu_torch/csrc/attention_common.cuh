@@ -1,6 +1,8 @@
 // Helpers shared by the attention kernels: conversions between the storage
 // type T (float or __nv_bfloat16) and float32, vector loads of a lane's
-// chunk of a row, and the strides of a [B, tokens, H, D] tensor.
+// chunk of a row, the strides of a [B, tokens, H, D] tensor, the bfloat16
+// tensor-core product (mma.sync m16n8k16) with its fragment loads
+// (ldmatrix), and 16-byte asynchronous copies into shared memory.
 
 #pragma once
 
@@ -65,5 +67,66 @@ __device__ __forceinline__ void load_chunk(const T* p, float (&out)[DPL]) {
 struct Strides {
   int64_t b, n, h;  // elements; the last axis is contiguous
 };
+
+// ---- bfloat16 on the tensor cores
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x in one instruction: relative error about 2^-22, 0 for x = -inf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// c[16x8] += a[16x16] * b[16x8], bfloat16 in, float32 accumulators. A lane
+// (g = lane / 4, t = lane % 4) holds: a0..a3 = rows g, g + 8, g, g + 8 at
+// columns 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3); b0, b1 = column g
+// at rows 2t, 2t + 1 and 2t + 8, 2t + 9; c0, c1 = row g, c2, c3 = row g + 8,
+// at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8x8 bfloat16 matrices from shared memory: lane L gives the 16-byte
+// row L % 8 of matrix L / 8; every lane receives, of each matrix, row
+// lane / 4, columns 2 * (lane % 4) and the next. `.trans` hands out the
+// transposed matrices: rows 2 * (lane % 4) and the next, column lane / 4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// ---- asynchronous copies
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes to shared memory: the first `src_bytes` (0 or 16) from `src`,
+// the rest zeros. `src` must be a valid 16-byte-aligned address either way.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(smem_dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 }  // namespace f3s

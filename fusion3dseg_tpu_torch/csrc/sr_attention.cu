@@ -180,21 +180,6 @@ using BF = __nv_bfloat16;
 constexpr int kMmaThreads = 256;
 constexpr int kMmaQueries = kMmaThreads / 32 * 16;  // eight warps of 16 query rows
 constexpr float kMasked = -1e30f;  // score of a padding key: exp() of it is 0
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Scores of this warp's 16 query rows against keys key0 .. key0 + 15, as two
 // m16n8 accumulator fragments: s[j][0..1] row g, s[j][2..3] row g + 8, keys

@@ -9,10 +9,16 @@ The build directory is `build/` beside the package, or the directory named
 by `F3S_TORCH_BUILD_DIR`. Each library's file name carries a hash of its
 source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
 builds anew.
+
+`build(names, defines=...)` compiles a variant with preprocessor macros
+set; `tools/kernel_parts.py` uses it to time a kernel with its loads or its
+arithmetic switched off (`F3S_PARTS`), and `use_variant` to launch it
+through the ordinary wrapper.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -73,29 +79,33 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 BUILDS: dict[str, Built] = {}
 
 
-def _target(name: str) -> Path:
+def _target(name: str, flags) -> Path:
     # the shared headers are part of every source's identity
     src = b"".join(p.read_bytes() for p in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 
 
-def build(names) -> dict[str, Built]:
+def build(names, defines=()) -> dict[str, Built]:
     """Compile the named sources, one nvcc process each, all started
     together. Sources whose library is already built are not compiled.
-    Raises with nvcc's output when a compile fails."""
+    `defines` ("NAME=value", ...) builds a variant with those macros set,
+    kept apart from the plain build. Raises with nvcc's output when a
+    compile fails."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    keys = {name: "|".join((name, *defines)) for name in names}
     procs = {}
-    for name in names:
-        if name in BUILDS:
+    for name, key in keys.items():
+        if key in BUILDS:
             continue
-        target = _target(name)
+        target = _target(name, flags)
         if target.exists():
-            BUILDS[name] = Built(name, target, 0.0, "")
+            BUILDS[key] = Built(name, target, 0.0, "")
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())
@@ -106,10 +116,10 @@ def build(names) -> dict[str, Built]:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         os.replace(tmp, target)
-        BUILDS[name] = Built(name, target, time.perf_counter() - t0, log)
+        BUILDS[keys[name]] = Built(name, target, time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {n: BUILDS[n] for n in names}
+    return {n: BUILDS[keys[n]] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -118,3 +128,15 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name].path))
     return lib
+
+
+@contextlib.contextmanager
+def use_variant(name: str, defines):
+    """Within the block, `load(name)` (and so the kernel's wrapper) gives
+    the variant of `name` built with `defines`. For measurement tools."""
+    plain = load(name)
+    _LIBS[name] = ctypes.CDLL(str(build([name], defines)[name].path))
+    try:
+        yield
+    finally:
+        _LIBS[name] = plain

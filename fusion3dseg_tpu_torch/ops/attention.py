@@ -12,7 +12,8 @@ Each wrapper launches its hand-written CUDA kernel (`csrc/sr_attention.cu`,
 version (`*_reference`) on CPU tensors. Nothing else selects between them: a
 CUDA tensor either launches the kernel or raises. Both take q pre-scaling on
 themselves (callers must not scale) and read `[B, tokens, H, D]` tensors
-through their strides.
+through their strides. In bfloat16 both run their products on the tensor
+cores (`mma.sync`), in float32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -142,8 +143,10 @@ def neighborhood_attention_reference(q, k, v, height: int, width: int, window: i
     """Plain PyTorch version of `neighborhood_attention` (gathers every
     query's window; differentiable, and the route of the kernel's backward).
     q, k, v: [B, N = height*width, H, D]. Roundings as in the kernel: q scaled
-    in its own dtype, everything else in float32, output in q's dtype. The
-    window is masked at the borders: a corner query sees only its in-image
+    in its own dtype, everything else in float32 (the bfloat16 kernel feeds
+    the tensor cores each probability as a bfloat16 high part and a bfloat16
+    remainder, which keeps it float32-grade), output in q's dtype. The window
+    is masked at the borders: a corner query sees only its in-image
     neighbours."""
     _check(q, k, v, "neighborhood_attention")
     _check_window(q, height, width, window)
@@ -189,7 +192,11 @@ class _NeighborhoodAttention(torch.autograd.Function):
 def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
     """Fused sliding-window attention: q, k, v [B, N = height*width, H, D];
     returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D) happens here.
-    Any height and width, odd `window`, D <= 128.
+    Any height and width, odd `window`, D <= 128; the (8 + window - 1)^2
+    keys and values around an 8 x 8 tile of queries must fit an SM's shared
+    memory (window 13 at D = 128 in bfloat16 does), else it raises. Head dims
+    and strides that are multiples of 16 bytes are staged 16 bytes a copy,
+    others an element at a time.
 
     A CUDA tensor launches the kernel (and adds one to
     `neighborhood_attention.launches`), with its gradient taken through

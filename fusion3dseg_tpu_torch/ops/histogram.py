@@ -8,6 +8,12 @@ the thresholded argmax of its column's histogram.
 `csrc/histogram.cu` on a CUDA tensor and runs the plain PyTorch version
 `histogram_classify_reference` on a CPU tensor. Nothing else selects
 between them: a CUDA tensor either launches the kernel or raises.
+
+The source holds two kernels. Rows that start on 16-byte boundaries
+(`rows_aligned`) stream through a ring of 16-byte asynchronous copies in
+shared memory at about half of the card's memory rate; any other view goes
+through a byte-per-thread loop at under a third of it. `row_pitch` is the
+pitch a producer of C allocates to get the first.
 """
 
 from __future__ import annotations
@@ -20,6 +26,23 @@ from fusion3dseg_tpu_torch import cuda
 
 INVALID = 255
 MAX_ROWS = 65535  # the kernel's per-column counters are 16-bit
+ROW_ALIGN = 128  # bytes; a multiple of the 16 bytes the fast kernel's copies need
+
+
+def row_pitch(ncols: int) -> int:
+    """Bytes between the rows of a [F, ncols] uint8 matrix allocated for
+    `histogram_classify`: `ncols` rounded up to a multiple of ROW_ALIGN, so
+    that every row starts on a 16-byte boundary when the first does."""
+    if ncols < 0:
+        raise ValueError(f"ncols must not be negative, got {ncols}")
+    return -(-ncols // ROW_ALIGN) * ROW_ALIGN
+
+
+def rows_aligned(data_ptr: int, row_stride: int, nrows: int) -> bool:
+    """Whether every row of a uint8 matrix starts on a 16-byte boundary: the
+    one condition that selects the fast kernel (the launcher in
+    `csrc/histogram.cu` applies the same test)."""
+    return data_ptr % 16 == 0 and (nrows <= 1 or row_stride % 16 == 0)
 
 
 def _check(C, nclasses):
@@ -64,7 +87,7 @@ def _launch(C, nclasses, threshold):
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ]
     fn.restype = ctypes.c_int
     total = torch.empty(N, dtype=torch.int32, device=C.device)
@@ -73,9 +96,11 @@ def _launch(C, nclasses, threshold):
     with torch.cuda.device(C.device):
         stream = torch.cuda.current_stream(C.device).cuda_stream
         err = fn(C.data_ptr(), F, N, C.stride(0), nclasses, threshold,
-                 total.data_ptr(), vmax.data_ptr(), classes.data_ptr(), stream)
+                 total.data_ptr(), vmax.data_ptr(), classes.data_ptr(), stream,
+                 int(rows_aligned(C.data_ptr(), C.stride(0), F)))
     if err != 0:
-        raise RuntimeError(f"histogram kernel launch failed: cudaError {err}")
+        raise RuntimeError("histogram kernel launch failed: " +
+                           ("rows not 16-byte aligned" if err == -1 else f"cudaError {err}"))
     histogram_classify.launches += 1
     return (total, vmax), classes
 
@@ -85,8 +110,9 @@ def histogram_classify(C: torch.Tensor, nclasses: int, threshold: float = 0.5):
 
     Returns ((total [N], vmax [N]) int32, classes [N] int32) — the contract
     of the JAX package's `histogram_classify_tpu`. A CUDA tensor launches
-    the kernel (and adds one to `histogram_classify.launches`); a CPU tensor
-    runs `histogram_classify_reference`.
+    the kernel (and adds one to `histogram_classify.launches`): the tiled
+    one where `rows_aligned` holds, the byte-per-thread one for any other
+    base or pitch. A CPU tensor runs `histogram_classify_reference`.
     """
     _check(C, nclasses)
     if C.device.type == "cuda":

@@ -26,6 +26,7 @@ from fusion3dseg_tpu_torch.geometry import camera
 from fusion3dseg_tpu_torch.ops.histogram import (
     histogram_classify,
     histogram_classify_reference,
+    row_pitch,
 )
 from fusion3dseg_tpu_torch.ops.zbuffer import (
     INT32_MAX,
@@ -262,8 +263,12 @@ class _Session:
 
 def _winner_matrix(npts, nframes, dev):
     """C [F, npts + 1] uint8 filled with INVALID; column npts is the trash
-    slot that pixels without a winner write to."""
-    return torch.full((nframes, npts + 1), INVALID, dtype=torch.uint8, device=dev)
+    slot that pixels without a winner write to. A view of an allocation
+    whose rows lie `row_pitch(npts + 1)` bytes apart, so that every row
+    starts on a 16-byte boundary and `histogram_classify` takes its fast
+    kernel; the padding beyond column npts is never read."""
+    wide = torch.full((nframes, row_pitch(npts + 1)), INVALID, dtype=torch.uint8, device=dev)
+    return wide[:, :npts + 1]
 
 
 def _set_row(C, f, win_id, has, mask, npts):

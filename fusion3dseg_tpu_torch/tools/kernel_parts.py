@@ -1,0 +1,64 @@
+"""What bounds kernels K1 and K2 on the card: each timed whole, with its
+loads left out and with its arithmetic left out.
+
+    python -m fusion3dseg_tpu_torch.tools.kernel_parts
+
+Builds `csrc/histogram.cu` and `csrc/neighborhood_attention.cu` three times
+(`F3S_PARTS` unset, 1 and 2) and times every variant at the shapes of the
+kernel table: K1 at [300, 1M] uint8, 133 classes, the label lifter's row
+pitch, 85% and 10% of entries invalid; K2 at [8, 64*64, 1, 64] and
+[2, 128*128, 1, 64], window 7, bfloat16. Each variant runs 20 times inside
+one CUDA graph, replayed 5 times between two CUDA events. The variants with
+a part left out compute wrong results by design; only their times count.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fusion3dseg_tpu_torch import cuda
+from fusion3dseg_tpu_torch.ops import attention as attn
+from fusion3dseg_tpu_torch.ops import histogram as hist
+from fusion3dseg_tpu_torch.tools.profiling import card_line
+from fusion3dseg_tpu_torch.tools.time_kernels import graph_ms
+
+VARIANTS = (("whole", ()), ("loads left out", ("F3S_PARTS=1",)),
+            ("arithmetic left out", ("F3S_PARTS=2",)))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"card: {card_line()}")
+
+    F, N, nclasses = 300, 1_000_000, 133
+    pitch = hist.row_pitch(N + 1)
+    cases = []
+    for share in (0.85, 0.10):
+        C = torch.randint(0, nclasses + 1, (F, pitch), device=dev, dtype=torch.int32,
+                          generator=gen)
+        C = torch.where(torch.rand((F, pitch), device=dev, generator=gen) < share, 255, C)
+        C = C.to(torch.uint8)[:, :N]
+        cases.append((f"K1 histogram_classify [{F}, {N}] pitch {pitch}, "
+                      f"{round(100 * share)}% invalid", "histogram",
+                      lambda C=C: hist.histogram_classify(C, nclasses, 0.5)))
+    for B, h, w in ((8, 64, 64), (2, 128, 128)):
+        q, k, v = (torch.randn((B, h * w, 1, 64), device=dev, generator=gen).bfloat16()
+                   for _ in range(3))
+        cases.append((f"K2 neighborhood_attention [{B},{h}*{w},1,64] window 7 bf16",
+                      "neighborhood_attention",
+                      lambda q=q, k=k, v=v, h=h, w=w: attn.neighborhood_attention(q, k, v, h, w, 7)))
+    for title, lib, fn in cases:
+        times = []
+        for _, defines in VARIANTS:
+            with cuda.use_variant(lib, defines):
+                times.append(graph_ms(fn))
+        print(f"{title}: " + ", ".join(f"{name} {ms:.4f} ms"
+                                       for (name, _), ms in zip(VARIANTS, times)))
+
+
+if __name__ == "__main__":
+    main()

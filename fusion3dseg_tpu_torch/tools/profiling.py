@@ -23,11 +23,16 @@ def _device_us(e):
     return e.self_cuda_time_total if t is None else t
 
 
+# the port's hand-written kernels, by the names their sources give them
+OWN_KERNELS = ("hist_tiled_kernel", "hist_bytes_kernel", "sr_attention_", "nat_")
+
+
 def profile_run(run, title: str, top: int = 25) -> None:
     """Run `run()` once under `torch.profiler` (the caller has warmed it up)
     and print the wall time, the summed device time of its kernels, their
     share of the wall time (the device's busy share) and the kernels by
-    device time."""
+    device time: the `top` longest, then any hand-written kernel of the
+    port that is not among them."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -43,6 +48,7 @@ def profile_run(run, title: str, top: int = 25) -> None:
           f"time {dev_us / 1e3:.2f} ms in {launches} launches; device busy share "
           f"{dev_us / 1e6 / wall:.3f}")
     kernels.sort(key=lambda e: -_device_us(e))
-    for e in kernels[:top]:
+    own = [e for e in kernels[top:] if any(name in e.key for name in OWN_KERNELS)]
+    for e in kernels[:top] + own:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
-              f"{100 * _device_us(e) / max(dev_us, 1):5.1f}%  {e.key[:90]}")
+              f"{100 * _device_us(e) / max(dev_us, 1):5.2f}%  {e.key[:90]}")

@@ -1,0 +1,83 @@
+"""Times of kernels K1 and K2 at the kernel table's shapes, for any
+checkout of the port, so that two commits can be timed in one process run
+after the other on one card.
+
+    python fusion3dseg_tpu_torch/tools/time_kernels.py [--root DIR]
+
+`--root` names the checkout whose `fusion3dseg_tpu_torch` is imported
+(default: the one this file lies in); it uses only what every version of
+the port has (`histogram_classify`, `neighborhood_attention`). K1: [300, 1M]
+uint8, rows 1,000,064 bytes apart (16-byte aligned) and 1,000,001 bytes
+apart; 133 classes with 85% and 10% of entries invalid, then 254 and 20
+classes (the counters decide how many blocks an SM holds). K2:
+[8, 64*64, 1, 64] window 7 in bfloat16 and float32. Each kernel runs 20 times inside one CUDA
+graph, replayed 5 times between two CUDA events. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device time of one `fn()` in ms: `iters` calls captured in one CUDA
+    graph, replayed `replays` times between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="checkout whose fusion3dseg_tpu_torch is timed")
+    root = str(Path(ap.parse_args(argv).root).resolve())
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    sys.path.insert(0, root)
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.ops import histogram as hist
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; package: {Path(hist.__file__).resolve().parents[2]}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    F, N = 300, 1_000_000
+    for pitch in (1_000_064, 1_000_001):
+        for nclasses, share in ((133, 0.85), (133, 0.10), (254, 0.85), (20, 0.85)):
+            C = torch.randint(0, nclasses + 1, (F, pitch), device=dev, dtype=torch.int32,
+                              generator=gen)
+            C = torch.where(torch.rand((F, pitch), device=dev, generator=gen) < share, 255, C)
+            C = C.to(torch.uint8)[:, :N]
+            ms = graph_ms(lambda: hist.histogram_classify(C, nclasses, 0.5))
+            print(f"K1 histogram_classify [{F}, {N}] pitch {pitch}, {nclasses} classes, "
+                  f"{round(100 * share)}% invalid: {ms:.4f} ms")
+            del C
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((8, 64 * 64, 1, 64), device=dev, generator=gen).to(dtype)
+                   for _ in range(3))
+        ms = graph_ms(lambda: attn.neighborhood_attention(q, k, v, 64, 64, 7))
+        print(f"K2 neighborhood_attention [8,64*64,1,64] window 7 {dtype}: {ms:.4f} ms")
+
+
+if __name__ == "__main__":
+    main()

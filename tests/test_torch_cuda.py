@@ -75,6 +75,44 @@ def test_histogram_kernel_strided_rows(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,N,nclasses,pitch_of,invalid", [
+    (300, 5000, 133, "aligned", 0.85),  # the label lifter's layout, sparse
+    (300, 5000, 133, "aligned", 0.10),  # and dense
+    (300, 5000, 133, "odd", 0.85),  # rows N + 1 bytes apart: the byte kernel
+    (301, 4099, 133, "aligned", 0.4),  # ragged rows and columns, tiled
+    (301, 4099, 133, "contiguous", 0.4),  # and on an odd pitch
+    (65535, 37, 3, "aligned", 0.1),  # the 16-bit counters' limit, a few columns
+    (65535, 37, 3, "odd", 0.1),
+    (9, 5, 10, "aligned", 0.3),  # fewer columns than one block
+    (1, 1, 0, "aligned", 0.0),
+    (13, 1000, 254, "aligned", 0.3),  # the most classes
+    (24, 700, 10, "aligned", 0.9),
+])
+def test_histogram_kernel_layouts(cuda_device, F, N, nclasses, pitch_of, invalid):
+    pitch = {"aligned": th.row_pitch(N + 1), "odd": N + 1 + (N % 2), "contiguous": N}[pitch_of]
+    g = torch.Generator(device="cpu").manual_seed(F + N)
+    wide = torch.randint(0, nclasses + 1, (F, pitch), generator=g, dtype=torch.int32)
+    wide = torch.where(torch.rand((F, pitch), generator=g) < invalid, 255, wide).to(torch.uint8)
+    wide[:, N // 2] = nclasses  # the last class wins a column
+    wide[:, 0] = 255  # an empty column
+    C = wide.to(cuda_device)[:, :N]
+    assert C.stride(0) == pitch
+    assert th.rows_aligned(C.data_ptr(), pitch, F) == (pitch_of == "aligned" or F == 1)
+    _check(C, nclasses, 0.5)
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_offset_base(cuda_device):
+    # an aligned pitch behind a base pointer one byte off: the byte kernel
+    F, N, nclasses = 40, 3000, 20
+    pitch = th.row_pitch(N + 2)
+    wide = _random_c((F, pitch), nclasses, seed=5, device=cuda_device)
+    C = wide[:, 1:N + 1]
+    assert C.data_ptr() % 16 == 1 and not th.rows_aligned(C.data_ptr(), pitch, F)
+    _check(C, nclasses, 0.5)
+
+
+@pytest.mark.cuda
 def test_label_fuse_session_cuda_matches_cpu(cuda_device):
     # the whole slice on the card against the port on the CPU (which the
     # CPU tests hold exactly to JAX). cuBLAS may round the float32
@@ -156,6 +194,14 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     (2, 16, 24, 2, 16, 5, torch.float32),
     (1, 20, 7, 1, 24, 3, torch.bfloat16),  # D between chunk sizes
     (1, 5, 5, 1, 128, 9, torch.bfloat16),  # the window wider than the image
+    (2, 17, 19, 1, 64, 9, torch.bfloat16),
+    (1, 12, 30, 2, 32, 13, torch.bfloat16),  # key slots that do not fill the last step
+    (1, 13, 9, 1, 16, 13, torch.float32),
+    (2, 10, 12, 2, 128, 5, torch.bfloat16),  # the largest head dim
+    (1, 11, 10, 1, 20, 5, torch.bfloat16),  # D that rules out 16-byte copies
+    (1, 9, 9, 3, 7, 3, torch.bfloat16),  # and 4-byte accesses
+    (1, 9, 9, 3, 7, 3, torch.float32),
+    (1, 6, 6, 1, 8, 1, torch.bfloat16),  # a window of the query alone
 ])
 def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D, window, dtype):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -169,6 +215,28 @@ def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D,
     assert got.dtype == dtype
     bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
     assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_neighborhood_attention_kernel_reads_strides_and_refuses(cuda_device, dtype):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    # q, k, v as slices of one fused projection: token and head strides
+    # differ from the shapes', the bases are offset
+    h, w, window = 24, 20, 7
+    qkv = torch.randn((2, h * w, 3, 3, 32), device=cuda_device).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = attn.neighborhood_attention.launches
+    got = attn.neighborhood_attention(q, k, v, h, w, window)
+    assert attn.neighborhood_attention.launches == before + 1
+    want = attn.neighborhood_attention_reference(q.contiguous(), k.contiguous(),
+                                                 v.contiguous(), h, w, window)
+    bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
+    assert (got.float() - want.float()).abs().max().item() <= bar
+    big = torch.zeros((1, 64, 1, 128), device=cuda_device, dtype=dtype)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        attn.neighborhood_attention(big, big, big, 8, 8, 41)
 
 
 @pytest.mark.cuda
