@@ -33,13 +33,23 @@ Phases (each prints its own lines; any failure exits non-zero):
             that stage's reduction conv), and `predict`'s contract.
 8. stream   `stream_segment` on that session: votes' contract, run twice
             bit-identical, classes against predict_batch + vote_and_classify.
+9. fusion   the main path `segment_session_fast`. Masks branch on the
+            48-frame 256x192 session (capacity 2^17, auto window, split
+            policy): timed by stage, two runs bit-identical, held to the
+            port on the CPU (n within 1%, pixel classes >= 0.999, the same
+            instance categories). Loop closure (two turns): the window
+            overflows and the repair lands within 1.02x of the full merge.
+            Scale: fusion alone at capacity 2^20, and 12 VGA frames.
+            Segmenter branch with phase 7's shipped B2 on its 16 frames:
+            the spatial-reduction kernel's launches counted, classes held
+            to the masks branch fed predict_batch's masks.
 
 Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 `--phases attention,segmenter,stream` runs a subset while iterating (device
-and build always run; `stream` needs `segmenter`; the last line then names
-the phases that ran).
+and build always run; `stream` needs `segmenter`; `fusion` alone loads the
+B2 segmenter itself; the last line then names the phases that ran).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -60,12 +71,17 @@ BF16_OPS_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
 AGREEMENT_BAR = 0.9995
 BF16_BAR, F32_BAR = 2e-2, 1e-4  # attention kernels vs plain versions, unit-normal inputs
 PIXEL_ACC_BAR, MASK_AGREE_BAR, STREAM_AGREE_BAR = 0.95, 0.999, 0.9
+# the main path on the card against the port on the CPU, and the JAX bar
+# of the overflow repair against the full merge
+FUSION_N_BAR, FUSION_AGREE_BAR, REPAIR_BAR = 0.01, 0.999, 1.02
+FUSION_KW = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 17, window="auto",
+                 window_policy="split", nclasses=133, threshold=0.5, min_pts_per_inst=100)
 # the neighbourhood stage runs weights that were not trained for it: its logits
 # are less decisive, so more near-ties flip between kernel and plain version
 NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
-ALL_PHASES = ["label", "attention", "segmenter", "stream"]
+ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion"]
 
 
 def log(*a):
@@ -476,13 +492,33 @@ def attention_phase(card):
     return [sra, nat]
 
 
+def textured_session(nframes):
+    from fusion3dseg_tpu_torch.io import synthetic
+
+    return synthetic.make_session(nframes=nframes, depth_hw=(96, 72), appearance="textured",
+                                  room=synthetic.RoomSpec(seed=(1 << 30) + 990_000))
+
+
+def shipped_b2(batch):
+    """(Segmenter2D on the card with the shipped B2 checkpoint and the fused
+    spatial-reduction kernel, its config, the checkpoint's path)."""
+    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.models import convert
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    cfg = dataclasses.replace(SegFormerConfig.b2(), use_pallas_attention=True)
+    ckpt = convert.shipped_checkpoint("b2")
+    if ckpt is None:
+        fail("checkpoints/shipped_b2_textured.npz is missing")
+    return Segmenter2D(cfg, ckpt, batch_size=batch, device="cuda"), cfg, ckpt
+
+
 def segmenter_phase(card):
     """Phase 7: Segmenter2D at B2 width on the card. Returns the session,
     the kernel-path segmenter and (K3, K2) launches of the main-path runs."""
     import numpy as np
     import torch
 
-    from fusion3dseg_tpu_torch.io import synthetic
     from fusion3dseg_tpu_torch.models import SegFormerConfig
     from fusion3dseg_tpu_torch.models import convert
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -490,9 +526,7 @@ def segmenter_phase(card):
 
     nframes, batch = 16, 8
     t0 = time.perf_counter()
-    session = synthetic.make_session(
-        nframes=nframes, depth_hw=(96, 72), appearance="textured",
-        room=synthetic.RoomSpec(seed=(1 << 30) + 990_000))
+    session = textured_session(nframes)
     log(f"segmenter: textured session, {nframes} frames at 96x72, built in "
         f"{time.perf_counter() - t0:.2f} s (host)")
     frames, gts = session.colors, session.gt_mask
@@ -530,12 +564,8 @@ def segmenter_phase(card):
         return got, launches
 
     # the shipped B2 checkpoint through the fused spatial-reduction kernel
-    cfg = dataclasses.replace(SegFormerConfig.b2(), use_pallas_attention=True)
-    ckpt = convert.shipped_checkpoint("b2")
-    if ckpt is None:
-        fail("checkpoints/shipped_b2_textured.npz is missing")
     t0 = time.perf_counter()
-    seg = Segmenter2D(cfg, ckpt, batch_size=batch, device="cuda")
+    seg, cfg, ckpt = shipped_b2(batch)
     plain = Segmenter2D(cfg, ckpt, batch_size=batch, device="cuda", use_cuda_attention=False)
     nparams = sum(p.numel() for p in seg.model.parameters())
     log(f"segmenter: SegFormer-B2 {nparams / 1e6:.2f}M parameters, {cfg.dtype}, input "
@@ -597,19 +627,24 @@ def segmenter_phase(card):
     return session, seg, (sra_launches, nat_launches)
 
 
+def _session_on(sess, device):
+    from fusion3dseg_tpu_torch.io.rtab import SessionData
+
+    return SessionData.from_arrays(sess.colors, sess.depth, sess.K,
+                                   sess.quats_wxyz[:, [1, 2, 3, 0]], sess.translations,
+                                   device=device)
+
+
 def stream_phase(card, session, seg):
     """Phase 8: stream_segment on the card against predict_batch + voting."""
     import numpy as np
     import torch
 
-    from fusion3dseg_tpu_torch.io.rtab import SessionData
     from fusion3dseg_tpu_torch.ops import attention as attn
     from fusion3dseg_tpu_torch.ops.voting import vote_and_classify
     from fusion3dseg_tpu_torch.pipeline.streaming import stream_segment
 
-    sd = SessionData.from_arrays(session.colors, session.depth, session.K,
-                                 session.quats_wxyz[:, [1, 2, 3, 0]], session.translations,
-                                 device="cuda")
+    sd = _session_on(session, "cuda")
     nf, (hd, wd) = sd.nframes, sd.depth_hw
     if sd.points.shape != (nf, hd * wd, 3) or sd.points.device.type != "cuda" \
             or not bool(torch.isfinite(sd.normals).all()):
@@ -651,6 +686,191 @@ def stream_phase(card, session, seg):
         f"{float((classes != 133).mean()):.4f}")
     if agree <= STREAM_AGREE_BAR:
         fail(f"stream agreement {agree} not above {STREAM_AGREE_BAR}")
+
+
+def _pixel_agreement(a, b):
+    """Share of pixels, mapped in both results, whose point carries the same
+    class: classes[uv2pt] over pixels with uv2pt >= 0 in both."""
+    ua, ub = a.uv2pt.cpu().numpy(), b.uv2pt.cpu().numpy()
+    both = (ua >= 0) & (ub >= 0)
+    return float((a.classes[ua[both]] == b.classes[ub[both]]).mean()), float(both.mean())
+
+
+def _same_run(a, b):
+    import numpy as np
+    import torch
+
+    return (a.n == b.n and torch.equal(a.uv2pt, b.uv2pt) and np.array_equal(a.classes, b.classes)
+            and np.array_equal(a.instance_ids, b.instance_ids))
+
+
+def fusion_phase(card, seg_session=None, seg=None):
+    """Phase 9: the main path `segment_session_fast` on the card. Returns
+    the spatial-reduction kernel's launches inside it (segmenter branch)."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.fusion import fusion as fe
+    from fusion3dseg_tpu_torch.io import synthetic
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.fast import segment_session_fast
+
+    nframes, hw = 48, (256, 192)
+    t0 = time.perf_counter()
+    sess = synthetic.make_session(nframes=nframes, depth_hw=hw)
+    sd = _session_on(sess, "cuda")
+    masks = torch.as_tensor(sess.gt_mask.reshape(nframes, -1), device="cuda")
+    min_cos = float(np.cos(np.deg2rad(FUSION_KW["angle"])))
+    seed_cells = fe.seed_cells_for_frame(
+        sd.points[0], sd.normals[0], sd.colors[0], (sd.depth[0] > 0.1) & (sd.depth[0] <= 8.0),
+        *hw, FUSION_KW["radius"], min_cos, max_depth=8.0)
+    window = fe.auto_window(seed_cells, FUSION_KW["capacity"])
+    log(f"fusion: session {nframes} frames at {hw[0]}x{hw[1]} on the card in "
+        f"{time.perf_counter() - t0:.2f} s (host build); seed frame {seed_cells} cells -> auto "
+        f"window {window} at capacity {FUSION_KW['capacity']}")
+
+    # ---- 9a. masks branch: warm-up, three timed calls, two compared
+    def masks_run(**kw):
+        out = segment_session_fast(sd, masks=masks, device="cuda", **dict(FUSION_KW, **kw))
+        torch.cuda.synchronize()
+        return out
+
+    masks_run()
+    runs, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runs.append(masks_run())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    res = runs[-1]
+    med = float(np.median(times))
+    stages = {k: float(np.median([r.stage_seconds[k] for r in runs])) for k in res.stage_seconds}
+    log(f"fusion: segment_session_fast masks branch {card}: runs "
+        f"{[round(t, 4) for t in times]} s, median {med:.4f} s ({nframes / med:.1f} frames/s); "
+        "stages (medians) " + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items())
+        + f"; n {res.n}, instances {res.n_instances_premerge} -> {len(res.instance_info)} after "
+        f"the OBB merge, overflow frames {res.overflow_frames}; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    if not _same_run(runs[-2], runs[-1]):
+        fail("segment_session_fast: two runs on the card are not bit-identical")
+    if res.uv2pt.device.type != "cuda" or res.state.points.device.type != "cuda":
+        fail("segment_session_fast did not run on the card")
+    t0 = time.perf_counter()
+    on_cpu = segment_session_fast(_session_on(sess, "cpu"), masks=sess.gt_mask, device="cpu",
+                                  **FUSION_KW)
+    cpu_s = time.perf_counter() - t0
+    agree, mapped = _pixel_agreement(res, on_cpu)
+    cats, cats_cpu = ({i["category_id"] for i in r.instance_info} for r in (res, on_cpu))
+    log(f"fusion: two card runs bit-identical (n, uv2pt, classes, instance ids); the port on "
+        f"the CPU ({cpu_s:.1f} s): n {on_cpu.n}, {len(on_cpu.instance_info)} instances; pixel "
+        f"class agreement {agree:.6f} over {mapped:.4f} of pixels (bar {FUSION_AGREE_BAR}); "
+        f"instance categories {sorted(cats)} (CPU {sorted(cats_cpu)})")
+    if abs(res.n - on_cpu.n) > FUSION_N_BAR * on_cpu.n or agree < FUSION_AGREE_BAR \
+            or cats != cats_cpu:
+        fail(f"masks branch against the CPU: n {res.n} vs {on_cpu.n}, agreement {agree}, "
+             f"categories {sorted(cats)} vs {sorted(cats_cpu)}")
+    del runs, on_cpu
+
+    # ---- 9b. loop closure: two turns overflow the auto window
+    lsess = synthetic.make_session(nframes=nframes, depth_hw=hw, turns=2.0)
+    lsd = _session_on(lsess, "cuda")
+    lmasks = torch.as_tensor(lsess.gt_mask.reshape(nframes, -1), device="cuda")
+    loop = {name: segment_session_fast(lsd, masks=lmasks, device="cuda", **dict(FUSION_KW, **kw))
+            for name, kw in (("repaired", {}), ("raw", dict(auto_dedup=False)),
+                             ("full", dict(window=None)))}
+    n = {k: v.n for k, v in loop.items()}
+    log(f"fusion: loop closure (turns=2): overflow frames {loop['raw'].overflow_frames}; n raw "
+        f"{n['raw']}, repaired {n['repaired']}, full merge {n['full']} (repaired / full "
+        f"{n['repaired'] / n['full']:.4f}, bar {REPAIR_BAR}); repair "
+        f"{loop['repaired'].stage_seconds['repair']:.4f} s")
+    if loop["raw"].overflow_frames == 0 or n["repaired"] > REPAIR_BAR * n["full"] \
+            or int(loop["repaired"].uv2pt.max()) >= n["repaired"]:
+        fail(f"loop closure: overflow {loop['raw'].overflow_frames}, n {n}")
+    del loop, lsd, lmasks
+
+    # ---- 9c. scale: the engine alone at capacity 2^20, then VGA frames
+    def engine(sdx, height, width, capacity, win, nf):
+        valid = (sdx.depth > 0.1) & (sdx.depth <= 8.0)
+        out = fe.fuse_session(sdx.Ks, sdx.quats_wxyz[:nf], sdx.translations[:nf],
+                              sdx.points[:nf], sdx.normals[:nf], sdx.colors[:nf], valid[:nf],
+                              height=height, width=width, radius=FUSION_KW["radius"],
+                              min_cosine=min_cos, max_depth=8.0, capacity=capacity, window=win,
+                              window_policy="split", device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    def host_syncs(fn):
+        """Operations in `fn()` that make the host wait for the device, as
+        torch's sync debug mode reports them."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("called a synchronizing" in str(w.message) for w in caught)
+
+    vsess = synthetic.make_session(nframes=12, depth_hw=(480, 640))
+    for name, sdx, (height, width), cap, win in (
+            ("capacity 2^20, auto window", sd, hw, 1 << 20, fe.auto_window(seed_cells, 1 << 20)),
+            ("VGA 480x640, capacity 2^18, window 2^14", _session_on(vsess, "cuda"), (480, 640),
+             1 << 18, 1 << 14)):
+        nf = sdx.nframes
+        args = (sdx, height, width, cap, win)
+        engine(*args, nf)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a = engine(*args, nf)
+        dt = time.perf_counter() - t0
+        b = engine(*args, nf)
+        # the frame loop never waits for the device: a call of half the
+        # frames waits as often (the set-up's copies and its 3x3 inverse)
+        syncs = (host_syncs(lambda: engine(*args, nf)), host_syncs(lambda: engine(*args, nf // 2)))
+        na = int(a[0].n)
+        same = all(torch.equal(x, y) for x, y in zip((*a[0], a[1]), (*b[0], b[1])))
+        log(f"fusion: fuse_session {name} (window {win}) {card}: {nf} frames in {dt:.4f} s "
+            f"({nf / dt:.1f} frames/s); n {na}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; two runs bit-identical: "
+            f"{same}; host syncs in a call of {nf} / {nf // 2} frames: {syncs[0]} / {syncs[1]}")
+        if not same or na > cap or int(a[1].max()) >= na or syncs[0] != syncs[1]:
+            fail(f"fuse_session {name}: invariants broken (n {na}, uv2pt max "
+                 f"{int(a[1].max())}, identical {same}, host syncs {syncs})")
+        del a, b
+    del vsess
+    torch.cuda.empty_cache()
+
+    # ---- 9d. segmenter branch: the shipped B2 on phase 7's session
+    if seg is None:
+        seg_session, (seg, _, _) = textured_session(16), shipped_b2(8)
+    tsd = _session_on(seg_session, "cuda")
+    kw = FUSION_KW
+    segment_session_fast(tsd, segmenter=seg, device="cuda", **kw)  # warm-up
+    torch.cuda.synchronize()
+    attn.sr_attention.launches = 0  # count the main path's launches only
+    t0 = time.perf_counter()
+    res = segment_session_fast(tsd, segmenter=seg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = attn.sr_attention.launches
+    nf = tsd.nframes
+    forwards = -(-nf // 8)  # stream_segment's batch of 8
+    pm = np.concatenate([seg.predict_batch(seg_session.colors[i:i + seg.batch_size])
+                         for i in range(0, nf, seg.batch_size)])
+    via_masks = segment_session_fast(tsd, masks=pm, device="cuda", **kw)
+    if via_masks.n != res.n or not torch.equal(via_masks.uv2pt, res.uv2pt):
+        fail("the segmenter and masks branches fused differently")
+    agree = float((via_masks.classes == res.classes).mean())
+    log(f"fusion: segment_session_fast segmenter branch (shipped B2) {card}: {nf} frames at "
+        f"96x72 in {dt:.4f} s ({nf / dt:.1f} frames/s); n {res.n}; spatial-reduction kernel "
+        f"launches {launches} in {forwards} forwards; classes agree with the masks branch fed "
+        f"predict_batch's masks on {agree:.4f} of points (bar {STREAM_AGREE_BAR})")
+    if launches != 7 * forwards:
+        fail(f"segmenter branch: the spatial-reduction kernel launched {launches} times")
+    if agree <= STREAM_AGREE_BAR:
+        fail(f"segmenter branch agreement {agree} not above {STREAM_AGREE_BAR}")
+    return launches
 
 
 def main():
@@ -704,12 +924,18 @@ def main():
         kernels.append(label_phases(card))
     if "attention" in phases:
         kernels += attention_phase(card)
+    session = seg = None
     if "segmenter" in phases:
         session, seg, launches = segmenter_phase(card)
         for entry, n in zip(kernels[-2:] if "attention" in phases else (), launches):
             entry["launches"] = n
         if "stream" in phases:
             stream_phase(card, session, seg)
+    if "fusion" in phases:
+        n = fusion_phase(card, session, seg)
+        for entry in kernels:
+            if entry["name"] == "sr_attention":
+                entry["launches"] += n
     log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -27,12 +27,13 @@ def _device_us(e):
 OWN_KERNELS = ("hist_tiled_kernel", "hist_bytes_kernel", "sr_attention_", "nat_")
 
 
-def profile_run(run, title: str, top: int = 25) -> None:
+def profile_run(run, title: str, top: int = 25) -> dict:
     """Run `run()` once under `torch.profiler` (the caller has warmed it up)
     and print the wall time, the summed device time of its kernels, their
     share of the wall time (the device's busy share) and the kernels by
     device time: the `top` longest, then any hand-written kernel of the
-    port that is not among them."""
+    port that is not among them. Returns {"wall_s", "device_s",
+    "launches"} of the profiled run."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -52,3 +53,4 @@ def profile_run(run, title: str, top: int = 25) -> None:
     for e in kernels[:top] + own:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{100 * _device_us(e) / max(dev_us, 1):5.2f}%  {e.key[:90]}")
+    return {"wall_s": wall, "device_s": dev_us / 1e6, "launches": launches}

@@ -283,3 +283,107 @@ def test_segmenter_cuda_matches_cpu(cuda_device, kw):
     assert (lg - lc).abs().max().item() <= 1e-3
     agree = (on_card.predict_batch(frames, 0.0) == on_cpu.predict_batch(frames, 0.0)).mean()
     assert agree >= 0.98, agree
+
+
+# ------------------------------------------------------------ fusion engine
+
+
+def _fusion_session(device, nframes=16, **kw):
+    from fusion3dseg_tpu_torch.io.rtab import SessionData
+    from fusion3dseg_tpu_torch.io.synthetic import RoomSpec, make_session
+
+    sess = make_session(nframes=nframes, depth_hw=(48, 36), room=RoomSpec(seed=21), **kw)
+    sd = SessionData.from_arrays(sess.colors, sess.depth, sess.K,
+                                 sess.quats_wxyz[:, [1, 2, 3, 0]], sess.translations,
+                                 device=device)
+    return sess, sd
+
+
+def _fuse(sd, device, **kw):
+    from fusion3dseg_tpu_torch.fusion import fuse_session
+
+    valid = (sd.depth > 0.1) & (sd.depth <= 8.0)
+    return fuse_session(sd.Ks, sd.quats_wxyz, sd.translations, sd.points, sd.normals, sd.colors,
+                        valid, height=48, width=36, radius=0.1,
+                        min_cosine=float(np.cos(np.deg2rad(25.0))), max_depth=8.0,
+                        capacity=1 << 14, with_stats=True, device=device, **kw)
+
+
+@pytest.mark.cuda
+def test_voxel_merge_cuda_matches_cpu(cuda_device):
+    from fusion3dseg_tpu_torch.ops.sparsify import voxel_merge
+
+    rng = np.random.default_rng(0)
+    n = 200_000
+    pts = (rng.random((n, 3)) * 4).astype(np.float32)
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    arrays = (pts, nrm, rng.random((n, 3)).astype(np.float32),
+              rng.integers(1, 5, n).astype(np.int32), rng.integers(1, 3, n).astype(np.int32),
+              rng.random(n) < 0.9)
+    for extent in (None, 128):
+        on_cpu = voxel_merge(*map(torch.from_numpy, arrays), 0.05, 0.5, extent_cells=extent)
+        on_card = [voxel_merge(*(torch.from_numpy(a).to(cuda_device) for a in arrays), 0.05,
+                               0.5, extent_cells=extent) for _ in range(2)]
+        for name in ("counts", "occurences", "cell_of_input"):
+            assert torch.equal(getattr(on_card[0], name).cpu(), getattr(on_cpu, name)), name
+        for name in ("points", "normals", "colors", "counts", "cell_of_input"):
+            assert torch.equal(getattr(on_card[0], name), getattr(on_card[1], name)), name
+            if name in ("points", "normals", "colors"):
+                diff = (getattr(on_card[0], name).cpu() - getattr(on_cpu, name)).abs().max()
+                assert diff.item() <= 1e-6, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,policy", [(None, "newest"), (1024, "split")])
+def test_fuse_session_cuda_matches_cpu(cuda_device, window, policy):
+    from fusion3dseg_tpu_torch.ops.voting import vote_and_classify
+
+    sess, sd_cpu = _fusion_session("cpu")
+    _, sd_card = _fusion_session("cuda")
+    cpu = _fuse(sd_cpu, "cpu", window=window, window_policy=policy)
+    card = [_fuse(sd_card, "cuda", window=window, window_policy=policy) for _ in range(2)]
+    # two runs on the card: the same bits
+    for a, b in zip((*card[0][0], card[0][1], card[0][2]), (*card[1][0], card[1][1], card[1][2])):
+        assert torch.equal(a, b)
+    n_cpu, n_card = int(cpu[0].n), int(card[0][0].n)
+    assert abs(n_card - n_cpu) <= 0.01 * n_cpu
+    spans_cpu, spans_card = cpu[2].numpy(), card[0][2].cpu().numpy()
+    assert np.abs(spans_card - spans_cpu).max() <= 0.01 * spans_cpu.max()
+    masks = torch.as_tensor(sess.gt_mask.reshape(16, -1))
+    pix = []
+    for state, uv2pt, _ in (cpu, card[0]):
+        _, cls = vote_and_classify(uv2pt, masks.to(uv2pt.device), 1 << 14, 133,
+                                   device=uv2pt.device)
+        uv = uv2pt.cpu()
+        pix.append(torch.where(uv >= 0, cls.cpu()[uv.clamp(min=0).long()], -1))
+    both = (pix[0] >= 0) & (pix[1] >= 0)
+    assert (pix[0][both] == pix[1][both]).double().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_segment_session_fast_cuda_matches_cpu(cuda_device, tmp_path):
+    from fusion3dseg_tpu_torch.io import native
+    from fusion3dseg_tpu_torch.pipeline.fast import segment_session_fast
+
+    sess, sd_cpu = _fusion_session("cpu", nframes=16, turns=2.0)
+    _, sd_card = _fusion_session("cuda", nframes=16, turns=2.0)
+    kw = dict(radius=0.1, angle=25.0, capacity=1 << 14, window=1024, min_pts_per_inst=20)
+    cpu = segment_session_fast(sd_cpu, masks=sess.gt_mask, device="cpu", **kw)
+    card = [segment_session_fast(sd_card, masks=sess.gt_mask, device="cuda", **kw)
+            for _ in range(2)]
+    assert card[0].overflow_frames > 0 and card[0].state.points.device.type == "cuda"
+    assert abs(card[0].n - cpu.n) <= 0.01 * cpu.n
+    assert card[0].n == card[1].n
+    assert np.array_equal(card[0].classes, card[1].classes)
+    assert np.array_equal(card[0].instance_ids, card[1].instance_ids)
+    assert torch.equal(card[0].uv2pt, card[1].uv2pt)
+    uc, ug = cpu.uv2pt.numpy(), card[0].uv2pt.cpu().numpy()
+    both = (uc >= 0) & (ug >= 0)
+    assert (cpu.classes[uc[both]] == card[0].classes[ug[both]]).mean() >= 0.999
+    assert {i["category_id"] for i in card[0].instance_info} == \
+        {i["category_id"] for i in cpu.instance_info}
+    # the native library was built into the port's build directory
+    from fusion3dseg_tpu_torch import cuda
+
+    assert native.library_path().parent == cuda.build_dir() and native.library_path().exists()

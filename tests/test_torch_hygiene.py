@@ -18,12 +18,21 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "cv2", "fusion3dseg_tpu"))
 print(len(names), "modules;", "bad:", bad)
-assert len(names) >= 26 and not bad, bad
+assert len(names) >= 42 and not bad, bad
 
 import numpy as np, pytest
 from fusion3dseg_tpu_torch.ops import label_fuse
 assert not __import__("torch").cuda.is_available()
 pts = np.zeros((4, 3), np.float32)
+from types import SimpleNamespace
+from fusion3dseg_tpu_torch import fusion
+from fusion3dseg_tpu_torch.pipeline import fast
+session = (np.eye(3), np.tile([1.0, 0, 0, 0], (2, 1)), np.zeros((2, 3)), np.zeros((2, 12, 3)),
+           np.zeros((2, 12, 3)), np.zeros((2, 12, 3)), np.ones((2, 12), bool))
+fkw = dict(height=3, width=4, radius=0.1, min_cosine=0.5, max_depth=8.0, capacity=64)
+sd = SimpleNamespace(depth_hw=(3, 4), depth=np.ones((2, 12), np.float32), nframes=2,
+                     Ks=np.eye(3), quats_wxyz=session[1], translations=session[2],
+                     points=session[3], normals=session[4], colors=session[5])
 for call in (
     lambda: label_fuse.label_fuse_session(
         pts, np.eye(3), np.tile([1.0, 0, 0, 0], (2, 1)), np.zeros((2, 3)),
@@ -32,6 +41,11 @@ for call in (
     lambda: __import__("fusion3dseg_tpu_torch.pipeline.get2dseg", fromlist=["x"]).Segmenter2D(),
     lambda: __import__("fusion3dseg_tpu_torch.ops.voting", fromlist=["x"]).vote_and_classify(
         np.zeros((1, 4), np.int32), np.zeros((1, 4), np.uint8), 3, 5),
+    # the main path's entry points, each on its default device
+    lambda: fusion.fuse_session(*session, **fkw),
+    lambda: fusion.fuse_session_and_vote(*session, np.zeros((2, 12), np.uint8), nclasses=5,
+                                         **fkw),
+    lambda: fast.segment_session_fast(sd, masks=np.zeros((2, 12), np.uint8)),
 ):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
