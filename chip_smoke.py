@@ -43,13 +43,23 @@ Phases (each prints its own lines; any failure exits non-zero):
             Segmenter branch with phase 7's shipped B2 on its 16 frames:
             the spatial-reduction kernel's launches counted, classes held
             to the masks branch fed predict_batch's masks.
+10. files   the file-artifact path on the 48-frame 256x192 textured
+            session: written as an rtabmap-export directory by the port's
+            own codec and read back (depth and masks exact, JPEG PSNR >= 35
+            dB); `SegmentImage` with the shipped B2 (launches counted, mask
+            files equal to predict_batch, pixel accuracy); `process3DSeg`
+            -> `segment` -> `remove_classes` at process3DSeg's defaults,
+            timed by stage, the artifact tree's names and dtypes checked,
+            two card runs bit-identical, held to the port on the CPU with
+            phase 9's bars; the codec timed on phase 9's 12 VGA frames.
 
 Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 `--phases attention,segmenter,stream` runs a subset while iterating (device
-and build always run; `stream` needs `segmenter`; `fusion` alone loads the
-B2 segmenter itself; the last line then names the phases that ran).
+and build always run; `stream` needs `segmenter`; `fusion` and `files`
+alone load the B2 segmenter themselves; the last line then names the
+phases that ran).
 """
 
 from __future__ import annotations
@@ -81,7 +91,9 @@ FUSION_KW = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 17, windo
 NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
-ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion"]
+ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files"]
+JPEG_PSNR_BAR = 35.0  # the port's q95 JPEG of the textured frames against their colours
+FILES_CAPACITY = 1 << 20  # process3DSeg's default
 
 
 def log(*a):
@@ -838,7 +850,6 @@ def fusion_phase(card, seg_session=None, seg=None):
             fail(f"fuse_session {name}: invariants broken (n {na}, uv2pt max "
                  f"{int(a[1].max())}, identical {same}, host syncs {syncs})")
         del a, b
-    del vsess
     torch.cuda.empty_cache()
 
     # ---- 9d. segmenter branch: the shipped B2 on phase 7's session
@@ -870,6 +881,208 @@ def fusion_phase(card, seg_session=None, seg=None):
         fail(f"segmenter branch: the spatial-reduction kernel launched {launches} times")
     if agree <= STREAM_AGREE_BAR:
         fail(f"segmenter branch agreement {agree} not above {STREAM_AGREE_BAR}")
+    return launches, vsess
+
+
+def _read_tree(out, nframes):
+    """The artifacts phase 10 compares: (fusion_data dict, uv2pt [F, H*W],
+    classes, ids, final_info)."""
+    import pickle
+
+    import numpy as np
+
+    with open(out / "fusion" / "fusion_data.pkl", "rb") as fp:
+        data = pickle.load(fp)
+    uv = np.stack([np.load(out / "fusion" / "uv2pt" / f"{i}.npy") for i in range(nframes)])
+    return (data, uv, np.load(out / "segmentation" / "classes.npy"),
+            np.load(out / "panoptic_segmentation" / "ids.npy"),
+            json.loads((out / "panoptic_segmentation" / "final_info.json").read_text()))
+
+
+def files_phase(card, seg=None, vga=None):
+    """Phase 10: the file-artifact path on the card. Returns the
+    spatial-reduction kernel's launches inside `SegmentImage`."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.io import image, native, ply, synthetic
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline import get2dseg, get3dseg, process3d
+    from fusion3dseg_tpu_torch.utils import timing
+
+    nframes, (h, w) = 48, (256, 192)
+    work = Path(tempfile.mkdtemp(prefix="f3s_files_"))
+    try:
+        # ---- 10a. write the session, read it back
+        sess = synthetic.make_session(nframes=nframes, depth_hw=(h, w), appearance="textured")
+        t0 = time.perf_counter()
+        codec = native.build(image.SOURCE)  # g++ at first use; kept out of the timings
+        log(f"files: codec library {codec.name} ready in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        src = synthetic.write_session_dir(sess, work / "session")
+        t_write = time.perf_counter() - t0
+        psnr = []
+        for i in range(nframes):
+            d = image.read(src / "depth" / f"{i}.png", unchanged=True)
+            m = image.read(src / "masks" / f"{i}.png", gray=True)
+            want_d = np.clip(sess.depth[i] * 1000.0, 0, 65535).astype(np.uint16)
+            if d.dtype != np.uint16 or not np.array_equal(d, want_d) \
+                    or not np.array_equal(m, sess.gt_mask[i]):
+                fail(f"files: frame {i}: depth or mask read back differs from what was written")
+            rgb = image.read(src / "rgb" / f"{i}.jpg")
+            mse = np.mean((rgb.astype(np.float64) - sess.colors[i]) ** 2)
+            psnr.append(10 * np.log10(255.0 ** 2 / mse))
+        log(f"files: wrote {nframes} frames at {h}x{w} (jpg q95 4:2:0, 16-bit png depth, png "
+            f"masks) in {t_write:.3f} s; depth and masks read back exactly; JPEG PSNR min "
+            f"{min(psnr):.2f} / median {float(np.median(psnr)):.2f} / max {max(psnr):.2f} dB "
+            f"(bar {JPEG_PSNR_BAR})")
+        if min(psnr) < JPEG_PSNR_BAR:
+            fail(f"files: JPEG PSNR {min(psnr):.2f} dB below {JPEG_PSNR_BAR}")
+
+        # ---- 10b. SegmentImage with the shipped B2 at batch 8
+        if seg is None:
+            seg, _, _ = shipped_b2(8)
+        seg.predict_batch(sess.colors[:8])  # warm-up: the model's first forward
+        torch.cuda.synchronize()
+        attn.sr_attention.launches = 0  # count the main path's launches only
+        t0 = time.perf_counter()
+        get2dseg.SegmentImage(src / "rgb", work / "masks2d", segmenter=seg, batch_size=8)
+        t_seg = time.perf_counter() - t0
+        launches = attn.sr_attention.launches
+        forwards = -(-nframes // 8)
+        frames = np.stack([image.read(src / "rgb" / f"{i}.jpg") for i in range(nframes)])
+        want = np.concatenate([seg.predict_batch(frames[i:i + 8]) for i in range(0, nframes, 8)])
+        got = np.stack([image.read(work / "masks2d" / f"{i}.png", gray=True)
+                        for i in range(nframes)])
+        acc = float((got == sess.gt_mask).mean())
+        log(f"files: SegmentImage (shipped B2, batch 8) {card}: {nframes} frames in {t_seg:.3f} s "
+            f"({nframes / t_seg:.1f} frames/s); spatial-reduction kernel launches {launches} in "
+            f"{forwards} forwards; mask files equal predict_batch on the decoded frames: "
+            f"{np.array_equal(got, want)}; pixel accuracy against ground truth {acc:.4f} "
+            f"(bar {STREAM_AGREE_BAR})")
+        if launches != 7 * forwards:
+            fail(f"SegmentImage: the spatial-reduction kernel launched {launches} times")
+        if not np.array_equal(got, want) or acc <= STREAM_AGREE_BAR:
+            fail(f"SegmentImage: masks differ from predict_batch or accuracy {acc}")
+
+        # ---- 10c. process3DSeg -> segment -> remove_classes, twice on the card
+        def pipeline(out, device):
+            stages = {}
+            timing.METRICS.spans.clear()
+            t0 = time.perf_counter()
+            sd = process3d.load_session(src, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            stages["from_export_dir"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            ret = process3d.process3DSeg(src, out, session=sd, capacity=FILES_CAPACITY,
+                                         device=device)
+            t_p3d = time.perf_counter() - t1
+            get3dseg.segment(out, src / "masks", verbose=False, device=device)
+            t0 = time.perf_counter()
+            get3dseg.remove_classes(out, src / "masks", verbose=False, device=device)
+            stages["remove_classes"] = time.perf_counter() - t0
+            for key, span in (("fusion", "fusion"), ("dump", "fusion.dump"),
+                              ("vote", "segmentation.vote"), ("split", "segmentation.instances"),
+                              ("viz+ply", "segmentation.viz"),
+                              ("master_classes", "segmentation.master_classes")):
+                stages[key] = timing.METRICS.total(span)
+            return ret, stages, t_p3d
+
+        torch.cuda.reset_peak_memory_stats()
+        card_runs = [pipeline(work / f"card{k}", "cuda") for k in range(2)]
+        peak = torch.cuda.max_memory_allocated()
+        ret, stages, t_p3d = card_runs[1]
+        n = len(ret[0])
+        log(f"files: process3DSeg + segment + remove_classes {card} (capacity {FILES_CAPACITY}): "
+            f"n {n}; process3DSeg {t_p3d:.3f} s ({nframes / t_p3d:.1f} frames/s, decode and "
+            "from_arrays included); stages " + ", ".join(f"{k} {v:.4f} s" for k, v in
+                                                      stages.items())
+            + f"; peak device memory {peak / 2**20:.1f} MiB")
+
+        out = work / "card1"
+        adj = ret[7]
+        data, uv, classes, ids, final = _read_tree(out, nframes)
+        info_sem = json.loads((out / "segmentation" / "info.json").read_text())
+        info_pan = json.loads((out / "panoptic_segmentation" / "info.json").read_text())
+        boxes = [i["bbox"] for i in final if i.get("bbox") is not None]
+        plys = sorted(out.rglob("*.ply"))
+        for f in plys:
+            pts, _, _ = ply.read_point_cloud(f)
+            if pts.ndim != 2 or pts.shape[1] != 3 or not np.isfinite(pts).all():
+                fail(f"files: {f.name} is not a finite [N, 3] cloud")
+        votes = np.load(out / "segmentation" / "votes.npy")
+        checks = {
+            "uv2pt int32 [H*W]": uv.dtype == np.int32 and uv.shape == (nframes, h * w)
+            and int(uv.max()) < n,
+            "occurences uint32": data["occurences"].dtype == np.uint32,
+            "fusion arrays NumPy": all(isinstance(data[k], np.ndarray) for k in
+                                       ("points", "normals", "colors", "nmerges")),
+            "adj.pkl object array of n": isinstance(adj, np.ndarray) and adj.dtype == object
+            and len(adj) == n,
+            "votes [n, 134]": votes.shape == (n, 134),
+            "classes [n], ids [n]": classes.shape == (n,) and ids.shape == (n,),
+            "info.json keys": all({"category_id", "name", "area", "hexcolor", "parent_id"}
+                                  <= set(i) for i in info_sem)
+            and all({"id", "category_id", "area", "isthing"} <= set(i) for i in info_pan),
+            "8-corner bboxes": bool(boxes) and all(np.asarray(b).shape == (8, 3) for b in boxes),
+            "remaining mask": np.load(out / "segmentation" / "remaining_mask.npy").shape == (n,),
+            "PLY files": len(plys) >= 7,
+        }
+        log("files: artifact tree: " + ", ".join(f"{k} {v}" for k, v in checks.items())
+            + f"; {len(plys)} PLY files, {len(final)} final instances")
+        if not all(checks.values()):
+            fail(f"files: artifact contract broken: {checks}")
+
+        # ---- 10d. the card against itself, then against the CPU
+        a, b = _read_tree(work / "card0", nframes), (data, uv, classes, ids, final)
+        same = all(np.array_equal(a[0][k], b[0][k]) for k in a[0] if isinstance(a[0][k], np.ndarray))
+        same = same and all(np.array_equal(x, y) for x, y in zip(a[1:4], b[1:4])) and a[4] == b[4]
+        t0 = time.perf_counter()
+        pipeline(work / "cpu", "cpu")
+        cpu_s = time.perf_counter() - t0
+        c = _read_tree(work / "cpu", nframes)
+        both = (c[1] >= 0) & (uv >= 0)
+        agree = float((c[2][c[1][both]] == classes[uv[both]]).mean())
+        cats, cats_cpu = ({i["category_id"] for i in t[4]} for t in (b, c))
+        log(f"files: two card runs bit-identical (uv2pt, fusion_data arrays, classes, ids, "
+            f"final_info): {same}; the port on the CPU ({cpu_s:.1f} s, capacity "
+            f"{FILES_CAPACITY}): n {len(c[2])} vs {n}; pixel class agreement {agree:.6f} over "
+            f"{both.mean():.4f} of pixels (bar {FUSION_AGREE_BAR}); instance categories "
+            f"{sorted(cats)} (CPU {sorted(cats_cpu)})")
+        if not same:
+            fail("files: two card runs differ")
+        if abs(len(c[2]) - n) > FUSION_N_BAR * len(c[2]) or agree < FUSION_AGREE_BAR \
+                or cats != cats_cpu:
+            fail(f"files: card against CPU: n {n} vs {len(c[2])}, agreement {agree}, "
+                 f"categories {sorted(cats)} vs {sorted(cats_cpu)}")
+
+        # ---- 10e. the codec at capture size: phase 9's 12 VGA frames
+        if vga is None:
+            vga = synthetic.make_session(nframes=12, depth_hw=(480, 640))
+        jpgs = [image.encode_jpeg(f) for f in vga.colors]
+        dmm = np.clip(vga.depth * 1000.0, 0, 65535).astype(np.uint16)
+        pngs = [image.encode_png(d) for d in dmm]
+
+        def per_frame_ms(fn, items):
+            fn(items[0])  # warm-up: the codec library's first load
+            t0 = time.perf_counter()
+            for x in items:
+                fn(x)
+            return (time.perf_counter() - t0) / len(items) * 1e3
+
+        times = {"jpeg encode": per_frame_ms(image.encode_jpeg, vga.colors),
+                 "jpeg decode": per_frame_ms(image.decode, jpgs),
+                 "png16 encode": per_frame_ms(image.encode_png, dmm),
+                 "png16 decode": per_frame_ms(lambda d: image.decode(d, unchanged=True), pngs)}
+        log(f"files: codec at 480x640 on the host, ms a frame over {len(vga.colors)} frames: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -931,8 +1144,14 @@ def main():
             entry["launches"] = n
         if "stream" in phases:
             stream_phase(card, session, seg)
+    vga = None
     if "fusion" in phases:
-        n = fusion_phase(card, session, seg)
+        n, vga = fusion_phase(card, session, seg)
+        for entry in kernels:
+            if entry["name"] == "sr_attention":
+                entry["launches"] += n
+    if "files" in phases:
+        n = files_phase(card, seg, vga)
         for entry in kernels:
             if entry["name"] == "sr_attention":
                 entry["launches"] += n

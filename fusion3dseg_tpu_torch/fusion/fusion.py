@@ -28,12 +28,22 @@ trash row past the end of their table here, sliced off after. Float sums
 go through `ops/sparsify.segment_sum`, which adds in one fixed order, so a
 run on the card repeats bit for bit.
 
-`fuse_chunk`, checkpointed and batched fusion, the Orbax state files and
-the `Fusion` class are not ported yet.
+`fuse_chunk` continues the loop from a state (any chunking gives the same
+bits), on which `fuse_session_checkpointed` commits a state file after
+each chunk (`save_state` / `load_state`, the port's own `.npz` format);
+`fuse_sessions_batch` loops over sessions; `Fusion` is the session-level
+driver with the reference's surface (auto capacity and window, overflow
+repair, uv2pt artifacts, `dump_data` / `load_data`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import shutil
+import warnings
+from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -132,7 +142,8 @@ def _seed_frame(state, fpts, fnrm, fclr, fvalid, *, height, width, radius, min_c
                 max_depth, capacity):
     """First frame: voxel-sparsify at the merge radius and append."""
     sp = sparsify.patch_sparsify(fpts, fnrm, fclr, fvalid, height, width, radius, min_cosine,
-                                 extent_cells=_frame_extent_cells(max_depth, radius))
+                                 extent_cells=_frame_extent_cells(max_depth, radius),
+                                 const_radius=True)
     state, cell2slot = _append_sparsified(state, sp, capacity)
     lp = sp.cell_of_pixel
     uv2pt = torch.where(lp >= 0, cell2slot[lp.clamp(0, sp.num_cells - 1).long()], -1)
@@ -285,7 +296,8 @@ def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fc
 
     # leftover pixels: voxel-sparsify at the merge radius and append
     sp = sparsify.patch_sparsify(fpts, fnrm, fclr, fvalid & ~matched, height, width, radius,
-                                 min_cosine, extent_cells=_frame_extent_cells(max_depth, radius))
+                                 min_cosine, extent_cells=_frame_extent_cells(max_depth, radius),
+                                 const_radius=True)
     state, cell2slot = _append_sparsified(state, sp, capacity)
     lp = sp.cell_of_pixel
     uv2pt = torch.where(matched, match, -1)
@@ -330,21 +342,61 @@ def fuse_session(Ks, quats_wxyz, translations, points, normals, colors, valid, *
     dev = cuda.resolve_device(device)
     K, quats, trans, points, normals, colors, valid = _session_tensors(
         dev, Ks, quats_wxyz, translations, points, normals, colors, valid)
-    nf = points.shape[0]
     kw = dict(height=height, width=width, radius=radius, min_cosine=min_cosine,
               max_depth=max_depth, capacity=capacity)
     state, uv0 = _seed_frame(_empty_state(capacity, dev), points[0], normals[0], colors[0],
                              valid[0], **kw)
+    state, uv_rest, spans_rest = _fuse_frames(
+        state, K, quats[1:], trans[1:], points[1:], normals[1:], colors[1:], valid[1:],
+        candidate_px=candidate_px, window=window, window_policy=window_policy, **kw)
+    uv2pt = torch.cat([uv0[None], uv_rest])
+    if with_stats:
+        return state, uv2pt, torch.cat([spans_rest.new_zeros(1), spans_rest])
+    return state, uv2pt
+
+
+def _fuse_frames(state, K, quats, trans, points, normals, colors, valid, *, height, width,
+                 candidate_px, window, window_policy, **kw):
+    """The frame loop over F frames from `state`: (state, uv2pt [F, H*W],
+    spans [F]). The frames' matrices and frustums come from one batched
+    call; each frame's entries do not depend on the batch, so any split of
+    a session into calls gives the same bits."""
+    dev = points.device
+    nf = points.shape[0]
     uv2pt = torch.empty((nf, height * width), dtype=torch.int32, device=dev)
-    uv2pt[0] = uv0
     spans = torch.zeros(nf, dtype=torch.int32, device=dev)
+    if nf == 0:
+        return state, uv2pt, spans
     M, R = camera.projection_matrices(K, quats)
-    plane_pts, plane_ns = camera.frustum_world_planes(K, width, height, quats, trans, max_depth)
-    for f in range(1, nf):
+    plane_pts, plane_ns = camera.frustum_world_planes(K, width, height, quats, trans,
+                                                      kw["max_depth"])
+    for f in range(nf):
         state, uv2pt[f], spans[f] = _fuse_frame(
             state, M[f], R[f], trans[f], plane_pts[f], plane_ns[f], points[f], normals[f],
-            colors[f], valid[f], candidate_px=candidate_px, window=window,
-            window_policy=window_policy, **kw)
+            colors[f], valid[f], height=height, width=width, candidate_px=candidate_px,
+            window=window, window_policy=window_policy, **kw)
+    return state, uv2pt, spans
+
+
+@torch.no_grad()
+def fuse_chunk(state: FusionState, Ks, quats_wxyz, translations, points, normals, colors, valid,
+               *, height: int, width: int, radius: float, min_cosine: float, max_depth: float,
+               capacity: int, candidate_px: int = 1, window: Optional[int] = None,
+               window_policy: str = "newest", with_stats: bool = False):
+    """Continue fusion over a chunk of frames from an existing state, on
+    the state's device. `fuse_session` is the seed frame followed by
+    `fuse_chunk` over frames 1..F-1 in any chunking, bit for bit: the
+    building block of checkpointed fusion. Returns (state, uv2pt [chunk,
+    H*W][, spans [chunk]])."""
+    if window_policy not in ("newest", "split"):
+        raise ValueError(f"unknown window_policy {window_policy!r}")
+    dev = state.points.device
+    K, quats, trans, points, normals, colors, valid = _session_tensors(
+        dev, Ks, quats_wxyz, translations, points, normals, colors, valid)
+    state, uv2pt, spans = _fuse_frames(
+        state, K, quats, trans, points, normals, colors, valid, height=height, width=width,
+        radius=radius, min_cosine=min_cosine, max_depth=max_depth, capacity=capacity,
+        candidate_px=candidate_px, window=window, window_policy=window_policy)
     if with_stats:
         return state, uv2pt, spans
     return state, uv2pt
@@ -445,3 +497,314 @@ def remap_uv2pt(uv2pt: torch.Tensor, slot_map: torch.Tensor) -> torch.Tensor:
     `dedup_state` slot map."""
     safe = uv2pt.clamp(0, slot_map.shape[0] - 1).long()
     return torch.where(uv2pt >= 0, slot_map[safe], -1).to(torch.int32)
+
+
+def save_state(state: FusionState, directory) -> None:
+    """Write the state's arrays to `directory/fusion_state.npz` (the port's
+    own format; the reference's Orbax directories are not read)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / "fusion_state.tmp.npz"
+    np.savez(tmp, **state_to_arrays(state))
+    os.replace(tmp, directory / "fusion_state.npz")
+
+
+def load_state(directory, device="cuda") -> FusionState:
+    """The state `save_state` wrote, on `device`."""
+    with np.load(Path(directory) / "fusion_state.npz") as d:
+        return state_from_arrays(*(d[k] for k in FusionState._fields), device=device)
+
+
+@torch.no_grad()
+def fuse_session_checkpointed(
+    Ks, quats_wxyz, translations, points, normals, colors, valid,
+    *, height: int, width: int, radius: float, min_cosine: float, max_depth: float,
+    capacity: int, candidate_px: int = 1, window: Optional[int] = None,
+    window_policy: str = "newest", chunk_frames: int = 64, ckpt_dir,
+    max_chunks: Optional[int] = None, retries: int = 0, verbose: bool = False,
+    device="cuda",
+) -> Tuple[FusionState, np.ndarray]:
+    """Session fusion in chunks of `chunk_frames`, the state committed to
+    `ckpt_dir` after each; a rerun with the same directory resumes from the
+    last commit, bit-exactly (chunked fusion is the one-shot loop).
+
+    Commit protocol: a chunk's state goes to its own `state_<frame>`
+    directory first; `progress.json` (the next frame, that directory's name
+    and every parameter the result depends on) is the single commit point,
+    written after; older state directories are removed after that. A
+    resume under any changed parameter raises. `max_chunks` bounds the
+    chunks of this call; `retries` reruns a failed chunk from its
+    committed state. Returns (state, uv2pt [frames fused, H*W] int32
+    NumPy).
+    """
+    dev = cuda.resolve_device(device)
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    marker = ckpt_dir / "progress.json"
+    nf = len(quats_wxyz)
+    kw = dict(height=height, width=width, radius=radius, min_cosine=min_cosine,
+              max_depth=max_depth, capacity=capacity)
+    params = dict(
+        nframes=nf, capacity=capacity, height=height, width=width, radius=float(radius),
+        min_cosine=float(min_cosine), max_depth=float(max_depth), candidate_px=candidate_px,
+        window=None if window is None else int(window), window_policy=window_policy,
+    )
+    K, quats, trans, points, normals, colors, valid = _session_tensors(
+        dev, Ks, quats_wxyz, translations, points, normals, colors, valid)
+
+    def commit(state, next_frame):
+        sdir = ckpt_dir / f"state_{next_frame:07d}"
+        save_state(state, sdir)
+        marker.write_text(json.dumps({"next_frame": next_frame, "state_dir": sdir.name,
+                                      **params}))
+        for d in ckpt_dir.glob("state_*"):
+            if d.name != sdir.name:
+                shutil.rmtree(d, ignore_errors=True)
+
+    def committed_state():
+        prog = json.loads(marker.read_text())
+        return load_state(ckpt_dir / prog["state_dir"], device=dev)
+
+    if marker.is_file():
+        prog = json.loads(marker.read_text())
+        bad = {k: (prog.get(k), v) for k, v in params.items() if k in prog and prog[k] != v}
+        if bad:
+            detail = ", ".join(f"{k} {old!r} vs {new!r}" for k, (old, new) in bad.items())
+            raise ValueError(f"checkpoint at {ckpt_dir} is for a different session or "
+                             f"parameterization ({detail}); clear it first")
+        nxt = int(prog["next_frame"])
+        state = load_state(ckpt_dir / prog["state_dir"], device=dev)
+        if verbose:
+            print(f"resuming fusion at frame {nxt}/{nf}")
+    else:
+        state, uv0 = _seed_frame(_empty_state(capacity, dev), points[0], normals[0], colors[0],
+                                 valid[0], **kw)
+        np.save(ckpt_dir / "uv2pt_0000000.npy", uv0[None].cpu().numpy())
+        commit(state, 1)
+        nxt = 1
+
+    chunks_run = 0
+    while nxt < nf and (max_chunks is None or chunks_run < max_chunks):
+        end = min(nxt + chunk_frames, nf)
+        sl = slice(nxt, end)
+        attempt = 0
+        while True:
+            try:
+                state_next, uv_c, _ = _fuse_frames(
+                    state, K, quats[sl], trans[sl], points[sl], normals[sl], colors[sl],
+                    valid[sl], candidate_px=candidate_px, window=window,
+                    window_policy=window_policy, **kw)
+                uv_c = uv_c.cpu().numpy()  # waits: a failure shows here
+                break
+            except Exception as e:
+                attempt += 1
+                if attempt > retries:
+                    raise
+                if verbose:
+                    print(f"chunk [{nxt}, {end}) failed ({type(e).__name__}: {e}); retry "
+                          f"{attempt}/{retries} from the last commit")
+                state = committed_state()
+        state = state_next
+        np.save(ckpt_dir / f"uv2pt_{nxt:07d}.npy", uv_c)
+        commit(state, end)
+        if verbose:
+            print(f"fused frames [{nxt}, {end}) -> n={int(state.n)}")
+        nxt = end
+        chunks_run += 1
+
+    rows = [np.load(f) for f in sorted(ckpt_dir.glob("uv2pt_*.npy"))]
+    uv2pt = np.concatenate(rows, axis=0) if rows else np.zeros((0,), np.int32)
+    # a crash between a chunk's uv2pt file and its commit leaves rows past
+    # the committed frame count
+    return state, uv2pt[:nxt]
+
+
+@torch.no_grad()
+def fuse_sessions_batch(Ks, quats_wxyz, translations, points, normals, colors, valid, *,
+                        height: int, width: int, radius: float, min_cosine: float,
+                        max_depth: float, capacity: int, candidate_px: int = 1,
+                        window: Optional[int] = None, window_policy: str = "newest",
+                        device="cuda"):
+    """Fuse a batch of sessions, each independently: every argument has a
+    leading session axis (Ks [S,3,3], poses [S,F,...], frame data
+    [S,F,HW,...]). A loop over the sessions. Returns (FusionState with a
+    leading S axis on every field, uv2pt [S, F, HW])."""
+    kw = dict(height=height, width=width, radius=radius, min_cosine=min_cosine,
+              max_depth=max_depth, capacity=capacity, candidate_px=candidate_px, window=window,
+              window_policy=window_policy, device=device)
+    outs = [fuse_session(*(a[s] for a in (Ks, quats_wxyz, translations, points, normals,
+                                          colors, valid)), **kw)
+            for s in range(len(Ks))]
+    state = FusionState(*(torch.stack([o[0][i] for o in outs])
+                          for i in range(len(FusionState._fields))))
+    return state, torch.stack([o[1] for o in outs])
+
+
+@dataclasses.dataclass
+class Fusion:
+    """Session-level fusion driver with the reference's surface: `fuse`,
+    `filter`, `dump_data`, `load_data`, and the uv2pt artifact files. It
+    runs on the device that holds the session's tensors.
+
+    `capacity=None` sizes the buffer from the seed frame; `window="auto"`
+    sizes the merge window from it (`auto_window`), None merges against
+    the whole buffer; `window_policy` "split" merges revisited geometry
+    against its original slots at loop closure; `auto_dedup` repairs the
+    duplicates a frame past the window appended (`dedup_state`)."""
+
+    session: object  # io.rtab.SessionData
+    point_range: Optional[Tuple[float, float]] = None
+    decimation: int = 1
+    capacity: Optional[int] = 1 << 20
+    window: object = "auto"
+    window_policy: str = "split"
+    auto_dedup: bool = True
+    save_lookups: bool = True
+    out_dir: Optional[str] = None
+
+    ds_radius: Optional[float] = None
+    ds_angle: Optional[float] = None
+
+    @property
+    def nframes(self) -> int:
+        return self.session.nframes
+
+    @property
+    def npts(self) -> int:
+        h, w = self.session.depth_hw
+        return h * w
+
+    def _valid_mask(self) -> torch.Tensor:
+        """Depth range and decimation validity [F, H*W], on the session's
+        device."""
+        depth = self.session.depth
+        h, w = self.session.depth_hw
+        if self.point_range is not None:
+            lo, hi = self.point_range
+            valid = (depth > lo) & (depth <= hi)
+        else:
+            valid = torch.ones_like(depth, dtype=torch.bool)
+        if self.decimation > 1:
+            keep = torch.zeros((h, w), dtype=torch.bool, device=depth.device)
+            keep[:: self.decimation, :: self.decimation] = True
+            valid = valid & keep.reshape(1, -1)
+        return valid
+
+    def fuse(self, radius: float = 0.05, angle: float = 10.0, stride: Optional[int] = None,
+             max_depth: float = 10.0, skip: int = 1, verbose: bool = False):
+        """Fuse the session; returns (points, normals, colors, nmerges,
+        occurences uint32) NumPy arrays of the live prefix. `stride` is
+        accepted for the reference's signature and has no effect (the voxel
+        sparsifier has no patch stride). The host reads the device before
+        the frame loop (the first frame with a valid point, the seed
+        frame's cells when a knob is automatic) and after it (the spans,
+        n), never inside it."""
+        del stride
+        self.ds_radius, self.ds_angle = radius, angle
+        min_cosine = float(np.cos(np.deg2rad(angle)))
+        h, w = self.session.depth_hw
+        s = self.session
+        if self.point_range is not None and self.point_range[1] > 2 * max_depth:
+            print(f"warning: point_range max {self.point_range[1]} exceeds 2*max_depth = "
+                  f"{2 * max_depth}; points beyond the frame-extent bound are dropped by the "
+                  "sparsifier")
+
+        valid = self._valid_mask()
+        dev = valid.device
+        # start at the first frame with any valid point
+        start = int(valid.any(dim=1).to(torch.uint8).argmax())
+        sel = np.r_[start, np.arange(start + 1, self.nframes, skip)]
+        sel_d = torch.as_tensor(sel, device=dev)
+
+        n0 = None
+        if self.capacity is None or self.window == "auto":
+            n0 = max(seed_cells_for_frame(s.points[start], s.normals[start], s.colors[start],
+                                          valid[start], h, w, float(radius), min_cosine,
+                                          max_depth=max_depth), 256)
+        if self.capacity is None:
+            # seed density x a generous growth allowance; the saturation
+            # warning below is the backstop
+            est = n0 * (2 + len(sel) // 2)
+            self.capacity = int(min(max(1 << (est - 1).bit_length(), 1 << 14), 1 << 21))
+            if verbose:
+                print(f"auto capacity: seed {n0} cells -> {self.capacity}")
+        window = self.window
+        if window == "auto":
+            window = auto_window(n0, self.capacity)
+            if verbose and window is not None:
+                print(f"auto window: seed {n0} cells -> {window}")
+
+        state, uv2pt, spans = fuse_session(
+            s.Ks.astype(np.float32), s.quats_wxyz[sel], s.translations[sel], s.points[sel_d],
+            s.normals[sel_d], s.colors[sel_d], valid[sel_d], height=h, width=w,
+            radius=float(radius), min_cosine=min_cosine, max_depth=float(max_depth),
+            capacity=self.capacity, window=window, window_policy=self.window_policy,
+            with_stats=True, device=dev)
+        spans = spans.cpu().numpy()
+        self.last_spans = spans
+        self.last_overflow_frames = int((spans > window).sum()) if window is not None else 0
+        if self.last_overflow_frames and self.auto_dedup:
+            state, slot_map = dedup_state(state, float(radius), min_cosine,
+                                          capacity=self.capacity)
+            uv2pt = remap_uv2pt(uv2pt, slot_map)
+            if verbose:
+                print(f"window overflow on {self.last_overflow_frames} frames (max span "
+                      f"{int(spans.max())} > window {window}); deduplicated to "
+                      f"{int(state.n)} points")
+        n = int(state.n)
+        if n >= self.capacity:
+            warnings.warn(f"fusion buffer saturated at capacity={self.capacity}; points "
+                          "beyond it were dropped; rerun with a larger Fusion(capacity=...)",
+                          RuntimeWarning)
+        if verbose:
+            print(f"fused {len(sel)} frames into {n} sparse points")
+
+        uv2pt_h = uv2pt.cpu().numpy()
+        if self.save_lookups and self.out_dir is not None:
+            from fusion3dseg_tpu_torch.io import artifacts
+
+            artifacts.save_uv2pt_batch(self.out_dir, [str(s.frame_numbers[i]) for i in sel],
+                                       uv2pt_h)
+        self._last_uv2pt = uv2pt_h
+        self._last_frames = sel
+        return (
+            state.points[:n].cpu().numpy(),
+            state.normals[:n].cpu().numpy(),
+            state.colors[:n].cpu().numpy(),
+            state.nmerges[:n].cpu().numpy(),
+            state.occurences[:n].cpu().numpy().astype(np.uint32),
+        )
+
+    @staticmethod
+    def filter(values, threshold, data=None, less_than=False):
+        """(mask of values >= threshold, or <= with `less_than`; the
+        `data` arrays masked, or None)."""
+        values = np.asarray(values)
+        mask = values <= threshold if less_than else values >= threshold
+        if data is None:
+            return mask, None
+        return mask, [np.asarray(d)[mask] for d in data]
+
+    def dump_data(self, dirname, points, normals=None, colors=None, nmerges=None,
+                  occurences=None, compute_adjacency=True, verbose=False,
+                  adjacency_degree: int = 32):
+        """Write the fusion artifacts, with the full neighbour lists within
+        2 * ds_radius from the native library as `adj.pkl`.
+        `adjacency_degree` is accepted for the reference's signature (its
+        device graph's degree cap); the native lists are uncapped."""
+        from fusion3dseg_tpu_torch.io import artifacts, native
+
+        del adjacency_degree, verbose
+        adj = None
+        if compute_adjacency and self.ds_radius is not None and len(points):
+            adj = native.radius_graph_lists(np.asarray(points, np.float32), 2 * self.ds_radius)
+        artifacts.dump_fusion_data(
+            dirname, points, normals, colors, nmerges, occurences, nframes=self.nframes,
+            depth_hw=tuple(self.session.depth_hw), adjacency=adj, ds_radius=self.ds_radius,
+            ds_angle=self.ds_angle)
+
+    @classmethod
+    def load_data(cls, dirname):
+        from fusion3dseg_tpu_torch.io import artifacts
+
+        return artifacts.load_fusion_data(dirname)

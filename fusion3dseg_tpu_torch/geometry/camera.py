@@ -165,13 +165,15 @@ def frustum_world_planes(
     eye = world[..., 0, :]
     corners = world[..., 1:5, :]
     lookvec = world[..., 5, :] - eye
-    lookat = lookvec / torch.linalg.vector_norm(lookvec, dim=-1, keepdim=True)
+    # cross products and norms as XLA's CPU code contracts them in the
+    # reference's frame step, so the planes carry the reference's bits
+    lookat = lookvec / quat.norm3_fma(lookvec)
 
     nxt = torch.roll(corners, shifts=-1, dims=-2)
     e2a = corners - eye[..., None, :]
     e2b = nxt - eye[..., None, :]
-    normals = quat.cross(e2a, e2b)
-    normals = normals / torch.linalg.vector_norm(normals, dim=-1, keepdim=True)
+    normals = quat.cross_fma(e2a, e2b)
+    normals = normals / quat.norm3_fma(normals)
 
     far_pt = eye + max_depth * lookat
     far_n = -lookat

@@ -31,12 +31,15 @@ def points_inside_polyhedra(points: torch.Tensor, plane_points: torch.Tensor,
                             plane_normals: torch.Tensor) -> torch.Tensor:
     """Half-space sign test: inside <=> dot(p - plane_point_m, normal_m) >= 0
     for every plane m, as one float32 [N,3] @ [3,M] product minus the plane
-    offsets d_m = n_m . p0_m.
+    offsets d_m = n_m . p0_m (an FMA chain).
 
     points [N, 3], plane_points [M, 3], plane_normals [M, 3] (inward).
     Returns [N] bool.
     """
-    d = (plane_points * plane_normals).sum(dim=-1)  # [M]
+    # d as the forward FMA chain XLA's CPU code makes of it in the frame step
+    p0, p1, p2 = plane_points.unbind(-1)
+    n0, n1, n2 = plane_normals.unbind(-1)
+    d = quat.fma(p2, n2, quat.fma(p1, n1, p0 * n0))  # [M]
     dp = points @ plane_normals.T - d
     return (dp >= 0.0).all(dim=-1)
 

@@ -1,10 +1,12 @@
 """Batched quaternion math on torch tensors.
 
 Counterpart of `fusion3dseg_tpu/geometry/quaternion.py`: the same pure
-functions over (..., 4) wxyz tensors, in the same operation order. On the
-CPU, `conjugate`, `multiply` and `to_rotation_matrix` agree with the JAX
-package bit for bit; `rotate` and `normalize` within 1 ulp, because XLA
-fuses some of their products into FMAs.
+functions over (..., 4) wxyz tensors, in the same operation order. XLA's
+CPU code contracts some products of `rotate` and `normalize` into fused
+multiply-adds; `fma` reproduces each one (the product of two float32 values
+is exact in float64, the sum is rounded to float32), so on the CPU every
+function here agrees with the JAX package bit for bit where the session
+path uses it (`frames_to_world`).
 
 Convention: quaternions are (w, x, y, z).
 """
@@ -14,9 +16,16 @@ from __future__ import annotations
 import torch
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add: the
+    product of two float32 values is exact in float64. Gives the same bits
+    on the CPU and the card."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a × b over the last axis; unlike torch.linalg.cross, a and b
-    broadcast against each other."""
+    """a × b over the last axis, each product rounded; unlike
+    torch.linalg.cross, a and b broadcast against each other."""
     a0, a1, a2 = a.unbind(-1)
     b0, b1, b2 = b.unbind(-1)
     return torch.stack(
@@ -24,9 +33,38 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def cross_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a × b as XLA's CPU code contracts `jnp.cross` inside the session
+    program: fma(a1, b2, -(a2 * b1)) and its rotations, the second product
+    rounded. Broadcasts like `cross`."""
+    a, b = torch.broadcast_tensors(a, b)
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack(
+        [fma(a1, b2, -(a2 * b1)), fma(a2, b0, -(a0 * b2)), fma(a0, b1, -(a1 * b0))], dim=-1
+    )
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root. torch's CPU kernel is not
+    (it differed on 15 of 5184 normals); in float64 and rounded once it is,
+    on both devices."""
+    return torch.sqrt(x.double()).float()
+
+
+def norm3_fma(n: torch.Tensor) -> torch.Tensor:
+    """|n| over a last axis of 3 as a forward FMA chain of the squares,
+    sqrt(fma(n2, n2, fma(n1, n1, n0 * n0))). Shape (..., 1)."""
+    n0, n1, n2 = n.unbind(-1)
+    return _sqrt(fma(n2, n2, fma(n1, n1, n0 * n0)))[..., None]
+
+
 def normalize(q: torch.Tensor) -> torch.Tensor:
-    """Normalize quaternion(s) to unit length. q: (..., 4)."""
-    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    """Normalize quaternion(s) to unit length. q: (..., 4). The squares sum
+    as a forward FMA chain, as XLA's CPU code computes the norm."""
+    q0, q1, q2, q3 = q.unbind(-1)
+    nrm = _sqrt(fma(q3, q3, fma(q2, q2, fma(q1, q1, q0 * q0))))
+    return q / nrm[..., None]
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
@@ -56,11 +94,13 @@ def rotate(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Rotate points by unit quaternion(s): p' = p + 2 w (v × p) + 2 v × (v × p).
 
     q: (..., 4) wxyz; p: (..., N, 3), q's leading dims broadcast against p's.
+    Both cross products and the sum w * (v × p) + v × (v × p) contract
+    into FMAs, as in XLA's CPU code for the session program.
     """
     w = q[..., None, :1]  # (..., 1, 1)
     v = q[..., None, 1:]  # (..., 1, 3)
-    vxp = cross(v, p)
-    return p + 2.0 * (w * vxp + cross(v, vxp))
+    vxp = cross_fma(v, p)
+    return p + 2.0 * fma(w.expand(vxp.shape), vxp, cross_fma(v, vxp))
 
 
 def rotate_inverse(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

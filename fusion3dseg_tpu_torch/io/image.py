@@ -1,0 +1,255 @@
+"""Image files: PNG and baseline JPEG, read and written without OpenCV.
+
+The JAX package reads and writes every image through OpenCV (`cv2.imread`,
+`cv2.imwrite`, `cv2.resize`); the port runs where no image library is
+installed, so it brings its own codec. The PNG chunk
+structure and zlib stream are handled here with Python's `zlib`; the row
+filters and the JPEG codec are a small host C++ library,
+`native/image_codec.cpp`, built with `g++` at first use into the build
+directory (`io/native.build`). A failed build raises.
+
+What `read` returns follows `cv2.imread` with the channels in RGB order
+(OpenCV's are BGR; callers of the JAX package flip them, callers of this
+module must not):
+
+  * `read(path)`: [H, W, 3] uint8 RGB. Gray images are replicated, 16-bit
+    samples shifted to 8 bits, alpha dropped.
+  * `read(path, gray=True)`: [H, W] uint8. A colour JPEG gives its luma
+    plane (what libjpeg returns for a grayscale output); a colour PNG
+    converts with libpng's rule, (9797 R + 19234 G + 3737 B) >> 15 and
+    gray pixels unchanged, which is what `cv2.imread(f, 0)` does.
+  * `read(path, unchanged=True)`: the stored samples: [H, W] for gray
+    (uint16 for 16-bit PNG, such as RTAB-Map's depth in millimetres),
+    [H, W, 3] or [H, W, 4] for colour.
+
+The format is sniffed from the magic bytes, not the file name. JPEG
+decoding follows libjpeg-turbo's defaults (ISLOW IDCT, fancy upsampling,
+its fixed-point YCbCr tables) and so equals `cv2.imread`; progressive and
+arithmetic-coded JPEGs raise. `write` picks the format from the file
+name: PNG (8-bit gray or RGB, 16-bit gray; filter 0, zlib level 1, which
+decodes to the same samples as OpenCV's file) or baseline JPEG (quality
+95 and 4:2:0 by default, standard Huffman tables, as `cv2.imwrite`).
+
+`resize_nearest` reproduces `cv2.resize(..., INTER_NEAREST)`'s source
+index rule, floor(x * (1 / (dst / src))).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from fusion3dseg_tpu_torch.io import native
+
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "image_codec.cpp"
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+JPEG_QUALITY = 95
+MAX_PIXELS = 1 << 30  # OpenCV's default limit on a decoded image
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_SIGNATURES = {
+    "png_unfilter": [_U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _U8P],
+    "jpeg_info": [_U8P, ctypes.c_int64, _I32P],
+    "jpeg_decode": [_U8P, ctypes.c_int64, ctypes.c_int, _U8P, ctypes.c_int, ctypes.c_int],
+    "jpeg_encode": [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P,
+                    ctypes.c_int64],
+}
+_ERRORS = {
+    -1: "truncated data", -2: "not a JPEG stream", -3: "progressive JPEG (baseline only)",
+    -4: "arithmetic-coded JPEG (Huffman only)", -5: "unsupported JPEG layout",
+    -6: "corrupt data", -7: "corrupt Huffman data", -8: "no frame header",
+    -9: "output buffer too small",
+}
+
+
+class ImageError(ValueError):
+    """A file that is not an image this codec reads, or a corrupt one."""
+
+
+def _lib() -> ctypes.CDLL:
+    return native.load_library(SOURCE, _SIGNATURES, {"jpeg_encode": ctypes.c_int64})
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(_U8P)
+
+
+def _check(rc: int, what: str) -> None:
+    if rc < 0:
+        raise ImageError(f"{what}: {_ERRORS.get(rc, f'error {rc}')}")
+
+
+# ----------------------------------------------------------------- read --
+
+def read(path, gray: bool = False, unchanged: bool = False) -> np.ndarray:
+    """Read a PNG or JPEG file (see the module docstring for the layouts).
+    Raises FileNotFoundError for a missing file and ImageError for one
+    this codec cannot read."""
+    with open(path, "rb") as fp:
+        data = fp.read()
+    try:
+        return decode(data, gray=gray, unchanged=unchanged)
+    except ImageError as e:
+        raise ImageError(f"{path}: {e}") from None
+
+
+def decode(data: bytes, gray: bool = False, unchanged: bool = False) -> np.ndarray:
+    if data[:8] == PNG_MAGIC:
+        img = _decode_png(data)
+    elif data[:3] == b"\xff\xd8\xff":
+        return _decode_jpeg(data, gray=gray and not unchanged, unchanged=unchanged)
+    else:
+        raise ImageError("neither a PNG nor a JPEG stream")
+    if unchanged:
+        return img
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = img[..., :3]
+    if gray:
+        return img if img.ndim == 2 else _png_gray(img)
+    return img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=2)
+
+
+def _png_gray(rgb: np.ndarray) -> np.ndarray:
+    """libpng's png_set_rgb_to_gray(0.299, 0.587): coefficients truncated
+    to 15 bits, the sum truncated, gray pixels passed through."""
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    y = (9797 * r + 19234 * g + 3737 * b) >> 15
+    return np.where((r == g) & (r == b), r, y).astype(np.uint8)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    pos, ihdr, idat, palette = 8, None, [], None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n:
+            raise ImageError("truncated PNG chunk")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if ihdr is None or not idat:
+        raise ImageError("PNG without IHDR or IDAT")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if w * h > MAX_PIXELS:
+        raise ImageError(f"{w}x{h} exceeds {MAX_PIXELS} pixels")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if channels is None or depth not in (8, 16) or (ctype == 3 and depth != 8):
+        raise ImageError(f"unsupported PNG (colour type {ctype}, bit depth {depth})")
+    if interlace:
+        raise ImageError("interlaced PNG")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ImageError(f"corrupt PNG data ({e})") from None
+    bpp = channels * depth // 8
+    rowbytes = w * bpp
+    if len(raw) < h * (rowbytes + 1):
+        raise ImageError("truncated PNG data")
+    src = np.frombuffer(raw, np.uint8, count=h * (rowbytes + 1))
+    out = np.empty(h * rowbytes, np.uint8)
+    _check(_lib().png_unfilter(_u8(src), h, rowbytes, bpp, _u8(out)), "PNG")
+    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
+    img = img.reshape(h, w, channels)
+    if ctype == 3:
+        if palette is None:
+            raise ImageError("palette PNG without PLTE")
+        return palette[img[..., 0]]
+    if ctype == 4:  # gray + alpha -> RGBA, as OpenCV's unchanged read gives
+        img = np.concatenate([np.repeat(img[..., :1], 3, axis=2), img[..., 1:]], axis=2)
+    return img[..., 0] if channels == 1 else img
+
+
+def _decode_jpeg(data: bytes, gray: bool, unchanged: bool) -> np.ndarray:
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int32)
+    lib = _lib()
+    _check(lib.jpeg_info(_u8(src), len(src), info.ctypes.data_as(_I32P)), "JPEG")
+    w, h, ncomp = (int(v) for v in info)
+    if w * h > MAX_PIXELS:
+        raise ImageError(f"{w}x{h} exceeds {MAX_PIXELS} pixels")
+    gray = gray or (unchanged and ncomp == 1)
+    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    _check(lib.jpeg_decode(_u8(src), len(src), int(gray), _u8(out), w, h), "JPEG")
+    return out
+
+
+# ---------------------------------------------------------------- write --
+
+def write(path, img: np.ndarray, quality: int = JPEG_QUALITY) -> None:
+    """Write `img` as PNG or JPEG by the file name's suffix: [H, W] gray
+    (uint8, or uint16 for PNG) or [H, W, 3] RGB uint8."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".png":
+        data = encode_png(img)
+    elif suffix in (".jpg", ".jpeg"):
+        data = encode_jpeg(img, quality)
+    else:
+        raise ValueError(f"cannot tell the image format of {path.name!r}")
+    path.write_bytes(data)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(body, zlib.crc32(kind)))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PNG takes uint8 or uint16 samples, got {img.dtype}")
+    if img.ndim == 2:
+        ctype = 0
+    elif img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8:
+        ctype = 2
+    else:
+        raise ValueError(f"PNG takes [H, W] gray or [H, W, 3] RGB uint8, got {img.shape}")
+    h, w = img.shape[:2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8)
+    rows = rows.reshape(h, -1)
+    filtered = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)  # filter 0
+    return (PNG_MAGIC + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 1)) + _chunk(b"IEND", b""))
+
+
+def encode_jpeg(img: np.ndarray, quality: int = JPEG_QUALITY) -> bytes:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"JPEG takes [H, W] or [H, W, 3] uint8, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else 3
+    cap = 1024 + 2 * img.size  # q95 on photographs stays far below this
+    out = np.empty(cap, np.uint8)
+    n = _lib().jpeg_encode(_u8(img), h, w, channels, int(quality), _u8(out), cap)
+    _check(n, "JPEG encode")
+    return out[:n].tobytes()
+
+
+# --------------------------------------------------------------- resize --
+
+def resize_nearest(img: np.ndarray, out_hw) -> np.ndarray:
+    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`: output
+    pixel x reads source min(floor(x * (1 / (w / W))), W - 1), likewise
+    for rows."""
+    img = np.asarray(img)
+    h, w = out_hw
+    sh, sw = img.shape[:2]
+    if (h, w) == (sh, sw):
+        return img
+    sy = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64), sh - 1)
+    sx = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64), sw - 1)
+    return img[sy[:, None], sx[None, :]]

@@ -4,8 +4,12 @@ Counterpart of `fusion3dseg_tpu/io/native.py`: fixed-radius neighbour
 graphs and connected components of a host point cloud, from the C++ source
 `native/neighbor_graph.cpp` that both packages share. The port compiles its
 own copy with `g++` into its build directory (`cuda.build_dir()`), at first
-use; the file name carries a hash of the source and the flags. A failed
-build raises: there is no slower fall-back.
+use; the file name carries a hash of the source, the flags and the CPU
+model. A failed build raises: there is no slower fall-back.
+
+`build(source)` and `load_library(source)` build and load any host C++
+source the same way; the port's image codec (`native/image_codec.cpp`,
+read by `io/image.py`) is the other one.
 """
 
 from __future__ import annotations
@@ -49,43 +53,51 @@ def _host_cpu() -> bytes:
         return platform.processor().encode()
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE) -> Path:
     """Where the library of this source, these flags and this CPU is (or
     will be) built."""
-    key = SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode() + _host_cpu()
-    return cuda.build_dir() / f"libneighbor_graph-{hashlib.sha256(key).hexdigest()[:12]}.so"
+    key = source.read_bytes() + " ".join(CXX_FLAGS).encode() + _host_cpu()
+    return cuda.build_dir() / f"lib{source.stem}-{hashlib.sha256(key).hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless this source is already built. Raises with
-    the compiler's output when `g++` is missing or fails."""
-    target = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile `source` (by default the neighbour-graph library) unless it
+    is already built. Raises with the compiler's output when `g++` is
+    missing or fails."""
+    target = library_path(source)
     if target.exists():
         return target
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: cannot build the neighbour-graph library")
+        raise RuntimeError(f"g++ not found: cannot build {source.name}")
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
                        capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{r.stdout}{r.stderr}")
+        raise RuntimeError(f"building {source.name} failed:\n{r.stdout}{r.stderr}")
     os.replace(tmp, target)  # atomic: concurrent builds leave one whole file
     return target
 
 
-def load() -> ctypes.CDLL:
-    """The library's ctypes handle, built at first use."""
-    lib = _LIB.get("lib")
+def load_library(source: Path, signatures: dict, restypes: dict | None = None) -> ctypes.CDLL:
+    """The ctypes handle of `source`'s library, built at first use, with
+    each function in `signatures` (name -> argument types) declared; it
+    returns `restypes[name]`, by default a C int."""
+    lib = _LIB.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+        lib = ctypes.CDLL(str(build(source)))
+        for name, argtypes in signatures.items():
             fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
+            fn.restype = (restypes or {}).get(name, ctypes.c_int)
             fn.argtypes = argtypes
-        _LIB["lib"] = lib
+        _LIB[source] = lib
     return lib
+
+
+def load() -> ctypes.CDLL:
+    """The neighbour-graph library's ctypes handle, built at first use."""
+    return load_library(SOURCE, _SIGNATURES)
 
 
 def _ptr(a: np.ndarray, ptype):

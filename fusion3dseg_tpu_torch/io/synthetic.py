@@ -4,9 +4,10 @@ Counterpart of `fusion3dseg_tpu/io/synthetic.py` (NumPy, host side): it
 ray-casts an axis-aligned room (floor/ceiling/4 walls) holding labeled
 boxes from a circular camera trajectory and returns depth images, per-pixel
 ground-truth class masks, colors, poses and intrinsics. The same seed gives
-the same arrays as the JAX package's generator. Writing a session to disk
-(`write_session_dir`, `write_tum_dir`) and `degrade_session` belong to the
-file-API slice and are not here.
+the same arrays as the JAX package's generator. `write_session_dir` writes
+a session as an rtabmap-export directory through the port's own image
+codec (`io/image.py`); `write_tum_dir` and `degrade_session` wait for the
+CLI slice.
 
 Coordinate convention: the camera looks down +z in its frame, world y is up.
 """
@@ -14,9 +15,12 @@ Coordinate convention: the camera looks down +z in its frame, world y is up.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from fusion3dseg_tpu_torch.io import image
 
 # default semantic ids for the room surfaces (COCO panoptic contiguous ids:
 # floor-wood, ceiling-merged, wall-other-merged)
@@ -448,3 +452,37 @@ def make_session(
         quats_wxyz=quats, translations=trans,
         boxes=boxes, box_classes=bclasses, room=room,
     )
+
+
+def write_session_dir(session: SyntheticSession, out_dir, write_masks: bool = True) -> Path:
+    """Write the session as an rtabmap-export directory: rgb/<i>.jpg
+    (quality 95, 4:2:0), depth/<i>.png (16-bit millimetres), poses.txt
+    (RGBD-SLAM + id), calibration.yaml and, with `write_masks`,
+    masks/<i>.png (the ground-truth class ids, standing in for a 2D
+    segmenter's output). The same files as the JAX package's writer, up to
+    the JPEG and PNG encoders' bytes."""
+    out_dir = Path(out_dir)
+    (out_dir / "rgb").mkdir(parents=True, exist_ok=True)
+    (out_dir / "depth").mkdir(exist_ok=True)
+    if write_masks:
+        (out_dir / "masks").mkdir(exist_ok=True)
+
+    lines = []
+    for i in range(session.nframes):
+        image.write(out_dir / "rgb" / f"{i}.jpg", session.colors[i])
+        dmm = np.clip(session.depth[i] * 1000.0, 0, 65535).astype(np.uint16)
+        image.write(out_dir / "depth" / f"{i}.png", dmm)
+        if write_masks:
+            image.write(out_dir / "masks" / f"{i}.png", session.gt_mask[i])
+        q = session.quats_wxyz[i]
+        t = session.translations[i]
+        # RGBD-SLAM + id: timestamp x y z qx qy qz qw id
+        lines.append(f"{float(i)} {t[0]} {t[1]} {t[2]} {q[1]} {q[2]} {q[3]} {q[0]} {i}")
+    (out_dir / "poses.txt").write_text("\n".join(lines) + "\n")
+
+    K = session.K
+    (out_dir / "calibration.yaml").write_text(
+        "%YAML:1.0\n---\n"
+        "camera_matrix:\n   rows: 3\n   cols: 3\n"
+        f"   data: [{K[0,0]}, 0., {K[0,2]}, 0., {K[1,1]}, {K[1,2]}, 0., 0., 1.]\n")
+    return out_dir

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from fusion3dseg_tpu_torch.geometry.camera import _floor_to_int32
@@ -118,7 +119,7 @@ def _sort_rows(valid, vox, extent_cells):
 def voxel_merge(points, normals, colors, weights, occurences, valid, radius: float,
                 min_cosine: float, extent_cells: Optional[int] = None,
                 max_cells: Optional[int] = None, max_rows: Optional[int] = None,
-                origin_shift=None) -> MergeResult:
+                origin_shift=None, const_radius: bool = False) -> MergeResult:
     """Weight-aware voxel merge of an arbitrary point set.
 
     Args:
@@ -132,6 +133,10 @@ def voxel_merge(points, normals, colors, weights, occurences, valid, radius: flo
       max_cells, max_rows: accepted for the reference's signature; the
         grouping they bound is the same, so they are ignored.
       origin_shift: [3] shift of the grid anchor in [0, radius) per axis.
+      const_radius: the radius is a compile-time constant of the
+        reference's program (its fusion frame step), where XLA divides by
+        it as a product with float32(1 / radius); otherwise (its overflow
+        repair, its eager calls) a true division.
 
     Returns a MergeResult with C = 2 * N padded cells: run r of the sorted
     voxels owns cells 2r (primary) and 2r + 1 (normal outliers).
@@ -146,8 +151,13 @@ def voxel_merge(points, normals, colors, weights, occurences, valid, radius: flo
     # scalar as a product with its reciprocal, which can move a voxel edge.
     # `full` fills it on the device; `torch.tensor` would copy from the
     # host and wait for the device
-    rad = torch.full((), radius, dtype=torch.float32, device=points.device)
-    vox = _floor_to_int32((points - pmin) / rad).clamp(min=0)
+    if const_radius:
+        inv = torch.full((), np.float32(1) / np.float32(radius), dtype=torch.float32,
+                         device=points.device)
+        vox = _floor_to_int32((points - pmin) * inv).clamp(min=0)
+    else:
+        rad = torch.full((), radius, dtype=torch.float32, device=points.device)
+        vox = _floor_to_int32((points - pmin) / rad).clamp(min=0)
     sidx, newrun, valid = _sort_rows(valid, vox, extent_cells)
     runid_sorted = torch.cumsum(newrun.to(torch.int32), 0, dtype=torch.int32) - 1
 
@@ -177,15 +187,18 @@ def voxel_merge(points, normals, colors, weights, occurences, valid, radius: flo
 def patch_sparsify(points, normals, colors, valid, height: int, width: int, radius: float,
                    min_cosine: float, extent_cells: Optional[int] = None,
                    max_cells: Optional[int] = None,
-                   max_rows: Optional[int] = None) -> SparsifyResult:
+                   max_rows: Optional[int] = None,
+                   const_radius: bool = False) -> SparsifyResult:
     """Sparsify one frame (dense pixel cloud -> per-voxel means).
 
     points, normals, colors: [H*W, 3] row-major per-pixel data (points in
-    world coordinates); valid: [H*W] bool. Returns a SparsifyResult with
-    C = 2 * H * W padded cells."""
+    world coordinates); valid: [H*W] bool; `const_radius` as in
+    `voxel_merge`. Returns a SparsifyResult with C = 2 * H * W padded
+    cells."""
     ones = torch.ones(height * width, dtype=torch.int32, device=points.device)
     m = voxel_merge(points, normals, colors, ones, ones, valid, radius, min_cosine,
-                    extent_cells=extent_cells, max_cells=max_cells, max_rows=max_rows)
+                    extent_cells=extent_cells, max_cells=max_cells, max_rows=max_rows,
+                    const_radius=const_radius)
     return SparsifyResult(m.points, m.normals, m.colors, m.counts, m.cell_of_input,
                           m.num_cells)
 

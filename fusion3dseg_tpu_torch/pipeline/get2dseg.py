@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from fusion3dseg_tpu_torch import cuda
+from fusion3dseg_tpu_torch.io import image
 from fusion3dseg_tpu_torch.models import convert
 from fusion3dseg_tpu_torch.models.segformer import SegFormer, SegFormerConfig, create_model
 from fusion3dseg_tpu_torch.ops import components2d
@@ -171,6 +172,13 @@ class Segmenter2D:
         }
 
 
+def _resize_frame(im: np.ndarray, hw) -> np.ndarray:
+    """A uint8 RGB frame resized to `hw` with OpenCV's INTER_LINEAR rule
+    (half-pixel bilinear, no antialiasing), rounded back to uint8 levels."""
+    x = torch.from_numpy(np.ascontiguousarray(im)).float()[None]
+    return resize_bilinear(x, hw)[0].round().clamp(0, 255).to(torch.uint8).numpy()
+
+
 def SegmentImage(
     input_dir,
     output_dir,
@@ -182,18 +190,18 @@ def SegmentImage(
     verbose: bool = False,
     device="cuda",
 ):
-    """Batch-segment a directory of RGB frames.
+    """Batch-segment a directory of RGB frames: `output_dir/<stem>.png`,
+    the uint8 class ids, and `output_dir/viz/<stem>.png`, a colour overlay,
+    for every `<stem>.<extension>` in `input_dir`. Images are read and
+    written with the port's codec (`io/image.py`). Frames of another size
+    than the batch's first are resized to it (bilinear) and their masks
+    back to their own size (nearest). Unreadable frames are skipped.
 
-    With no `segmenter`, the in-repo shipped weights load automatically when
-    present; `batch_size=None` takes the segmenter's own setting. Reads and
-    writes image files with OpenCV, which must be installed.
+    With no `segmenter`, the in-repo shipped weights load on `device` when
+    present; `batch_size=None` takes the segmenter's own setting.
     """
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("SegmentImage reads and writes image files with OpenCV "
-                          "(the cv2 module), which is not installed") from e
-
+    if segmenter is None:
+        cuda.resolve_device(device)  # refuse a missing card before any file work
     filter_classes = set(filter_classes) if filter_classes is not None else None
     os.makedirs(output_dir, exist_ok=True)
     viz_dir = os.path.join(output_dir, "viz")
@@ -218,30 +226,35 @@ def SegmentImage(
 
     viz_palette = (pal.random_palette(segmenter.config.num_classes, seed=0) * 255).astype(np.uint8)
 
+    def load(path):
+        try:
+            return image.read(path)
+        except (OSError, image.ImageError):
+            return None
+
     for i in range(0, len(images), batch_size):
-        loaded = [(p, cv2.imread(p)) for p in images[i:i + batch_size]]
+        loaded = [(p, load(p)) for p in images[i:i + batch_size]]
         bad = [p for p, im in loaded if im is None]
         if bad:
             # skip unreadable frames instead of losing the masks already written
             print(f"warning: skipping unreadable image(s): {bad}")
         chunk = [p for p, im in loaded if im is not None]
-        ims = [im[:, :, ::-1] for _, im in loaded if im is not None]
+        ims = [im for _, im in loaded if im is not None]
         if not ims:
             continue
         hw0 = ims[0].shape[:2]
-        batch = np.stack([im if im.shape[:2] == hw0 else cv2.resize(im, hw0[::-1])
-                          for im in ims])
+        batch = np.stack([im if im.shape[:2] == hw0 else _resize_frame(im, hw0) for im in ims])
         sems = segmenter.predict_batch(batch, conf_threshold)
         for path, im, sem in zip(chunk, ims, sems):
             if sem.shape != im.shape[:2]:
                 # mixed-size directory: bring the mask back to this image's
                 # resolution so mask and frame stay paired
-                sem = cv2.resize(sem, im.shape[:2][::-1], interpolation=cv2.INTER_NEAREST)
+                sem = image.resize_nearest(sem, im.shape[:2])
             if filter_classes is not None and not (set(np.unique(sem).tolist()) & filter_classes):
                 continue
             stem = Path(path).stem
             overlay = (0.45 * im + 0.55 * viz_palette[sem]).astype(np.uint8)
-            cv2.imwrite(os.path.join(viz_dir, f"{stem}.png"), overlay[:, :, ::-1])
-            cv2.imwrite(os.path.join(output_dir, f"{stem}.png"), sem)
+            image.write(os.path.join(viz_dir, f"{stem}.png"), overlay)
+            image.write(os.path.join(output_dir, f"{stem}.png"), sem)
         if verbose:
             print(f"segmented {min(i + batch_size, len(images))}/{len(images)}")

@@ -387,3 +387,46 @@ def test_segment_session_fast_cuda_matches_cpu(cuda_device, tmp_path):
     from fusion3dseg_tpu_torch import cuda
 
     assert native.library_path().parent == cuda.build_dir() and native.library_path().exists()
+
+
+@pytest.mark.cuda
+def test_file_path_cuda_matches_cpu(cuda_device, tmp_path):
+    import json
+    import pickle
+
+    from fusion3dseg_tpu_torch.io import synthetic
+    from fusion3dseg_tpu_torch.pipeline import get3dseg, process3d
+
+    sess = synthetic.make_session(nframes=16, depth_hw=(48, 36), turns=2.0,
+                                  room=synthetic.RoomSpec(seed=0), appearance="textured")
+    src = synthetic.write_session_dir(sess, tmp_path / "session")
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card0", "cuda"), ("card1", "cuda")):
+        out = tmp_path / name
+        process3d.process3DSeg(src, out, radius=0.1, device=dev)
+        get3dseg.segment(out, src / "masks", verbose=False, device=dev)
+        runs[name] = out
+
+    def arrays(out):
+        with open(out / "fusion" / "fusion_data.pkl", "rb") as fp:
+            data = pickle.load(fp)
+        uv = np.stack([np.load(out / "fusion" / "uv2pt" / f"{i}.npy") for i in range(16)])
+        return (data, uv, np.load(out / "segmentation" / "classes.npy"),
+                np.load(out / "panoptic_segmentation" / "ids.npy"),
+                json.loads((out / "panoptic_segmentation" / "final_info.json").read_text()))
+
+    cpu, c0, c1 = (arrays(runs[k]) for k in ("cpu", "card0", "card1"))
+    # two card runs: the same bits
+    for k, v in c0[0].items():
+        if isinstance(v, np.ndarray):
+            assert np.array_equal(v, c1[0][k]) and not isinstance(v, torch.Tensor), k
+    for a, b in zip(c0[1:4], c1[1:4]):
+        assert np.array_equal(a, b)
+    assert c0[4] == c1[4]
+    # the card against the CPU: the fusion engine's statistical bars
+    n_cpu, n_card = len(cpu[2]), len(c0[2])
+    assert abs(n_card - n_cpu) <= 0.01 * n_cpu
+    both = (cpu[1] >= 0) & (c0[1] >= 0)
+    assert (cpu[2][cpu[1][both]] == c0[2][c0[1][both]]).mean() >= 0.999
+    assert {i["category_id"] for i in cpu[4]} == {i["category_id"] for i in c0[4]}
+    assert c0[1].dtype == np.int32 and c0[0]["occurences"].dtype == np.uint32

@@ -4,6 +4,7 @@ Inputs are made from a seed with NumPy and handed to both packages.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -40,21 +41,24 @@ class TestQuaternion:
             np.testing.assert_array_equal(_j(a), b.numpy())
 
     def test_rotate_and_constructors(self, rng):
-        # XLA's CPU code contracts a*b - c*d into fma(a, b, -(c*d)) in the
-        # cross products and sums squares as an FMA chain in the norms;
-        # torch rounds each product first: 1-ulp differences (measured at
-        # most 1.9e-6 on coordinates up to ~10), hence rtol 1e-6
+        # the norm's squares sum as an FMA chain in XLA's CPU code and in the
+        # port (`quat.fma`): exact
         q1 = _unit_quats(rng, 64)
-        np.testing.assert_allclose(
-            _j(jquat.normalize(q1 * 3)), tquat.normalize(_t(q1 * 3)).numpy(),
-            rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(
+            _j(jquat.normalize(q1 * 3)), tquat.normalize(_t(q1 * 3)).numpy())
         q = _unit_quats(rng, 1)[0]
         p = (rng.normal(size=(500, 3)) * 3).astype(np.float32)
+        # compiled, XLA contracts rotate's cross products and sum into FMAs
+        # as in the session program, which the port reproduces: exact
+        np.testing.assert_array_equal(
+            _j(jax.jit(jquat.rotate)(q, p)), tquat.rotate(_t(q), _t(p)).numpy())
+        np.testing.assert_array_equal(
+            _j(jax.jit(jquat.rotate_inverse)(q, p)),
+            tquat.rotate_inverse(_t(q), _t(p)).numpy())
+        # called op by op, JAX rounds every product instead; the port keeps
+        # the session program's form, 1 ulp apart, hence rtol 1e-6
         np.testing.assert_allclose(
             _j(jquat.rotate(q, p)), tquat.rotate(_t(q), _t(p)).numpy(),
-            rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(
-            _j(jquat.rotate_inverse(q, p)), tquat.rotate_inverse(_t(q), _t(p)).numpy(),
             rtol=1e-6, atol=1e-6)
         axis = rng.normal(size=(8, 3)).astype(np.float32)
         ang = rng.uniform(-3, 3, 8).astype(np.float32)

@@ -1,5 +1,6 @@
-"""Port hygiene: the package and chip_smoke.py import no JAX and nothing of
-the JAX package, and a CUDA request without a card raises."""
+"""Port hygiene: the package and chip_smoke.py import no JAX, nothing of the
+JAX package and no image or YAML library (the card's machine has none),
+and a CUDA request without a card raises."""
 
 import ast
 import os
@@ -16,9 +17,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "cv2", "fusion3dseg_tpu"))
+             if m.split(".")[0] in ("jax", "flax", "cv2", "PIL", "yaml", "fusion3dseg_tpu"))
 print(len(names), "modules;", "bad:", bad)
-assert len(names) >= 42 and not bad, bad
+assert len(names) >= 49 and not bad, bad
 
 import numpy as np, pytest
 from fusion3dseg_tpu_torch.ops import label_fuse
@@ -26,7 +27,9 @@ assert not __import__("torch").cuda.is_available()
 pts = np.zeros((4, 3), np.float32)
 from types import SimpleNamespace
 from fusion3dseg_tpu_torch import fusion
-from fusion3dseg_tpu_torch.pipeline import fast
+from fusion3dseg_tpu_torch.pipeline import fast, get2dseg, get3dseg, process3d
+import tempfile
+tmp = tempfile.mkdtemp()
 session = (np.eye(3), np.tile([1.0, 0, 0, 0], (2, 1)), np.zeros((2, 3)), np.zeros((2, 12, 3)),
            np.zeros((2, 12, 3)), np.zeros((2, 12, 3)), np.ones((2, 12), bool))
 fkw = dict(height=3, width=4, radius=0.1, min_cosine=0.5, max_depth=8.0, capacity=64)
@@ -46,6 +49,10 @@ for call in (
     lambda: fusion.fuse_session_and_vote(*session, np.zeros((2, 12), np.uint8), nclasses=5,
                                          **fkw),
     lambda: fast.segment_session_fast(sd, masks=np.zeros((2, 12), np.uint8)),
+    # the file path's entry points, on their default device
+    lambda: process3d.process3DSeg(tmp, tmp + "/out"),
+    lambda: get3dseg.segment(tmp, tmp + "/masks"),
+    lambda: get2dseg.SegmentImage(tmp, tmp + "/seg"),
 ):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -75,7 +82,8 @@ def test_chip_smoke_imports_and_refusals(tmp_path):
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module or "")
     for m in mods:
-        assert m.split(".")[0] not in ("jax", "flax", "cv2", "fusion3dseg_tpu", "bench"), m
+        assert m.split(".")[0] not in ("jax", "flax", "cv2", "PIL", "yaml", "fusion3dseg_tpu",
+                                       "bench"), m
     # without a card: non-zero exit and no result line
     r = _run([str(ROOT / "chip_smoke.py")], cwd=ROOT)
     assert r.returncode != 0 and '"ok"' not in r.stdout, r.stdout + r.stderr

@@ -44,18 +44,17 @@ class TestSessionData:
         # equal sizes: colours pass through untouched
         np.testing.assert_array_equal(tsd.colors.numpy(), jsd.colors)
         np.testing.assert_array_equal(tsd.depth.numpy(), jsd.depth)
-        # XLA fuses some of the rotation's products into FMAs: 1 ulp
-        np.testing.assert_allclose(tsd.points.numpy(), jsd.points, rtol=1e-6, atol=2e-6)
-        # normals: unit vectors from cross products of differences; where the
-        # two differ in the last bits of the inputs they stay within 1e-4
-        np.testing.assert_allclose(tsd.normals.numpy(), jsd.normals, atol=1e-4)
+        # the port reproduces the FMAs XLA's CPU code contracts in the
+        # rotation, the normals' cross product, norm and sign test: exact
+        np.testing.assert_array_equal(tsd.points.numpy(), jsd.points)
+        np.testing.assert_array_equal(tsd.normals.numpy(), jsd.normals)
         assert tsd.points.dtype == torch.float32 and tuple(tsd.points.shape) == (5, 48 * 36, 3)
 
     def test_normals_from_grid_matches_jax(self, rng):
         pts = rng.normal(size=(7, 9, 3)).astype(np.float32) + np.float32([0, 0, 3])
         want = np.asarray(jrtab._normals_from_grid(jnp.asarray(pts)))
         got = trtab._normals_from_grid(torch.from_numpy(pts)).numpy()
-        np.testing.assert_allclose(got, want, atol=1e-5)
+        np.testing.assert_array_equal(got, want)
 
     @pytest.mark.parametrize("hw,out", [((96, 72), (48, 36)), ((96, 72), (32, 24)),
                                         ((50, 70), (20, 30))],
