@@ -52,14 +52,30 @@ Phases (each prints its own lines; any failure exits non-zero):
             timed by stage, the artifact tree's names and dtypes checked,
             two card runs bit-identical, held to the port on the CPU with
             phase 9's bars; the codec timed on phase 9's 12 VGA frames.
+11. hf       the HF import at B2 width: a seeded random HF-named B2 checkpoint
+            with the HF decode head (150 labels) and an HF-named copy of the
+            shipped B2's encoder, each through torch.save -> load_hf_state_dict
+            -> infer_config_from_state_dict -> params_from_hf_segformer -> npz
+            -> Segmenter2D with the spatial-reduction kernel: the transplant
+            exact, the masks against the plain-version forward (>= 0.999 on
+            the trained weights, equal to the shipped checkpoint's own).
+12. train   `train` at SegFormer-B2 width (bfloat16, 256x256, batch 8) from
+            random init: 40 steps on host textured batches with augment,
+            boundary weight and EMA (timed, peak memory; the loss descends);
+            the step-20 checkpoint restored bit for bit and resumed to 40; 20
+            steps on device_dataset; the step alone under torch.profiler
+            (launches, busy share); the neighbourhood-attention variant (K2
+            launches counted, loss and gradients against the plain versions);
+            the EMA snapshot through Segmenter2D with K3 (evaluate_synthetic);
+            sweep_conf_threshold with the shipped B2 (K3 launches counted).
 
 Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 `--phases attention,segmenter,stream` runs a subset while iterating (device
-and build always run; `stream` needs `segmenter`; `fusion` and `files`
-alone load the B2 segmenter themselves; the last line then names the
-phases that ran).
+and build always run; `stream` needs `segmenter`; `fusion`, `files`, `hf`
+and `train` alone load the B2 segmenter themselves; the last line then names
+the phases that ran).
 """
 
 from __future__ import annotations
@@ -91,9 +107,32 @@ FUSION_KW = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 17, windo
 NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
-ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files"]
+ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files", "hf", "train"]
 JPEG_PSNR_BAR = 35.0  # the port's q95 JPEG of the textured frames against their colours
 FILES_CAPACITY = 1 << 20  # process3DSeg's default
+# port state-dict name -> HF SegformerForSemanticSegmentation name, in order
+HF_NAMES = (
+    (r"^patch_embed(\d)\.conv\.", r"segformer.encoder.patch_embeddings.\1.proj."),
+    (r"^patch_embed(\d)\.norm\.", r"segformer.encoder.patch_embeddings.\1.layer_norm."),
+    (r"^stage(\d)_block(\d+)\.", r"segformer.encoder.block.\1.\2."),
+    (r"\.norm1\.", ".layer_norm_1."), (r"\.norm2\.", ".layer_norm_2."),
+    (r"\.attn\.q\.", ".attention.self.query."), (r"\.attn\.k\.", ".attention.self.key."),
+    (r"\.attn\.v\.", ".attention.self.value."), (r"\.attn\.sr\.", ".attention.self.sr."),
+    (r"\.attn\.norm\.", ".attention.self.layer_norm."),
+    (r"\.attn\.proj\.", ".attention.output.dense."),
+    (r"\.ffn\.fc1\.", ".mlp.dense1."), (r"\.ffn\.dw\.", ".mlp.dwconv.dwconv."),
+    (r"\.ffn\.fc2\.", ".mlp.dense2."),
+    (r"^stage_norm(\d)\.", r"segformer.encoder.layer_norm.\1."),
+    (r"^linear_c(\d)\.", r"decode_head.linear_c.\1.proj."),
+    (r"^fuse\.", "decode_head.linear_fuse."), (r"^classifier\.", "decode_head.classifier."),
+    (r"^bn_scale$", "decode_head.batch_norm.weight"), (r"^bn_bias$", "decode_head.batch_norm.bias"),
+    (r"^bn_mean$", "decode_head.batch_norm.running_mean"),
+    (r"^bn_var$", "decode_head.batch_norm.running_var"),
+)
+HF_LABELS = 150  # ADE20K's, the taxonomy of the HF SegFormer-B2 semantic checkpoint
+TRAIN_STEPS, TRAIN_DEVICE_STEPS, TRAIN_NAT_STEPS = 40, 20, 6
+TRAIN_DESCENT_BAR = 0.8  # mean loss of the last 5 steps against the first 5
+TRAIN_GRAD_BAR = 2e-2  # K2's path against the plain one: relative L2 of all gradients, bf16
 
 
 def log(*a):
@@ -1086,6 +1125,387 @@ def files_phase(card, seg=None, vga=None):
     return launches
 
 
+
+def to_hf_names(state):
+    """A port state dict as the HF checkpoint's tensors: renamed, the 1x1
+    fuse and classifier as [out, in, 1, 1] convs, float32 on the host."""
+    import re
+
+    import torch
+
+    out = {}
+    for name, t in state.items():
+        hf = name
+        for pattern, repl in HF_NAMES:
+            hf = re.sub(pattern, repl, hf)
+        t = t.detach().float().cpu()
+        if name in ("fuse.weight", "classifier.weight"):
+            t = t[:, :, None, None]
+        out[hf] = t.clone()
+    if "decode_head.batch_norm.running_mean" in out:
+        out["decode_head.batch_norm.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def hf_phase(card, seg=None, device="cuda", nframes=16):
+    """Phase 11: the HF import at B2 width. A seeded random HF-named B2
+    checkpoint with the HF decode head (150 labels) and an HF-named copy of
+    the shipped B2's encoder and decoder projections go through
+    `torch.save` -> `load_hf_state_dict` -> `infer_config_from_state_dict`
+    -> `params_from_hf_segformer` -> npz -> `Segmenter2D` on the card.
+    Returns the spatial-reduction kernel's launches."""
+    import tempfile
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, convert, import_hf
+    from fusion3dseg_tpu_torch.models.segformer import SegFormer
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    work = Path(tempfile.mkdtemp(prefix="f3s_hf_"))
+    frames = textured_session(nframes).colors
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    launches = 0
+    try:
+        def imported(source, want, name, with_head, template=None):
+            """torch.save `source` under HF names, then the import chain, held
+            exactly to `want`; returns (config, npz path)."""
+            path = work / f"{name}.pth"
+            torch.save(to_hf_names(source), path)
+            t0 = time.perf_counter()
+            sd = import_hf.load_hf_state_dict(path)
+            cfg = import_hf.infer_config_from_state_dict(sd, with_head=with_head)
+            got = import_hf.params_from_hf_segformer(sd, cfg, params_template=template,
+                                                     include_head=with_head)
+            npz = work / f"{name}.npz"
+            import_hf.save_snapshot(npz, got, cfg, input_hw=(256, 256))
+            dt = time.perf_counter() - t0
+            exact = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k])
+                                                        for k in want)
+            log(f"hf: {name}: {len(sd)} HF tensors -> config {cfg.embed_dims} depths "
+                f"{cfg.depths} heads {cfg.num_heads} sr {cfg.sr_ratios} head {cfg.head!r} "
+                f"{cfg.num_classes} classes; transplant exact: {exact}; import + npz in "
+                f"{dt:.2f} s (host)")
+            if not exact:
+                fail(f"hf: {name}: the transplant is not the source state")
+            return cfg, npz
+
+        def segmenters(npz, cfg):
+            cfg = dataclasses.replace(cfg, use_pallas_attention=True)
+            return [Segmenter2D(cfg, npz, batch_size=8, device=device, use_cuda_attention=use)
+                    for use in (True, False)]
+
+        def masks_of(s):
+            return np.concatenate([s.predict_batch(frames[i:i + 8])
+                                   for i in range(0, nframes, 8)])
+
+        def masks_and_logits(s):
+            masks = masks_of(s)
+            x = s._model_input(frames[:8])
+            return masks, s._logits_sem_conf(x, 0.017, frames.shape[1:3])[0]
+
+        # (a) seeded random, with the HF decode head and non-trivial statistics
+        cfg = dataclasses.replace(SegFormerConfig.b2(), head="hf", num_classes=HF_LABELS,
+                                  dtype=torch.float32)
+        gen = torch.Generator().manual_seed(0)
+        state = SegFormer(cfg, gen).state_dict()
+        state["bn_mean"] = torch.rand(cfg.decoder_dim, generator=gen) - 0.5
+        state["bn_var"] = torch.rand(cfg.decoder_dim, generator=gen) * 1.5 + 0.5
+        got_cfg, npz = imported(state, state, "random_b2_hf_head", True)
+        want_cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+        if got_cfg != want_cfg or convert.checkpoint_config(npz) != want_cfg:
+            fail(f"hf: inferred config {got_cfg} is not {want_cfg}")
+        seg_k, seg_p = segmenters(npz, got_cfg)
+        attn.sr_attention.launches = 0
+        mk, lk = masks_and_logits(seg_k)
+        sync()
+        launches += attn.sr_attention.launches
+        mp, lp = masks_and_logits(seg_p)
+        diff = float((lk - lp).abs().max())
+        log(f"hf: random B2 + HF head through Segmenter2D {card}: masks {mk.shape} {mk.dtype}, "
+            f"{len(np.unique(mk))} classes; K3 path against the plain-version forward: masks "
+            f"agree on {float((mk == mp).mean()):.6f} of pixels (random weights: near-flat "
+            f"logits), max logit difference {diff:.4f} (bar {LOGIT_DIFF_BAR})")
+        if not np.isfinite(lk.float().cpu().numpy()).all() or not diff <= LOGIT_DIFF_BAR:
+            fail(f"hf: random B2 logits not finite or {diff} from the plain-version forward")
+        del seg_k, seg_p
+
+        # (b) the shipped B2's encoder and decoder projections under HF names;
+        # the template gives the native head
+        ckpt = convert.shipped_checkpoint("b2")
+        b2 = SegFormerConfig.b2()
+        shipped = convert.from_flax_params(convert.load_params_npz(ckpt),
+                                           dataclasses.replace(b2, dtype=torch.float32))
+        encoder = {k: v for k, v in shipped.items()
+                   if not k.startswith(("fuse.", "decoder_norm.", "classifier."))}
+        got_cfg, npz = imported(encoder, shipped, "shipped_b2_encoder", False, template=shipped)
+        if got_cfg != b2:
+            fail(f"hf: inferred config {got_cfg} is not SegFormer-B2's")
+        seg_k, seg_p = segmenters(npz, got_cfg)
+        attn.sr_attention.launches = 0
+        mk, _ = masks_and_logits(seg_k)
+        sync()
+        launches += attn.sr_attention.launches
+        mp, _ = masks_and_logits(seg_p)
+        agree = float((mk == mp).mean())
+        ref = seg if seg is not None else Segmenter2D(
+            dataclasses.replace(b2, use_pallas_attention=True), ckpt, device=device)
+        same = np.array_equal(mk, masks_of(ref))
+        log(f"hf: shipped B2 through the importer {card}: masks agree with the plain-version "
+            f"forward on {agree:.6f} of pixels (bar {MASK_AGREE_BAR}); equal to the shipped "
+            f"checkpoint's own masks: {same}; K3 launches {launches} in this phase")
+        if agree < MASK_AGREE_BAR or not same:
+            fail(f"hf: imported shipped B2 masks agree {agree}, equal to shipped: {same}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def _clone_state(model, optimizer, ema):
+    """Host copies of what a checkpoint must restore: parameters, the moving
+    average, and the optimizer's per-parameter state."""
+    import torch
+
+    params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    opt = {i: {k: (v.detach().cpu().clone() if torch.is_tensor(v) else v) for k, v in st.items()}
+           for i, st in optimizer.state_dict()["state"].items()}
+    return params, opt, None if ema is None else ema.flat.detach().cpu().clone()
+
+
+def train_phase(card, seg=None, device="cuda", model=None, hw=(256, 256), batch=8,
+                steps=TRAIN_STEPS):
+    """Phase 12: `train` at SegFormer-B2 width (bfloat16, 256x256, batch 8, the
+    TrainConfig defaults) from random init on host textured batches with
+    augmentation, boundary weight and EMA: the loss descends; the step-20
+    checkpoint restores bit for bit and resumes to 40; 20 steps on
+    `device_dataset`; the step alone profiled (launches, busy share); the NAT
+    variant through K2 with its launches counted and its loss and gradients
+    held to the plain version's; the EMA snapshot evaluated through
+    `Segmenter2D` with K3; `sweep_conf_threshold` with the shipped B2 and K3.
+    Returns (K2 launches, K3 launches) of these runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, calibrate, convert
+    from fusion3dseg_tpu_torch.models import train as tr
+    from fusion3dseg_tpu_torch.models.segformer import SegFormer
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.parallel import sharding
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    model = model if model is not None else SegFormerConfig.b2()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    work = Path(tempfile.mkdtemp(prefix="f3s_train_"))
+    k2 = k3 = 0
+    try:
+        cfg = tr.TrainConfig(model=model, input_hw=hw, batch_size=batch, steps=steps,
+                             appearance="textured", augment=True, boundary_weight=2.0,
+                             ema_decay=0.9, checkpoint_dir=str(work / "run"),
+                             checkpoint_every=steps // 2, log_every=10 ** 9)
+        nparams = sum(p.numel() for p in SegFormer(model, param_dtype=torch.float32,
+                                                   generator=torch.Generator()).parameters())
+
+        class Watch:
+            """on_step: loss tensors, wall time between two steps, state at one."""
+
+            def __init__(self, t_from, t_to, keep_at=None):
+                self.losses, self.t, self.keep_at, self.kept = [], {}, keep_at, None
+                self.t_from, self.t_to, self.first = t_from, t_to, None
+
+            def __call__(self, it, loss, m, opt, ema):
+                self.first = it if self.first is None else self.first
+                self.losses.append(loss)
+                if it in (self.t_from, self.t_to):
+                    sync()
+                    self.t[it] = time.perf_counter()
+                if it == self.keep_at:
+                    shutil.copytree(work / "run", work / f"run{it}", symlinks=True)
+                    self.kept = _clone_state(m, opt, ema)
+
+            def ms_per_step(self):
+                return 1e3 * (self.t[self.t_to] - self.t[self.t_from]) / (self.t_to - self.t_from)
+
+            def loss_values(self):
+                return [float(x) for x in self.losses]
+
+        # ---- 12a. host textured batches, with a commit at 20 and 40
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        w = Watch(5, steps // 2 - 1, keep_at=steps // 2)
+        t0 = time.perf_counter()
+        tr.train(cfg, device=dev, verbose=False, on_step=w)
+        sync()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else float("nan")
+        losses = w.loss_values()
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"train: SegFormer-B2 {nparams / 1e6:.2f}M float32 parameters, {model.dtype} "
+            f"compute, {hw[0]}x{hw[1]}, batch {batch}, host textured batches (augment, "
+            f"boundary weight 2, EMA 0.9, prefetch 2) {card}: {steps} steps in {wall:.2f} s "
+            f"with init and two commits; steady {w.ms_per_step():.2f} ms a step "
+            f"({1e3 / w.ms_per_step():.2f} it/s) over steps {w.t_from}-{w.t_to}; peak device "
+            f"memory {peak:.1f} MiB; loss first {losses[0]:.4f} last {losses[-1]:.4f}; mean "
+            f"of the first 5 {first:.4f}, of the last 5 {last:.4f} (bar: below "
+            f"{TRAIN_DESCENT_BAR} x the first)")
+        if not np.isfinite(losses).all() or not last < TRAIN_DESCENT_BAR * first:
+            fail(f"train: the loss did not descend: {losses}")
+        if tr.committed_step(work / "run") != steps:
+            fail("train: the final state was not committed")
+
+        # ---- 12b. the step-20 checkpoint: restored bit for bit, resumed to 40
+        mid = steps // 2
+        params, opt_state, it = tr.load_train_state(work / f"run{mid}")
+        want_p, want_o, want_e = w.kept
+        restored = convert.from_flax_params(params, model, torch.float32)
+        ema = convert.from_flax_params(tr.load_ema(work / f"run{mid}"), model, torch.float32)
+        names = list(want_p)
+        ok = (it == mid and all(torch.equal(restored[k], want_p[k]) for k in names)
+              and torch.equal(torch.cat([ema[k].reshape(-1) for k in names]), want_e)
+              and all(torch.equal(opt_state["optimizer"]["state"][i][k].cpu(), v)
+                      for i, st in want_o.items() for k, v in st.items() if torch.is_tensor(v)))
+        r = Watch(mid + 1, steps)
+        tr.train(dataclasses.replace(cfg, resume=True, checkpoint_dir=str(work / f"run{mid}")),
+                 device=dev, verbose=False, on_step=r)
+        resumed = r.loss_values()
+        log(f"train: step-{mid} checkpoint: params, EMA and AdamW state restored bit for bit: "
+            f"{ok}; resumed at step {r.first} and ran to {tr.committed_step(work / f'run{mid}')}"
+            f", losses {resumed[0]:.4f} .. {resumed[-1]:.4f}")
+        if not ok or r.first != mid + 1 or not np.isfinite(resumed).all():
+            fail("train: the checkpoint did not restore and resume")
+
+        # ---- 12c. device_dataset batches
+        dsteps = TRAIN_DEVICE_STEPS if steps == TRAIN_STEPS else 4
+        d = Watch(5 if dsteps > 6 else 1, dsteps)
+        tr.train(dataclasses.replace(cfg, device_datagen=True, steps=dsteps, checkpoint_dir=None),
+                 device=dev, verbose=False, on_step=d)
+        dl = d.loss_values()
+        log(f"train: device_dataset batches {card}: {dsteps} steps, steady "
+            f"{d.ms_per_step():.2f} ms a step ({1e3 / d.ms_per_step():.2f} it/s) over steps "
+            f"{d.t_from}-{d.t_to}; loss {dl[0]:.4f} .. {dl[-1]:.4f}")
+        if not np.isfinite(dl).all():
+            fail("train: device_dataset run gave a non-finite loss")
+
+        # ---- 12d. the step alone, profiled on one device batch
+        net = SegFormer(model, torch.Generator().manual_seed(1),
+                        param_dtype=torch.float32).to(dev).train()
+        opt, sched = tr.make_optimizer(cfg, net.parameters())
+        step = sharding.make_train_step(net, opt, sched, boundary_weight=2.0,
+                                        ema=sharding.FlatEMA(list(net.parameters()), 0.9))
+        images, masks = next(tr.synthetic_dataset(hw, batch, seed=3, appearance="textured"))
+        images, masks = torch.as_tensor(images, device=dev), torch.as_tensor(masks, device=dev)
+        for _ in range(3):
+            step(images, masks)
+        sync()
+        if on_card:
+            from fusion3dseg_tpu_torch.tools.profiling import profile_run
+
+            nprof = 5
+            t0 = time.perf_counter()
+            for _ in range(nprof):
+                step(images, masks)
+            sync()
+            bare = (time.perf_counter() - t0) / nprof
+            prof = profile_run(lambda: [step(images, masks) for _ in range(nprof)],
+                               f"train step, SegFormer-B2, {nprof} steps on one device batch",
+                               top=12)
+            log(f"train: the step alone {card}: {1e3 * bare:.2f} ms ({1 / bare:.2f} it/s) "
+                f"unprofiled; {prof['launches'] / nprof:.0f} launches a step; device time "
+                f"{1e3 * prof['device_s'] / nprof:.2f} ms a step; busy share against the "
+                f"unprofiled wall {prof['device_s'] / nprof / bare:.3f}")
+        del net, opt, sched, step
+
+        # ---- 12e. the NAT variant: K2 inside the train step
+        cfg_nat = dataclasses.replace(model, nat_windows=(7, 0, 0, 0))
+        nat_steps = TRAIN_NAT_STEPS if steps == TRAIN_STEPS else 2
+        attn.neighborhood_attention.launches = 0
+        tr.train(dataclasses.replace(cfg, model=cfg_nat, steps=nat_steps, checkpoint_dir=None,
+                                     ema_decay=0.0), device=dev, verbose=False)
+        sync()
+        k2 = attn.neighborhood_attention.launches
+        per_step = cfg_nat.depths[0]
+        log(f"train: nat_windows=(7,0,0,0): {nat_steps} steps launched the neighbourhood "
+            f"kernel {k2} times (want {per_step} a step: stage 0's blocks, forward; the "
+            f"backward takes the plain version's autograd)")
+        if on_card and k2 != per_step * nat_steps:
+            fail(f"train: K2 launched {k2} times in {nat_steps} NAT steps")
+        grads = []
+        for use in (True, False):
+            net = SegFormer(cfg_nat, torch.Generator().manual_seed(2), use_cuda_attention=use,
+                            param_dtype=torch.float32).to(dev)
+            loss = sharding.segmenter_loss(net, images, masks, boundary_weight=2.0)
+            loss.backward()
+            grads.append((float(loss.detach()), torch.cat([p.grad.reshape(-1).float()
+                                                  for p in net.parameters()])))
+        (lk, gk), (lp, gp) = grads
+        rel = float((gk - gp).norm() / gp.norm())
+        log(f"train: NAT step, K2 path against the plain versions on one batch: loss "
+            f"{lk:.6f} / {lp:.6f}, gradients' relative L2 difference {rel:.3e} (bar "
+            f"{TRAIN_GRAD_BAR}, bfloat16 compute)")
+        if abs(lk - lp) > TRAIN_GRAD_BAR * abs(lp) or not rel <= TRAIN_GRAD_BAR:
+            fail(f"train: NAT step differs from the plain version: loss {lk} / {lp}, "
+                 f"gradients {rel}")
+        del net, grads
+
+        # ---- 12f. the EMA snapshot through Segmenter2D with K3
+        ecfg = dataclasses.replace(convert.checkpoint_config(work / "run" / "ema"),
+                                   use_pallas_attention=True)
+        eseg = Segmenter2D(ecfg, work / "run" / "ema", batch_size=batch, device=dev)
+        if eseg.input_hw != tuple(hw):
+            fail(f"train: the EMA snapshot's input size read {eseg.input_hw}")
+        attn.sr_attention.launches = 0
+        ev = tr.evaluate_synthetic(eseg, nsessions=2, nframes=16)
+        sync()
+        k3 += attn.sr_attention.launches
+        log(f"train: EMA snapshot ({steps} steps from random init) through Segmenter2D with "
+            f"K3: held-out mIoU {ev['miou']:.4f}, pixel accuracy {ev['pixel_acc']:.4f}; K3 "
+            f"launches {attn.sr_attention.launches}")
+        if not (0.0 <= ev["miou"] <= 1.0 and 0.0 <= ev["pixel_acc"] <= 1.0):
+            fail(f"train: evaluate_synthetic gave {ev}")
+
+        # ---- 12g. the calibration sweep with the shipped B2 and K3
+        if on_card:
+            sseg = seg if seg is not None else shipped_b2(8)[0]
+            attn.sr_attention.launches = 0
+            t0 = time.perf_counter()
+            rows = calibrate.sweep_conf_threshold(sseg)
+            sync()
+            dt = time.perf_counter() - t0
+            k3 += attn.sr_attention.launches
+            pick = calibrate.pick_threshold(rows)
+            want = 7 * 3 * 3  # 3 sessions x 3 batches of 8 frames x 7 a forward
+            log(f"train: sweep_conf_threshold (shipped B2, 3 sessions x 24 frames at 128x96) "
+                f"{card}: {dt:.2f} s; K3 launches {attn.sr_attention.launches} (want {want}); "
+                + "; ".join(f"t={r['conf_threshold']}: agreement {r['agreement_mean']:.4f}, "
+                            f"unclassified points {r['unclassified_points_mean']:.4f}"
+                            for r in rows)
+                + f"; picked {pick and pick['conf_threshold']}")
+            shares = [r["unclassified_pixels_mean"] for r in rows]
+            if attn.sr_attention.launches != want or len(rows) != 9 \
+                    or shares != sorted(shares) or not all(0 <= r["agreement_mean"] <= 1
+                                                           for r in rows):
+                fail("train: sweep_conf_threshold broke its contract")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return k2, k3
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1155,6 +1575,16 @@ def main():
         for entry in kernels:
             if entry["name"] == "sr_attention":
                 entry["launches"] += n
+    if "hf" in phases:
+        n = hf_phase(card, seg)
+        for entry in kernels:
+            if entry["name"] == "sr_attention":
+                entry["launches"] += n
+    if "train" in phases:
+        n2, n3 = train_phase(card, seg)
+        for entry in kernels:
+            entry["launches"] += {"neighborhood_attention": n2, "sr_attention": n3}.get(
+                entry["name"], 0)
     log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -42,6 +42,7 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from fusion3dseg_tpu_torch.io import native
 
@@ -241,15 +242,123 @@ def encode_jpeg(img: np.ndarray, quality: int = JPEG_QUALITY) -> bytes:
 
 # --------------------------------------------------------------- resize --
 
+def nearest_index(src: int, dst: int) -> np.ndarray:
+    """INTER_NEAREST's source index of each output index along one axis:
+    min(floor(x * (1 / (dst / src))), src - 1)."""
+    return np.minimum(np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64), src - 1)
+
+
 def resize_nearest(img: np.ndarray, out_hw) -> np.ndarray:
-    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`: output
-    pixel x reads source min(floor(x * (1 / (w / W))), W - 1), likewise
-    for rows."""
+    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)` of an
+    [H, W, ...] array."""
     img = np.asarray(img)
     h, w = out_hw
     sh, sw = img.shape[:2]
     if (h, w) == (sh, sw):
         return img
-    sy = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64), sh - 1)
-    sx = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64), sw - 1)
-    return img[sy[:, None], sx[None, :]]
+    return img[nearest_index(sh, h)[:, None], nearest_index(sw, w)[None, :]]
+
+
+_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS: 11-bit fixed-point weights
+_DBL_EPSILON = float(np.finfo(np.float64).eps)
+
+
+def _inv_scale(src: int, dst: int) -> float:
+    """OpenCV's source step per output pixel, 1 / (dst / src) in double."""
+    return 1.0 / (dst / src)
+
+
+def _linear_taps(src: int, dst: int, clamp: bool):
+    """(index, weight) of INTER_LINEAR along one axis, as OpenCV builds
+    them, both [2 * dst]: the first taps of every output index, then the
+    second. f = float32((d + 0.5) * scale - 0.5), i = floor(f), f - i in
+    float32, each weight rint(float32 * 2048) on its own. `clamp` (OpenCV's
+    columns) pins a coordinate outside [0, src - 1] to the edge pixel with
+    weight (2048, 0); rows keep their fraction and only their indices are
+    clamped."""
+    f = ((np.arange(dst) + 0.5) * _inv_scale(src, dst) - 0.5).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    f = (f - i.astype(np.float32)).astype(np.float32)
+    if clamp:
+        edge = (i < 0) | (i >= src - 1)
+        f[edge] = 0
+        i = np.where(i < 0, 0, np.where(i >= src - 1, src - 1, i))
+    one = np.float32(1 << _COEF_BITS)
+    w0 = np.rint((np.float32(1) - f) * one).astype(np.int32)
+    w1 = np.rint(f * one).astype(np.int32)
+    return (np.clip(np.concatenate([i, i + 1]), 0, src - 1),
+            np.concatenate([w0, w1]))
+
+
+_DEVICE_TAPS: dict = {}
+
+
+def _device_taps(src: int, dst: int, clamp: bool, device: torch.device):
+    """`_linear_taps` as tensors on `device`, copied there once a shape."""
+    key = (src, dst, clamp, device)
+    if key not in _DEVICE_TAPS:
+        _DEVICE_TAPS[key] = tuple(torch.as_tensor(t, device=device)
+                                  for t in _linear_taps(src, dst, clamp))
+    return _DEVICE_TAPS[key]
+
+
+def resize_linear_uint8(images: torch.Tensor, out_hw) -> torch.Tensor:
+    """`cv2.resize(im, (w, h), interpolation=cv2.INTER_LINEAR)` on uint8
+    images [..., H, W, C] (any leading dims, any device), bit for bit.
+    Columns first: S = src[i0] * w0 + src[i1] * w1 in int32; then rows:
+    (((v0 * (S0 >> 4)) >> 16) + ((v1 * (S1 >> 4)) >> 16) + 2) >> 2. An exact
+    2x shrink of both axes takes OpenCV's INTER_AREA route instead."""
+    h, w = (int(x) for x in out_hw)
+    sh, sw = images.shape[-3:-1]
+    if (h, w) == (sh, sw):
+        return images
+    if _inv_scale(sh, h) == 2.0 and _inv_scale(sw, w) == 2.0:
+        return resize_area_uint8(images, (h, w))
+    xi, xw = _device_taps(sw, w, True, images.device)
+    yi, yw = _device_taps(sh, h, False, images.device)
+    # both taps of an axis in one gather, weighted, then the pair summed
+    taps = images.index_select(-2, xi).to(torch.int32) * xw[:, None]
+    rows = taps.unflatten(-2, (2, w)).sum(dim=-3, dtype=torch.int32) >> 4
+    taps = (rows.index_select(-3, yi) * yw[:, None, None]) >> 16
+    out = taps.unflatten(-3, (2, h)).sum(dim=-4, dtype=torch.int32).add_(2) >> 2
+    return out.clamp_(0, 255).to(torch.uint8)
+
+
+def _area_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_out, n_in] weights of an area (box) downscale along one axis: each
+    output cell averages the input cells it covers, edge cells by the
+    covered fraction."""
+    scale = n_in / n_out
+    lo = torch.arange(n_out, dtype=torch.float64, device=device)[:, None] * scale
+    cell = torch.arange(n_in, dtype=torch.float64, device=device)[None, :]
+    overlap = (torch.minimum(lo + scale, cell + 1) - torch.maximum(lo, cell)).clamp(min=0)
+    return (overlap / scale).float()
+
+
+def resize_area_uint8(images: torch.Tensor, out_hw) -> torch.Tensor:
+    """`cv2.resize(im, (w, h), interpolation=cv2.INTER_AREA)` on uint8
+    images [..., H, W, C] (any device), shrinking only. OpenCV's paths:
+    an integer factor (kx, ky) sums each block in int32 and rounds as
+    (S + 2) >> 2 at 2x2, else rint(float32(S) * float32(1 / (kx * ky)));
+    other factors average with fractional edge weights in float32 and
+    round half to even."""
+    h, w = (int(x) for x in out_hw)
+    sh, sw = images.shape[-3:-1]
+    if (h, w) == (sh, sw):
+        return images
+    if h > sh or w > sw:
+        raise ValueError(f"area resize only shrinks: {(sh, sw)} -> {(h, w)}")
+    sy, sx = _inv_scale(sh, h), _inv_scale(sw, w)
+    ky, kx = int(round(sy)), int(round(sx))
+    if abs(sy - ky) < _DBL_EPSILON and abs(sx - kx) < _DBL_EPSILON:
+        lead = images.shape[:-3]
+        blocks = images.to(torch.int32).reshape(*lead, h, ky, w, kx, images.shape[-1])
+        s = blocks.sum(dim=(-4, -2))
+        if (ky, kx) == (2, 2):
+            return ((s + 2) >> 2).to(torch.uint8)
+        inv = torch.tensor(1.0 / (kx * ky), dtype=torch.float32)
+        return torch.round(s.float() * inv.to(images.device)).clamp(0, 255).to(torch.uint8)
+    wy = _area_weights(sh, h, images.device)
+    wx = _area_weights(sw, w, images.device)
+    out = torch.einsum("oh,...hwc,pw->...opc", wy, images.float(), wx)
+    return out.round().clamp(0, 255).to(torch.uint8)

@@ -118,31 +118,9 @@ def frames_to_world(depth_m: torch.Tensor, Ks: torch.Tensor, quats_wxyz: torch.T
     return pts_w, quat.rotate(quats_wxyz, normals_cam), pts_cam[..., 2]
 
 
-def _area_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_out, n_in] weights of an area (box) downscale along one axis: each
-    output cell averages the input cells it covers, edge cells by the
-    covered fraction. For an integer factor this is a block mean."""
-    scale = n_in / n_out
-    lo = torch.arange(n_out, dtype=torch.float64, device=device)[:, None] * scale
-    cell = torch.arange(n_in, dtype=torch.float64, device=device)[None, :]
-    overlap = (torch.minimum(lo + scale, cell + 1) - torch.maximum(lo, cell)).clamp(min=0)
-    return (overlap / scale).float()
-
-
-def area_resize_uint8(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Area-average downscale of [F, H, W, C] uint8 images to `out_hw`,
-    rounded back to uint8 levels (what `cv2.resize(..., INTER_AREA)` gives,
-    within one level). Upscaling is not supported."""
-    _, h, w, _ = images.shape
-    oh, ow = out_hw
-    if (oh, ow) == (h, w):
-        return images
-    if oh > h or ow > w:
-        raise ValueError(f"area resize only shrinks: {(h, w)} -> {(oh, ow)}")
-    wy = _area_weights(h, oh, images.device)
-    wx = _area_weights(w, ow, images.device)
-    out = torch.einsum("oh,fhwc,pw->fopc", wy, images.float(), wx)
-    return out.round().clamp(0, 255).to(torch.uint8)
+# OpenCV's INTER_AREA shrink (the reference's `cv2.resize(rgb, (W, H),
+# interpolation=cv2.INTER_AREA)`), bit for bit
+area_resize_uint8 = image.resize_area_uint8
 
 
 @dataclass

@@ -2,11 +2,18 @@
 
 `from_flax_params` maps a Flax parameter tree (nested dicts, or the flat
 `a/b/c` dict of an npz snapshot) onto the `state_dict` of
-`models.segformer.SegFormer`. The snapshot readers and writers are the
-counterparts of `fusion3dseg_tpu/pipeline/get2dseg.py`'s
-(`save_params_npz` ... `best_shipped_checkpoint`): the same npz files,
-float16 on disk, with the `__meta__/` keys for the trained input size and
-the architecture. Orbax directory checkpoints are not read yet.
+`models.segformer.SegFormer`, and `to_flax_params` maps it back. The
+snapshot readers and writers are the counterparts of
+`fusion3dseg_tpu/pipeline/get2dseg.py`'s (`save_params_npz` ...
+`best_shipped_checkpoint`): the same npz files, float16 on disk (float32
+with `full_precision=True`, as the trainer keeps its state), with the
+`__meta__/` keys for the trained input size and the architecture.
+
+A directory checkpoint is the trainer's (`models/train.save_train_state`):
+its `params` entry links to the committed snapshot, and a `meta.json`
+sidecar in the directory or its parent records the input size and the
+architecture. Orbax directories are not read: the JAX package's
+`load_checkpoint` + `save_params_npz` turn one into an npz snapshot.
 
 Layouts: a Flax Conv kernel `[kh, kw, in, out]` becomes `[out, in, kh, kw]`
 (the depthwise `[3, 3, 1, hidden]` becomes `[hidden, 1, 3, 3]` by the same
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 from pathlib import Path
 
@@ -69,8 +77,26 @@ def unflatten_params(flat):
     return tree
 
 
-def from_flax_params(params, config: SegFormerConfig) -> dict:
-    """Flax SegFormer parameters -> a `state_dict` for `SegFormer(config)`.
+# the port's names -> Flax's, the inverse of _RENAMES
+_FLAX_NAMES = (
+    (r"^(patch_embed\d)/conv/", r"\1/Conv_0/"),
+    (r"^(patch_embed\d)/norm/", r"\1/LayerNorm_0/"),
+    (r"^(stage\d+_block\d+)/norm1/", r"\1/LayerNorm_0/"),
+    (r"^(stage\d+_block\d+)/norm2/", r"\1/LayerNorm_1/"),
+    (r"/attn/norm/", "/EfficientAttention_0/LayerNorm_0/"),
+    (r"/attn/", "/EfficientAttention_0/"),
+    (r"/ffn/", "/MixFFN_0/"),
+    (r"^stage_norm([0-3])/", r"LayerNorm_\1/"),
+    (r"^decoder_norm/", "LayerNorm_4/"),
+    (r"(LayerNorm_\d)/weight$", r"\1/scale"),
+    (r"/weight$", "/kernel"),
+)
+
+
+def from_flax_params(params, config: SegFormerConfig,
+                     param_dtype: torch.dtype | None = None) -> dict:
+    """Flax SegFormer parameters -> a `state_dict` for `SegFormer(config,
+    param_dtype=param_dtype)`.
 
     `params` is the nested tree or its flat `a/b/c` form, with numpy (or
     array-like) leaves. Tensors come back in the dtype the module holds them
@@ -79,7 +105,7 @@ def from_flax_params(params, config: SegFormerConfig) -> dict:
     that does not fit.
     """
     with torch.device("meta"):
-        expected = SegFormer(config).state_dict()
+        expected = SegFormer(config, param_dtype=param_dtype).state_dict()
     state, unused = {}, []
     for path, val in flatten_params(params).items():
         name = path
@@ -106,33 +132,74 @@ def from_flax_params(params, config: SegFormerConfig) -> dict:
     return state
 
 
-def save_params_npz(path, params, input_hw=None, config=None) -> None:
+def to_flax_params(state: dict) -> dict:
+    """A `SegFormer` state dict -> the flat `a/b/c` Flax-layout tree of
+    float32 numpy arrays (what `save_params_npz` and the JAX package's
+    model take); the inverse of `from_flax_params`."""
+    flat = {}
+    for name, t in state.items():
+        path = name.replace(".", "/")
+        for pattern, repl in _FLAX_NAMES:
+            path = re.sub(pattern, repl, path)
+        t = t.detach().float().cpu()
+        if t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        elif t.dim() == 2:
+            t = t.t()
+        flat[path] = np.ascontiguousarray(t.numpy())
+    return flat
+
+
+def config_json(config: SegFormerConfig) -> str:
+    """The architecture as json, the `__meta__/config` record."""
+    d = dataclasses.asdict(config)
+    d["dtype"] = str(config.dtype).removeprefix("torch.")
+    return json.dumps(d)
+
+
+def config_from_json(raw: str) -> SegFormerConfig:
+    d = json.loads(raw)
+    for k in ("embed_dims", "depths", "num_heads", "sr_ratios", "patch_strides",
+              "patch_sizes", "nat_windows"):
+        if k in d:
+            d[k] = tuple(d[k])
+    d["dtype"] = _DTYPES[d.get("dtype", "bfloat16")]
+    return SegFormerConfig(**d)
+
+
+def save_params_npz(path, params, input_hw=None, config=None,
+                    full_precision: bool = False) -> None:
     """Portable compressed weight snapshot of a Flax-layout parameter tree
     (nested or flat, numpy leaves): float32 leaves stored as float16,
-    everything else verbatim. `input_hw` records the resolution the weights
-    were trained at (`__meta__/input_hw`); `config` the architecture
-    (`__meta__/config`, json)."""
+    everything else verbatim; with `full_precision` float32 stays float32
+    and the file is not compressed (the trainer's state). `input_hw`
+    records the resolution the weights were trained at
+    (`__meta__/input_hw`); `config` the architecture (`__meta__/config`,
+    json)."""
     out = {}
     for k, v in flatten_params(params).items():
         v = np.asarray(v)
-        out[k] = v.astype(np.float16) if v.dtype == np.float32 else v
+        out[k] = v.astype(np.float16) if v.dtype == np.float32 and not full_precision else v
     if input_hw is not None:
         out[_META_PREFIX + "input_hw"] = np.asarray(input_hw, np.int32)
     if config is not None:
-        d = dataclasses.asdict(config)
-        d["dtype"] = str(config.dtype).removeprefix("torch.")
-        out[_META_PREFIX + "config"] = np.asarray(json.dumps(d))
-    np.savez_compressed(path, **out)
+        out[_META_PREFIX + "config"] = np.asarray(config_json(config))
+    (np.savez if full_precision else np.savez_compressed)(path, **out)
 
 
 def load_params_npz(path) -> dict:
-    """Restore a snapshot as a nested Flax-layout tree of numpy arrays
-    (float16 -> float32); metadata keys are skipped (see `load_npz_meta`)."""
-    if Path(path).is_dir():
-        raise NotImplementedError(
-            f"{path} is a directory: Orbax checkpoints are not read by the port "
-            "yet; convert to an npz snapshot with the JAX package's save_params_npz")
-    z = np.load(path)
+    """Restore a snapshot (a file, or a trainer directory's committed
+    `params`) as a nested Flax-layout tree of numpy arrays (float16 ->
+    float32); metadata keys are skipped (see `load_npz_meta`)."""
+    p = Path(path)
+    if p.is_dir():
+        if not (p / "params").is_file():
+            raise NotImplementedError(
+                f"{p} is a directory without a committed `params` snapshot; Orbax "
+                "checkpoints are not read by the port: convert one to an npz snapshot "
+                "with the JAX package's load_checkpoint + save_params_npz")
+        p = p / "params"
+    z = np.load(p)
     return unflatten_params({
         k: (z[k].astype(np.float32) if z[k].dtype == np.float16 else z[k])
         for k in z.files if not k.startswith(_META_PREFIX)
@@ -151,33 +218,56 @@ def load_npz_meta(path) -> dict:
     return meta
 
 
-def _is_npz(path) -> bool:
-    p = Path(path)
-    return p.is_file() and p.suffix == ".npz"
+def _sidecar(checkpoint) -> dict:
+    """The `meta.json` of a directory checkpoint, read from the directory
+    itself, then its parent (a run's `ema/` view keeps it at the run's
+    root); {} when there is none."""
+    p = Path(checkpoint)
+    for d in (p, p.parent):
+        mj = d / "meta.json"
+        if mj.is_file():
+            try:
+                return json.loads(mj.read_text())
+            except (ValueError, OSError):
+                return {}
+    return {}
+
+
+def _meta(checkpoint) -> dict:
+    p = Path(checkpoint)
+    if p.is_file() and p.suffix == ".npz":
+        return load_npz_meta(p)
+    return _sidecar(p) if p.is_dir() else {}
 
 
 def checkpoint_config(checkpoint):
-    """The SegFormerConfig recorded with an npz snapshot, or None."""
-    if not _is_npz(checkpoint):
-        return None
-    raw = load_npz_meta(checkpoint).get("config")
-    if not raw:
-        return None
-    d = json.loads(raw)
-    for k in ("embed_dims", "depths", "num_heads", "sr_ratios", "patch_strides",
-              "patch_sizes", "nat_windows"):
-        if k in d:
-            d[k] = tuple(d[k])
-    d["dtype"] = _DTYPES[d.get("dtype", "bfloat16")]
-    return SegFormerConfig(**d)
+    """The SegFormerConfig recorded with an npz snapshot or in a directory
+    checkpoint's `meta.json`, or None."""
+    raw = _meta(checkpoint).get("config")
+    if isinstance(raw, dict):  # the sidecar holds it as a json object
+        raw = json.dumps(raw)
+    return config_from_json(raw) if raw else None
 
 
 def checkpoint_input_hw(checkpoint):
-    """The trained input size recorded with an npz snapshot, or None."""
-    if not _is_npz(checkpoint):
-        return None
-    hw = load_npz_meta(checkpoint).get("input_hw")
-    return tuple(hw) if hw is not None else None
+    """The trained input size recorded with an npz snapshot or in a
+    directory checkpoint's `meta.json`, or None."""
+    hw = _meta(checkpoint).get("input_hw")
+    return tuple(int(x) for x in hw) if hw else None
+
+
+def write_checkpoint_meta(checkpoint_dir, input_hw, config=None) -> None:
+    """The `meta.json` sidecar of a directory checkpoint: the trained input
+    size (the JAX package's key) and the architecture, written through a
+    temporary file and `os.replace`."""
+    d = Path(checkpoint_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    meta = {"input_hw": [int(x) for x in input_hw]}
+    if config is not None:
+        meta["config"] = json.loads(config_json(config))
+    tmp = d / ".meta_tmp"
+    tmp.write_text(json.dumps(meta))
+    os.replace(tmp, d / "meta.json")
 
 
 def shipped_checkpoint(model: str = "b1"):

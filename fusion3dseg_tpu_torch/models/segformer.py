@@ -12,9 +12,11 @@ What the Flax modules do that PyTorch's defaults do not, kept here so that
 * GELU is the tanh approximation.
 * LayerNorm has eps 1e-6, keeps float32 parameters and computes in float32
   whatever the activation dtype, and rounds only its output.
-* Dense and Conv parameters are cast to `config.dtype` (the module holds
-  them in that dtype); the classifier and the "hf" head's frozen batch-norm
-  stay float32.
+* Dense and Conv layers compute in `config.dtype`: their parameters are
+  cast to it at use. The module holds them in `param_dtype`, which is
+  `config.dtype` for inference (the cast is then no copy) and float32 for
+  training, as Flax keeps `param_dtype=float32`. The classifier and the
+  "hf" head's batch-norm stay float32.
 * The spatial-reduction conv pads like Flax's `SAME`.
 * The einsum attention branch divides the scores (in `config.dtype`) by
   sqrt(head_dim) before the float32 softmax; the fused kernels scale q.
@@ -113,6 +115,29 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(self.out_dtype)
 
 
+class Dense(nn.Linear):
+    """`nn.Linear` computing in `dtype`: weight and bias are cast at use."""
+
+    def __init__(self, din: int, dout: int, dtype: torch.dtype, bias: bool = True):
+        super().__init__(din, dout, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x, self.weight.to(self.dtype), b)
+
+
+class Conv(nn.Conv2d):
+    """`nn.Conv2d` computing in `dtype`: weight and bias are cast at use."""
+
+    def __init__(self, din: int, dout: int, kernel: int, dtype: torch.dtype, **kw):
+        super().__init__(din, dout, kernel, **kw)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
 def _same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """(low, high) padding of Flax/XLA `SAME` along one axis."""
     out = -(-size // stride)
@@ -133,7 +158,7 @@ def _conv_tokens(conv: nn.Conv2d, x: torch.Tensor, hw, pad=None) -> torch.Tensor
 class OverlapPatchEmbed(nn.Module):
     def __init__(self, in_dim: int, dim: int, patch: int, stride: int, dtype):
         super().__init__()
-        self.conv = nn.Conv2d(in_dim, dim, patch, stride=stride, padding=patch // 2)
+        self.conv = Conv(in_dim, dim, patch, dtype, stride=stride, padding=patch // 2)
         self.norm = LayerNorm(dim, dtype)
 
     def forward(self, x):
@@ -159,12 +184,12 @@ class EfficientAttention(nn.Module):
         # divisor is in the JAX package
         self.sqrt_head_dim = float(torch.sqrt(
             torch.tensor(float(dim // heads), dtype=dtype, device="cpu")))
-        self.q = nn.Linear(dim, dim)
-        self.k = nn.Linear(dim, dim)
-        self.v = nn.Linear(dim, dim)
-        self.proj = nn.Linear(dim, dim)
+        self.q = Dense(dim, dim, dtype)
+        self.k = Dense(dim, dim, dtype)
+        self.v = Dense(dim, dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
         if nat_window == 0 and sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+            self.sr = Conv(dim, dim, sr_ratio, dtype, stride=sr_ratio)
             self.norm = LayerNorm(dim, dtype)
 
     def forward(self, x, hw):
@@ -202,14 +227,14 @@ class EfficientAttention(nn.Module):
 
 
 class MixFFN(nn.Module):
-    def __init__(self, dim: int, ratio: int):
+    def __init__(self, dim: int, ratio: int, dtype):
         super().__init__()
         hidden = dim * ratio
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = Dense(dim, hidden, dtype)
         # 3x3 depthwise conv mixes local position info (SegFormer's
         # positional-encoding-free trick)
-        self.dw = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.dw = Conv(hidden, hidden, 3, dtype, padding=1, groups=hidden)
+        self.fc2 = Dense(hidden, dim, dtype)
 
     def forward(self, x, hw):
         x = _conv_tokens(self.dw, self.fc1(x), hw).flatten(2).transpose(1, 2)
@@ -224,7 +249,7 @@ class Block(nn.Module):
         self.attn = EfficientAttention(dim, heads, sr_ratio, dtype, use_pallas, nat_window,
                                        use_cuda_attention)
         self.norm2 = LayerNorm(dim, dtype)
-        self.ffn = MixFFN(dim, mlp_ratio)
+        self.ffn = MixFFN(dim, mlp_ratio, dtype)
 
     def forward(self, x, hw):
         x = x + self.attn(self.norm1(x), hw)
@@ -232,13 +257,18 @@ class Block(nn.Module):
 
 
 class SegFormer(nn.Module):
-    """`config.dtype` parameters for Dense/Conv, float32 for LayerNorm, the
-    classifier and the "hf" batch-norm. Weights are Xavier-uniform (LeCun
-    normal for the depthwise conv), biases zero, drawn from `generator`."""
+    """Dense/Conv parameters held in `param_dtype` (default `config.dtype`)
+    and cast to `config.dtype` at use; LayerNorm, the classifier and the
+    "hf" batch-norm float32. Weights are Xavier-uniform (LeCun normal for
+    the depthwise conv), biases zero, drawn from `generator`.
+
+    The "hf" head's batch-norm statistics (`bn_mean`, `bn_var`) are ordinary
+    parameters, as in the JAX package: training moves them by gradient like
+    any weight, where HF's BatchNorm would track running averages."""
 
     def __init__(self, config: SegFormerConfig = SegFormerConfig(),
                  generator: torch.Generator | None = None,
-                 use_cuda_attention: bool = True):
+                 use_cuda_attention: bool = True, param_dtype: torch.dtype | None = None):
         super().__init__()
         cfg = self.config = config
         if cfg.head not in ("native", "hf"):
@@ -254,20 +284,21 @@ class SegFormer(nn.Module):
                     dim, cfg.num_heads[s], cfg.sr_ratios[s], cfg.mlp_ratio, cfg.dtype,
                     cfg.use_pallas_attention, nat, use_cuda_attention))
             setattr(self, f"stage_norm{s}", LayerNorm(dim, cfg.dtype))
-            setattr(self, f"linear_c{s}", nn.Linear(dim, cfg.decoder_dim))
+            setattr(self, f"linear_c{s}", Dense(dim, cfg.decoder_dim, cfg.dtype))
             in_dim = dim
-        self.fuse = nn.Linear(4 * cfg.decoder_dim, cfg.decoder_dim, bias=cfg.head != "hf")
+        self.fuse = Dense(4 * cfg.decoder_dim, cfg.decoder_dim, cfg.dtype, bias=cfg.head != "hf")
         if cfg.head == "hf":
             for name, fill in (("bn_scale", 1.0), ("bn_bias", 0.0), ("bn_mean", 0.0),
                                ("bn_var", 1.0)):
                 setattr(self, name, nn.Parameter(torch.full((cfg.decoder_dim,), fill)))
         else:
             self.decoder_norm = LayerNorm(cfg.decoder_dim, cfg.dtype)
-        self.classifier = nn.Linear(cfg.decoder_dim, cfg.num_classes)
+        self.classifier = Dense(cfg.decoder_dim, cfg.num_classes, torch.float32)
         self._init_weights(generator)
+        param_dtype = cfg.dtype if param_dtype is None else param_dtype
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)) and m is not self.classifier:
-                m.to(cfg.dtype)
+                m.to(param_dtype)
         self.use_cuda_attention = use_cuda_attention
 
     @torch.no_grad()
@@ -285,7 +316,21 @@ class SegFormer(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: [B, H, W, 3] float in [0, 1]. Returns [B, H, W, num_classes]
-        float32 logits at input resolution."""
+        float32 logits at input resolution.
+
+        A float32 model's forward on the card runs its convolutions in
+        float32: cuDNN's TF32 (PyTorch's default) is turned off for the call
+        and turned back on after it."""
+        if self.config.dtype == torch.float32 and images.is_cuda \
+                and torch.backends.cudnn.allow_tf32:
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                return self._forward(images)
+            finally:
+                torch.backends.cudnn.allow_tf32 = True
+        return self._forward(images)
+
+    def _forward(self, images: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         B, H, W, _ = images.shape
         x = images.to(cfg.dtype).permute(0, 3, 1, 2)

@@ -18,10 +18,9 @@ predictor's full output contract: a dict unpacking as
 connected components of the thresholded semantic mask
 (`ops/components2d.py`).
 
-Frames are resized to the model's input size on the device with a
-half-pixel bilinear filter without antialiasing (what OpenCV's INTER_LINEAR
-computes); uint8 frames are rounded back to uint8 levels before the /255,
-which agrees with OpenCV's fixed-point result within one level.
+Frames are resized to the model's input size on the device with OpenCV's
+fixed-point INTER_LINEAR rule (`io/image.resize_linear_uint8`), so the
+model sees the same uint8 levels as the JAX package's `cv2.resize`.
 """
 
 from __future__ import annotations
@@ -61,11 +60,13 @@ class Segmenter2D:
     def __init__(self, config: SegFormerConfig | None = None, checkpoint_dir=None,
                  input_hw=None, batch_size: int = 8, seed: int = 0, device="cuda",
                  use_cuda_attention: bool = True):
-        """`input_hw=None` resolves to the size the checkpoint was trained
-        at (its `__meta__/input_hw`), else (512, 512). `config=None`
-        resolves to the architecture recorded in the snapshot, else the
-        default SegFormerConfig(). Without a checkpoint the weights are
-        random, drawn from `seed`. `use_cuda_attention=False` runs the
+        """`checkpoint_dir` is an npz snapshot or a trainer's run directory
+        (`<run>` or `<run>/ema`, see `models/train.py`). `input_hw=None`
+        resolves to the size the checkpoint was trained at (the snapshot's
+        `__meta__/input_hw` or the run's `meta.json`), else (512, 512).
+        `config=None` resolves to the architecture recorded the same way,
+        else the default SegFormerConfig(). Without a checkpoint the weights
+        are random, drawn from `seed`. `use_cuda_attention=False` runs the
         attention kernels' plain PyTorch versions instead (for comparisons)."""
         self.device = cuda.resolve_device(device)
         if config is None and checkpoint_dir is not None:
@@ -75,6 +76,9 @@ class Segmenter2D:
             input_hw = convert.checkpoint_input_hw(checkpoint_dir)
         self.input_hw = tuple(input_hw) if input_hw is not None else (512, 512)
         self.batch_size = batch_size
+        # a 0-d device divisor: CUDA divides by a Python scalar as a product
+        # with its reciprocal, which would round apart from the CPU and JAX
+        self._255 = torch.tensor(255.0, device=self.device)
         if checkpoint_dir is not None:
             state = convert.from_flax_params(convert.load_params_npz(checkpoint_dir), config)
             with torch.device("meta"):
@@ -87,9 +91,8 @@ class Segmenter2D:
 
     def _model_input(self, images: np.ndarray) -> torch.Tensor:
         """[B, H, W, 3] uint8 RGB -> [B, ih, iw, 3] float32 in [0, 1]."""
-        x = torch.as_tensor(np.ascontiguousarray(images), device=self.device).float()
-        x = resize_bilinear(x, self.input_hw)
-        return x.round().clamp(0, 255) / 255.0
+        x = torch.as_tensor(np.ascontiguousarray(images), device=self.device)
+        return image.resize_linear_uint8(x, self.input_hw).float() / self._255
 
     @torch.no_grad()
     def _logits_sem_conf(self, images: torch.Tensor, conf_threshold: float, out_hw):
@@ -173,10 +176,8 @@ class Segmenter2D:
 
 
 def _resize_frame(im: np.ndarray, hw) -> np.ndarray:
-    """A uint8 RGB frame resized to `hw` with OpenCV's INTER_LINEAR rule
-    (half-pixel bilinear, no antialiasing), rounded back to uint8 levels."""
-    x = torch.from_numpy(np.ascontiguousarray(im)).float()[None]
-    return resize_bilinear(x, hw)[0].round().clamp(0, 255).to(torch.uint8).numpy()
+    """A uint8 RGB frame resized to `hw` as `cv2.resize(..., INTER_LINEAR)`."""
+    return image.resize_linear_uint8(torch.from_numpy(np.ascontiguousarray(im)), hw).numpy()
 
 
 def SegmentImage(

@@ -277,8 +277,18 @@ def test_segmenter_cuda_matches_cpu(cuda_device, kw):
     on_card = Segmenter2D(cfg, input_hw=(128, 128), batch_size=2, seed=0, device="cuda")
     on_cpu = Segmenter2D(cfg, input_hw=(128, 128), batch_size=2, seed=0, device="cpu")
     x = on_cpu._model_input(frames)
-    lg = on_card._logits_sem_conf(x.cuda(), 0.0, (48, 36))[0].cpu()
+    assert torch.equal(on_card._model_input(frames).cpu(), x)
     lc = on_cpu._logits_sem_conf(x, 0.0, (48, 36))[0]
+    # PyTorch's default flags: the float32 model turns cuDNN's TF32 off for
+    # its forward (TF32 alone moved these logits by 9.45e-4 and 1.08e-3 on an
+    # H100; 8e-7 without it) and on again after it
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lg = on_card._logits_sem_conf(x.cuda(), 0.0, (48, 36))[0].cpu()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     assert counter.launches == before + 1
     assert (lg - lc).abs().max().item() <= 1e-3
     agree = (on_card.predict_batch(frames, 0.0) == on_cpu.predict_batch(frames, 0.0)).mean()
@@ -430,3 +440,115 @@ def test_file_path_cuda_matches_cpu(cuda_device, tmp_path):
     assert (cpu[2][cpu[1][both]] == c0[2][c0[1][both]]).mean() >= 0.999
     assert {i["category_id"] for i in cpu[4]} == {i["category_id"] for i in c0[4]}
     assert c0[1].dtype == np.int32 and c0[0]["occurences"].dtype == np.uint32
+
+
+# ------------------------------------------------------- resizes, training
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [((96, 72), (256, 256)), ((480, 640), (256, 256)),
+                                     ((200, 300), (199, 301)), ((384, 512), (192, 256))])
+def test_linear_resize_cuda_matches_cpu(cuda_device, src, dst):
+    # integer arithmetic in int32 on both: the same bits (the CPU's equal cv2)
+    from fusion3dseg_tpu_torch.io import image
+
+    g = torch.Generator().manual_seed(sum(src))
+    x = torch.randint(0, 256, (2, *src, 3), generator=g, dtype=torch.uint8)
+    got = image.resize_linear_uint8(x.to(cuda_device), dst).cpu()
+    assert torch.equal(got, image.resize_linear_uint8(x, dst))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [((384, 512), (192, 256)), ((480, 640), (192, 256)),
+                                     ((384, 512), (96, 128)), ((720, 960), (96, 128))])
+def test_area_resize_cuda_matches_cpu(cuda_device, src, dst):
+    # 2x and 4x are integer sums; 2.5x and 7.5x float32 weights in another
+    # summation order (the CPU path equals cv2): within one level, mostly equal
+    from fusion3dseg_tpu_torch.io import image
+
+    g = torch.Generator().manual_seed(sum(src))
+    x = torch.randint(0, 256, (2, *src, 3), generator=g, dtype=torch.uint8)
+    got = image.resize_area_uint8(x.to(cuda_device), dst).cpu().int()
+    want = image.resize_area_uint8(x, dst).int()
+    if src[0] % dst[0] == 0:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1 and (got == want).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_device_dataset_on_card(cuda_device):
+    from fusion3dseg_tpu_torch.io import synthetic_device as sd
+    from fusion3dseg_tpu_torch.io.synthetic import RoomSpec
+
+    it = sd.device_dataset((256, 256), 8, seed=3, augment=True, device="cuda")
+    imgs, masks = next(it)
+    assert imgs.shape == (8, 256, 256, 3) and imgs.dtype == torch.uint8
+    assert masks.shape == (8, 256, 256) and masks.dtype == torch.uint8
+    assert imgs.device.type == masks.device.type == "cuda"
+    # the card's render against the CPU's (which equals the host renderer):
+    # float32 sines and products in other orders move a few pixels a level
+    room = RoomSpec(seed=11)
+    out = [sd.render_session_device(*sd.session_tables(room, 4, dev), render_hw=(96, 72),
+                                    model_hw=(96, 72)) for dev in ("cuda", "cpu")]
+    (ig, mg), (ic, mc) = ((i.cpu().int(), m.cpu()) for i, m in out)
+    assert (mg == mc).float().mean() >= 0.999
+    assert (ig - ic).abs().max().item() <= 1 and (ig == ic).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_b2_nat_train_step_through_k2(cuda_device):
+    # a B2-width train step with a neighbourhood-attention first stage: K2's
+    # forward launches counted, loss and gradients against the same step
+    # through the plain versions (bfloat16 compute: relative L2 of all
+    # gradients within 2e-2)
+    import dataclasses
+
+    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.models.segformer import SegFormer
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.parallel import sharding
+
+    cfg = dataclasses.replace(SegFormerConfig.b2(), nat_windows=(7, 0, 0, 0))
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8)
+    labels = torch.randint(0, 5, (2, 16, 16), generator=g).repeat_interleave(8, 1) \
+        .repeat_interleave(8, 2)
+    out = []
+    for use in (True, False):
+        net = SegFormer(cfg, torch.Generator().manual_seed(1), use_cuda_attention=use,
+                        param_dtype=torch.float32).to(cuda_device)
+        before = attn.neighborhood_attention.launches
+        loss = sharding.segmenter_loss(net, images.to(cuda_device), labels.to(cuda_device), 2.0)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert attn.neighborhood_attention.launches - before == (3 if use else 0)
+        out.append((loss.item(), torch.cat([p.grad.reshape(-1) for p in net.parameters()])))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 2e-2 * abs(lp)
+    assert ((gk - gp).norm() / gp.norm()).item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_train_checkpoint_resume_on_card(cuda_device, tmp_path):
+    # the trainer on the card: float32 state, a commit, and a resume that
+    # restores it bit for bit (the snapshot is what the loop held)
+    import dataclasses
+
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
+    from fusion3dseg_tpu_torch.models import train as tr
+
+    cfg = tr.TrainConfig(model=SegFormerConfig(num_classes=134, embed_dims=(8, 16, 24, 32),
+                                               depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4),
+                                               decoder_dim=32),
+                         input_hw=(64, 64), batch_size=2, steps=4, checkpoint_every=2,
+                         checkpoint_dir=str(tmp_path), ema_decay=0.9, log_every=100)
+    params, loss = tr.train(cfg, device="cuda", verbose=False)
+    assert np.isfinite(loss) and all(v.device.type == "cuda" and v.dtype == torch.float32
+                                     for v in params.values())
+    flat, _, it = tr.load_train_state(tmp_path)
+    restored = convert.from_flax_params(flat, cfg.model, torch.float32)
+    assert it == 4 and all(torch.equal(restored[k], v.cpu()) for k, v in params.items())
+    params2, _ = tr.train(dataclasses.replace(cfg, resume=True, steps=6), device="cuda",
+                          verbose=False)
+    assert tr.committed_step(tmp_path) == 6

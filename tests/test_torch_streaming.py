@@ -64,7 +64,7 @@ class TestSessionData:
         want = np.stack([cv2.resize(r, out[::-1], interpolation=cv2.INTER_AREA) for r in rgb])
         got = trtab.area_resize_uint8(torch.from_numpy(rgb), out).numpy()
         assert got.dtype == np.uint8
-        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1  # one level
+        np.testing.assert_array_equal(got, want)  # OpenCV's own paths: exact
 
     def test_from_arrays_shrinks_rgb_to_depth_size(self, rng):
         sess = jsynthetic.make_session(nframes=2, depth_hw=(24, 18))
