@@ -68,14 +68,32 @@ Phases (each prints its own lines; any failure exits non-zero):
             launches counted, loss and gradients against the plain versions);
             the EMA snapshot through Segmenter2D with K3 (evaluate_synthetic);
             sweep_conf_threshold with the shipped B2 (K3 launches counted).
+13. post    post-processing and the graph ops. (a) The CLI end to end, each
+            subcommand a subprocess of `python -m fusion3dseg_tpu_torch`,
+            timed: `synth` of the 48-frame 256x192 textured room, `all`
+            with the shipped B2 (seg2d -> fuse -> seg3d) on the card and,
+            on its masks, on the CPU; on copies of the card's tree, on the
+            card and on the CPU, `doorwindow` (at least one quad), `refine`
+            in depth and colour from a seed on a door/window instance and
+            `remove-classes`; `tum` of a `write_tum_dir` export of the
+            degraded session, converted and probed. Each pair of trees
+            equal file for file (.npy/.json/.pkl/.ply/.txt), n equal. (b) The
+            device graph ops: `radius_graph(k=16, cap_per_cell=8)` on the
+            36k fused cloud at r 0.05 and 0.10 (every row equal to the port
+            on the CPU) and on the 1M-point room cloud of `make_workload` at
+            r 0.05 (4 chunks of 4096 rows recomputed on the CPU by the same
+            chunk function); on that graph the device instance split equal
+            to the native one, `propagate_labels`, `floodfill_level` and
+            `gated_floodfill` (equal to the CPU's): ms after a synchronize,
+            launches, sweeps, peak memory.
 
 Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 `--phases attention,segmenter,stream` runs a subset while iterating (device
 and build always run; `stream` needs `segmenter`; `fusion`, `files`, `hf`
-and `train` alone load the B2 segmenter themselves; the last line then names
-the phases that ran).
+and `train` alone load the B2 segmenter themselves, `post` builds its own
+session; the last line then names the phases that ran).
 """
 
 from __future__ import annotations
@@ -83,6 +101,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -107,7 +126,8 @@ FUSION_KW = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 17, windo
 NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
-ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files", "hf", "train"]
+ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files", "hf", "train",
+              "post"]
 JPEG_PSNR_BAR = 35.0  # the port's q95 JPEG of the textured frames against their colours
 FILES_CAPACITY = 1 << 20  # process3DSeg's default
 # port state-dict name -> HF SegformerForSemanticSegmentation name, in order
@@ -133,6 +153,8 @@ HF_LABELS = 150  # ADE20K's, the taxonomy of the HF SegFormer-B2 semantic checkp
 TRAIN_STEPS, TRAIN_DEVICE_STEPS, TRAIN_NAT_STEPS = 40, 20, 6
 TRAIN_DESCENT_BAR = 0.8  # mean loss of the last 5 steps against the first 5
 TRAIN_GRAD_BAR = 2e-2  # K2's path against the plain one: relative L2 of all gradients, bf16
+POST_NPTS, POST_K, POST_CAP, POST_ROWS = 1_000_000, 16, 8, 4096
+TREE_SUFFIXES = {".npy", ".json", ".pkl", ".ply", ".txt", ".csv", ".yaml"}
 
 
 def log(*a):
@@ -1506,6 +1528,273 @@ def train_phase(card, seg=None, device="cuda", model=None, hw=(256, 256), batch=
     return k2, k3
 
 
+def _cli(args, device=None):
+    """`python -m fusion3dseg_tpu_torch <args> [--device device]` as a
+    subprocess of the port beside this script. Returns (wall seconds,
+    stdout); a non-zero exit fails the phase."""
+    cmd = [sys.executable, "-m", "fusion3dseg_tpu_torch", *map(str, args)]
+    if device is not None:
+        cmd += ["--device", device]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(HERE)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=HERE, timeout=900)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"post: {' '.join(cmd[3:])} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+             f"{r.stderr[-4000:]}")
+    return dt, r.stdout
+
+
+def _tree_diff(a, b, skip=()):
+    """Relative paths where two artifact trees differ: a file in one only,
+    or a data file (TREE_SUFFIXES) whose bytes differ. Top-level entries
+    named in `skip` are left out."""
+    import filecmp
+
+    def files(d):
+        return {p.relative_to(d) for p in d.rglob("*") if p.is_file() and p.relative_to(d).parts[0]
+                not in skip}
+
+    fa, fb = files(a), files(b)
+    diff = sorted(str(f) for f in fa ^ fb)
+    diff += sorted(str(f) for f in fa & fb if f.suffix in TREE_SUFFIXES
+                   and not filecmp.cmp(a / f, b / f, shallow=False))
+    return diff
+
+
+def _profile(fn, top=0):
+    """(CUDA kernels one `fn()` launches, their summed device ms), from
+    torch.profiler; logs the `top` kernels by device time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    def us(e):  # renamed from self_cuda_time_total in newer torch releases
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+
+    device_us = sum(us(e) for e in kernels)
+    for e in sorted(kernels, key=us, reverse=True)[:top]:
+        log(f"post:     {us(e) / 1e3:8.3f} ms {e.count:5d}x {100 * us(e) / device_us:5.1f}% "
+            f"{e.key[:80]}")
+    return sum(e.count for e in kernels), device_us / 1e3
+
+
+def _on_card(fn, top=0):
+    """(result, ms, launches, peak MiB, busy share) of `fn()` on the card: a
+    warm-up call, one timed call between synchronizes (peak memory over
+    it), one profiled call for the launches and the kernel time, whose
+    share of the timed call's wall is the busy share."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches, device_ms = _profile(fn, top)
+    return out, ms, launches, peak, device_ms / ms
+
+
+def _room_classes(points, size):
+    """Per-point classes of the workload's room surfaces: floor 87,
+    ceiling 118, walls 131, a door (86) on the x=0 wall, a window (115) on
+    the z=0 wall."""
+    import numpy as np
+
+    x, y, z = points.T
+    cls = np.full(len(points), 131, np.int32)
+    cls[y == 0] = 87
+    cls[y == np.float32(size[1])] = 118
+    cls[(x == 0) & (z > 1) & (z < 2) & (y < 2.1)] = 86
+    cls[(z == 0) & (x > 2) & (x < 3.5) & (y > 1) & (y < 2)] = 115
+    return cls
+
+
+def post_phase(card):
+    """Phase 13: the CLI end to end, card against CPU, then the device
+    graph ops at 36k and 1M points."""
+    import pickle
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.io import synthetic, workload
+    from fusion3dseg_tpu_torch.ops import components, neighbors
+    from fusion3dseg_tpu_torch.pipeline import refinement
+    from fusion3dseg_tpu_torch.pipeline.door_window import DOOR_WINDOW_CATEGORIES, fit_plane
+
+    work = Path(tempfile.mkdtemp(prefix="f3s_post_"))
+    walls = {}
+    try:
+        # ---- 13a. the CLI: synth, then all on the card and on the CPU
+        nframes, (h, w) = 48, (256, 192)
+        sess_dir = work / "session"
+        walls["synth"], _ = _cli(["synth", sess_dir, "--frames", nframes, "--height", h,
+                                  "--width", w, "--appearance", "textured"])
+        walls["all cuda"], out = _cli(["all", sess_dir, work / "card"], "cuda")
+        masks = work / "card" / "masks"
+        walls["all cpu (card masks)"], _ = _cli(["all", sess_dir, work / "cpu", "--mask-dir",
+                                                 masks], "cpu")
+
+        def npoints(d):
+            with open(d / "fusion" / "fusion_data.pkl", "rb") as fp:
+                return pickle.load(fp)["points"]
+
+        pts36 = npoints(work / "card")
+        n, n_cpu = len(pts36), len(npoints(work / "cpu"))
+        diff = _tree_diff(work / "card", work / "cpu", skip=("masks",))
+        log(f"post: CLI {card}: synth 48x256x192 textured {walls['synth']:.2f} s; all (shipped "
+            f"B2: seg2d -> fuse -> seg3d) on the card {walls['all cuda']:.2f} s, on the CPU "
+            f"with the card's masks {walls['all cpu (card masks)']:.2f} s; n {n} (CPU {n_cpu}); "
+            f"files that differ: {diff[:8]} ({len(diff)})")
+        if n != n_cpu or diff:
+            fail(f"post: all on the card and on the CPU differ: n {n} vs {n_cpu}, {diff[:20]}")
+
+        # ---- post-processing on copies of the card's tree, card and CPU
+        pan = work / "card" / "panoptic_segmentation"
+        ids = np.load(pan / "ids.npy")
+        doors = [i for i in json.loads((pan / "info.json").read_text())
+                 if i["category_id"] in DOOR_WINDOW_CATEGORIES]
+        if not doors:
+            fail("post: the card's tree has no door/window instance")
+        door = max(doors, key=lambda i: i["area"])["id"]
+        c, nrm = fit_plane(pts36[ids == door].astype(np.float64))
+        seed = int(np.nonzero(ids == door)[0][0])
+        quads, grew = {}, {}
+        for dev in ("cuda", "cpu"):
+            d = work / f"post_{dev}"
+            shutil.copytree(work / "card", d)
+            walls[f"doorwindow {dev}"], o = _cli(["doorwindow", d])
+            quads[dev] = int(re.search(r"(\d+) door/window quads", o).group(1))
+            walls[f"refine depth {dev}"], o1 = _cli(
+                ["refine", d, seed, "--mode", "depth", "--from-point", "--wall-point", *c,
+                 "--wall-normal", *nrm], dev)
+            walls[f"refine color {dev}"], o2 = _cli(
+                ["refine", d, seed, "--mode", "color", "--from-point"], dev)
+            grew[dev] = [int(re.search(r"grew (\d+) points", o).group(1)) for o in (o1, o2)]
+            walls[f"remove-classes {dev}"], _ = _cli(["remove-classes", d, masks], dev)
+        diff = _tree_diff(work / "post_cuda", work / "post_cpu")
+
+        # ---- tum: a write_tum_dir export of the degraded session
+        sess = synthetic.make_session(nframes=nframes, depth_hw=(h, w), appearance="textured")
+        synthetic.write_tum_dir(synthetic.degrade_session(sess, seed=0), work / "tum")
+        probe = {}
+        for dev in ("cuda", "cpu"):
+            walls[f"tum convert {dev}"], _ = _cli(["tum", work / "tum", work / f"tum_{dev}",
+                                                   "--intrinsics", "fr1"], dev)
+            walls[f"tum probe {dev}"], probe[dev] = _cli(["tum", work / "tum", "--intrinsics",
+                                                          "fr1"], dev)
+        tum_diff = _tree_diff(work / "tum_cuda", work / "tum_cpu")
+        log(f"post: CLI walls (s, each a subprocess with its start-up): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+        log(f"post: on the card's tree, card against CPU: doorwindow quads {quads}, refine "
+            f"grew (depth, colour) {grew}, files that differ {diff[:8]} ({len(diff)}); tum: "
+            f"{probe['cuda'].strip().splitlines()[-1]!r}, exports differ in {tum_diff[:8]}")
+        if quads["cuda"] < 1 or quads["cuda"] != quads["cpu"] or grew["cuda"] != grew["cpu"] \
+                or diff or tum_diff or probe["cuda"] != probe["cpu"]:
+            fail(f"post: post-processing card against CPU: quads {quads}, grew {grew}, "
+                 f"{diff[:20]}, tum {tum_diff[:20]}")
+
+        # ---- 13b. the device radius graph on the 36k fused cloud
+        p36 = torch.from_numpy(pts36).cuda()
+        for r in (0.05, 0.10):
+            adj, ms, launches, peak, busy = _on_card(
+                lambda: neighbors.radius_graph(p36, r, k=POST_K, cap_per_cell=POST_CAP))
+            want = neighbors.radius_graph(pts36, r, k=POST_K, cap_per_cell=POST_CAP,
+                                          device="cpu")
+            same = torch.equal(adj.cpu(), want)
+            log(f"post: radius_graph {card} on the fused cloud (n {n}) at r {r}: {ms:.3f} ms, "
+                f"{launches} launches, busy share {busy:.3f}, peak {peak:.1f} MiB; mean degree "
+                f"{float((want >= 0).sum()) / n:.2f}; every row equal to the CPU port: {same}")
+            if not same:
+                fail(f"post: radius_graph at r {r} on the card differs from the CPU")
+
+        # ---- the 1M-point room cloud
+        wl = workload.make_workload(POST_NPTS, 2, (48, 36), seed=0)[0]
+        room = synthetic.RoomSpec(num_objects=8, seed=0).size
+        classes = _room_classes(wl, room)
+        p1m = torch.from_numpy(wl).cuda()
+        adj, ms, launches, peak, busy = _on_card(
+            lambda: neighbors.radius_graph(p1m, 0.05, k=POST_K, cap_per_cell=POST_CAP), top=5)
+        ncap = neighbors.lookup_cap(wl, 0.05)
+        grid = neighbors.build_grid(torch.from_numpy(wl), 0.05, ncap=ncap)
+        starts = np.linspace(0, POST_NPTS - POST_ROWS, 4).astype(np.int64)
+        same = all(torch.equal(neighbors.query_rows(grid, torch.arange(s, s + POST_ROWS),
+                                                    POST_K, POST_CAP),
+                               adj[s:s + POST_ROWS].cpu()) for s in starts)
+        chunks = -(-POST_NPTS // neighbors.CUDA_CHUNK)
+        log(f"post: radius_graph {card} at 1M points, r 0.05 (dense table of {ncap} cells): "
+            f"{ms:.3f} ms, {launches} launches ({launches / chunks:.1f} a chunk of "
+            f"{neighbors.CUDA_CHUNK} rows), busy share {busy:.3f}, peak {peak:.1f} MiB; mean "
+            f"degree "
+            f"{float((adj >= 0).sum()) / POST_NPTS:.2f}; rows {starts.tolist()} + {POST_ROWS} "
+            f"equal to the CPU chunk function: {same}")
+        if not same:
+            fail("post: the 1M graph on the card differs from the CPU chunk function")
+
+        adj_np = adj.cpu().numpy()
+        t0 = time.perf_counter()
+        dev_split = components.split_into_instances(classes, adj, 133, backend="device")
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat_split = components.split_into_instances(classes, adj_np, 133, backend="native")
+        t_nat = time.perf_counter() - t0
+        same = all(np.array_equal(a, b) for a, b in zip(
+            (dev_split[0], dev_split[1], dev_split[3]),
+            (nat_split[0], nat_split[1], nat_split[3]))) and dev_split[2] == nat_split[2]
+        sym, ms_sym, _, _, _ = _on_card(lambda: components.symmetrize_adjacency(adj))
+        cls_d = torch.from_numpy(classes).cuda()
+        (labels, sweeps), ms_p, launches_p, peak_p, busy_p = _on_card(
+            lambda: components.propagate_labels(sym, cls_d, return_sweeps=True), top=3)
+        log(f"post: instance split at 1M {card}: backend device {t_dev:.3f} s (symmetrize on "
+            f"the card {ms_sym:.3f} ms, degree {sym.shape[1]}), native {t_nat:.3f} s, "
+            f"{len(nat_split[2])} "
+            f"instances; ids, info and classes equal: {same}; propagate_labels alone "
+            f"{ms_p:.3f} ms, {sweeps} sweeps, {launches_p} launches, busy share {busy_p:.3f}, "
+            f"peak {peak_p:.1f} MiB")
+        if not same:
+            fail("post: the device split differs from the native split at 1M")
+
+        floor = np.nonzero(classes == 87)[0]
+        centre = floor[np.argsort(np.linalg.norm(wl[floor] - [room[0] / 2, 0, room[2] / 2],
+                                                 axis=1))[:16]]
+        ff_seeds = np.zeros(POST_NPTS, bool)
+        ff_seeds[centre] = True
+        ff, ms_f, launches_f, peak_f, busy_f = _on_card(
+            lambda: components.floodfill_level(adj, ff_seeds, 50, classes))
+        ff_cpu = components.floodfill_level(adj_np, ff_seeds, 50, classes, device="cpu")
+        seeds = classes == 86
+        dist = np.abs(wl[:, 0]).astype(np.float32)  # distance to the x=0 wall
+        (gf, rounds), ms_g, launches_g, peak_g, busy_g = _on_card(
+            lambda: refinement.gated_floodfill(adj, seeds, dist, 0.02, return_rounds=True))
+        gf_cpu = refinement.gated_floodfill(adj_np, seeds, dist, 0.02, device="cpu")
+        ok = np.array_equal(ff, ff_cpu) and torch.equal(gf.cpu(), gf_cpu)
+        log(f"post: fills at 1M {card}: floodfill_level from 16 floor points (50 rounds, "
+            f"classes) {ms_f:.3f} ms, {launches_f} launches, busy share {busy_f:.3f}, peak "
+            f"{peak_f:.1f} MiB, "
+            f"{int(ff.sum())} members; gated_floodfill from the {int(seeds.sum())} door points "
+            f"(distance to their wall within 0.02) {ms_g:.3f} ms, {rounds} rounds, "
+            f"{launches_g} launches, busy share {busy_g:.3f}, peak {peak_g:.1f} MiB, "
+            f"{int(gf.sum())} members; both "
+            f"equal to the CPU: {ok}")
+        if not ok:
+            fail("post: a fill on the card differs from the CPU at 1M")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1585,6 +1874,8 @@ def main():
         for entry in kernels:
             entry["launches"] += {"neighborhood_attention": n2, "sr_attention": n3}.get(
                 entry["name"], 0)
+    if "post" in phases:
+        post_phase(card)  # launches no kernel of the kernels line (no K3 in the CLI's B2)
     log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

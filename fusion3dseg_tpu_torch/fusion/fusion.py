@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from fusion3dseg_tpu_torch import cuda
-from fusion3dseg_tpu_torch.geometry import camera, intersections
+from fusion3dseg_tpu_torch.geometry import camera, intersections, quaternion as quat
 from fusion3dseg_tpu_torch.ops import sparsify, zbuffer
 from fusion3dseg_tpu_torch.ops.sparsify import segment_sum
 from fusion3dseg_tpu_torch.ops.zbuffer import INT32_MAX
@@ -172,7 +172,7 @@ def _match_pixels(grid, slotg, fpts, fnrm, fvalid, *, height, width, half, radiu
     cpn = neigh[:height, :width].reshape(P, 18, 6)
     cand = nslot[:height, :width].reshape(P, 18)
 
-    dist = torch.linalg.vector_norm(fpts[:, None, :] - cpn[..., :3], dim=-1)
+    dist = quat.norm3_fma(fpts[:, None, :] - cpn[..., :3])[..., 0]
     cosn = _dot3_fma(fnrm[:, None, :], cpn[..., 3:])
     passes = (cand >= 0) & (dist < radius) & (cosn > min_cosine) & fvalid[:, None]
     best = torch.where(passes, dist, torch.inf).argmin(dim=-1)
@@ -279,7 +279,7 @@ def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fc
     new_pts = torch.where(touched, (acc[:, 1:4] + pts_w) / denom, pts_w)
     new_clr = torch.where(touched, (acc[:, 4:7] + clr_w) / denom, clr_w)
     nsum = acc[:, 7:10] + nrm_w
-    nnrm = nsum / torch.linalg.vector_norm(nsum, dim=-1, keepdim=True).clamp(min=1e-12)
+    nnrm = nsum / quat.norm3_fma(nsum).clamp(min=1e-12)
     new_nrm = torch.where(touched, nnrm, nrm_w)
     new_nm = nm_w + cnt.to(torch.int32)
     new_occ = occ_w + touched[:, 0].to(torch.int32)

@@ -60,7 +60,11 @@ def projection_matrices(
     q may carry leading frame dims ([..., 4] -> [..., 3, 3] each), so a
     whole session's matrices come from one batched product."""
     R = quat.to_rotation_matrix(quat.conjugate(q_wxyz))
-    return K @ R, R
+    # K @ R spelled out as the CPU's batched product computes it (products
+    # rounded, summed in k order), so that the card's matrices are the same
+    M = (K[..., :, 0, None] * R[..., None, 0, :] + K[..., :, 1, None] * R[..., None, 1, :]) \
+        + K[..., :, 2, None] * R[..., None, 2, :]
+    return M, R
 
 
 def project_with_matrices(

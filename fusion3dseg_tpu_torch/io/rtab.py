@@ -234,7 +234,9 @@ class SessionData:
 
         pts, nrm, depth = frames_to_world(f32(depth_m), f32(Ks), f32(wxyz), f32(trans))
         rgb = area_resize_uint8(torch.as_tensor(np.ascontiguousarray(rgbs), device=dev), (h, w))
-        colors = rgb.float().reshape(nf, h * w, 3) / 255.0
+        # a 0-d device divisor: CUDA divides by a Python scalar as a product
+        # with its reciprocal, which rounds apart from the CPU
+        colors = rgb.float().reshape(nf, h * w, 3) / torch.tensor(255.0, device=dev)
         return cls(
             frame_numbers=np.asarray(frame_numbers), K=np.asarray(K_rgb), Ks=Ks,
             quats_wxyz=wxyz, translations=trans, rgb_hw=(hr, wr), depth_hw=(h, w),

@@ -6,8 +6,9 @@ boxes from a circular camera trajectory and returns depth images, per-pixel
 ground-truth class masks, colors, poses and intrinsics. The same seed gives
 the same arrays as the JAX package's generator. `write_session_dir` writes
 a session as an rtabmap-export directory through the port's own image
-codec (`io/image.py`); `write_tum_dir` and `degrade_session` wait for the
-CLI slice.
+codec (`io/image.py`), `write_tum_dir` in the TUM RGB-D layout with
+asynchronous streams, and `degrade_session` adds Kinect-style sensor
+errors (the same draws as the JAX package's).
 
 Coordinate convention: the camera looks down +z in its frame, world y is up.
 """
@@ -485,4 +486,172 @@ def write_session_dir(session: SyntheticSession, out_dir, write_masks: bool = Tr
         "%YAML:1.0\n---\n"
         "camera_matrix:\n   rows: 3\n   cols: 3\n"
         f"   data: [{K[0,0]}, 0., {K[0,2]}, 0., {K[1,1]}, {K[1,2]}, 0., 0., 1.]\n")
+    return out_dir
+
+
+def degrade_session(
+    session: SyntheticSession,
+    *,
+    seed: int = 0,
+    depth_noise: bool = True,
+    quantize: bool = True,
+    hole_fraction: float = 0.03,
+    edge_dropout: float = 0.5,
+    border: int = 4,
+    pose_drift: float = 0.0,
+    rgb_noise: float = 5.0,
+    mask_error: float = 0.0,
+) -> SyntheticSession:
+    """Kinect-style sensor degradation of a ray-cast session, which is
+    noiseless and hole-free, unlike a real capture. The structured-light
+    error model, drawn from `default_rng(seed)` in the JAX package's order:
+
+      * axial noise     sigma_z(z) = 0.0012 + 0.0019 (z-0.4)^2 m
+                        (Khoshelham & Elberink 2012 Kinect model)
+      * quantization    disparity step q(z) = 2.85e-3 z^2 m, depth rounded
+                        to the step (dominates past ~3 m)
+      * holes           random dropout blobs (low-res noise upsampled) over
+                        `hole_fraction` of pixels, plus `edge_dropout`
+                        probability at depth discontinuities (grazing
+                        surfaces return no IR speckle) and a `border` px
+                        invalid rim — all set to depth 0 ("missing", the
+                        TUM/kinect convention)
+      * pose drift      per-frame random-walk translation error of step
+                        `pose_drift` meters plus proportional rotation
+                        jitter (SLAM trajectories are locally noisy)
+      * rgb noise       additive gaussian (sensor) noise, std in 8-bit units
+      * mask errors     `mask_error` fraction of mask pixels flipped to a
+                        random other class (an imperfect 2D model; the
+                        multi-view vote should denoise these)
+
+    Returns a NEW SyntheticSession; gt geometry (boxes) is unchanged, so
+    geometric ground-truth checks remain valid up to the injected noise.
+    """
+    rng = np.random.default_rng(seed)
+    depth = session.depth.copy()
+    colors = session.colors.copy()
+    masks = session.gt_mask.copy()
+    quats = session.quats_wxyz.copy()
+    trans = session.translations.copy()
+    F, H, W = depth.shape
+
+    valid = depth > 0
+    if depth_noise:
+        sigma = 0.0012 + 0.0019 * np.square(np.maximum(depth - 0.4, 0.0))
+        depth = np.where(valid, depth + rng.normal(0, 1, depth.shape) * sigma, 0.0)
+    if quantize:
+        step = np.maximum(2.85e-3 * np.square(depth), 1e-3)  # >= 1 mm
+        depth = np.where(valid, np.round(depth / step) * step, 0.0)
+
+    if hole_fraction > 0:
+        blob = rng.random((F, max(H // 16, 1), max(W // 16, 1)))
+        reps = (H + blob.shape[1] - 1) // blob.shape[1], (W + blob.shape[2] - 1) // blob.shape[2]
+        blob = np.repeat(np.repeat(blob, reps[0], axis=1), reps[1], axis=2)[:, :H, :W]
+        depth = np.where(blob < hole_fraction, 0.0, depth)
+    if edge_dropout > 0:
+        gy = np.abs(np.diff(depth, axis=1, prepend=depth[:, :1]))
+        gx = np.abs(np.diff(depth, axis=2, prepend=depth[:, :, :1]))
+        edges = (gy + gx) > 0.08 * np.maximum(depth, 0.5)
+        drop = edges & (rng.random(depth.shape) < edge_dropout)
+        depth = np.where(drop, 0.0, depth)
+    if border > 0:
+        depth[:, :border], depth[:, -border:] = 0.0, 0.0
+        depth[:, :, :border], depth[:, :, -border:] = 0.0, 0.0
+
+    if pose_drift > 0:
+        walk = np.cumsum(rng.normal(0, pose_drift, (F, 3)), axis=0)
+        trans = trans + walk
+        # small-angle quaternion jitter, composed on the left
+        ang = rng.normal(0, pose_drift * 0.5, (F, 3))
+        half = 0.5 * ang
+        dq = np.concatenate([np.ones((F, 1)), half], axis=1)
+        dq /= np.linalg.norm(dq, axis=1, keepdims=True)
+        w0, x0, y0, z0 = dq.T
+        w1, x1, y1, z1 = quats.T
+        quats = np.stack([
+            w0 * w1 - x0 * x1 - y0 * y1 - z0 * z1,
+            w0 * x1 + x0 * w1 + y0 * z1 - z0 * y1,
+            w0 * y1 - x0 * z1 + y0 * w1 + z0 * x1,
+            w0 * z1 + x0 * y1 - y0 * x1 + z0 * w1,
+        ], axis=1)
+
+    if rgb_noise > 0:
+        noisy = colors.astype(np.float32) + rng.normal(0, rgb_noise, colors.shape)
+        colors = np.clip(noisy, 0, 255).astype(np.uint8)
+
+    if mask_error > 0:
+        flip = rng.random(masks.shape) < mask_error
+        masks = np.where(
+            flip, rng.integers(0, 133, masks.shape, dtype=np.uint8), masks
+        )
+
+    return SyntheticSession(
+        depth=depth.astype(np.float32), gt_mask=masks, colors=colors,
+        K=session.K, quats_wxyz=quats, translations=trans,
+        boxes=session.boxes, box_classes=session.box_classes,
+        room=session.room,
+    )
+
+
+def write_tum_dir(
+    session: SyntheticSession,
+    out_dir,
+    *,
+    fps: float = 30.0,
+    rgb_depth_offset: float = 0.008,
+    ts_jitter: float = 0.002,
+    pose_rate: float = 3.0,
+    drop_depth: Tuple[int, ...] = (),
+    seed: int = 0,
+) -> Path:
+    """Materialize the session in the TUM RGB-D benchmark layout
+    (rgb.txt/depth.txt/groundtruth.txt + 16-bit depth pngs at 1/5000 m) with
+    realistically ASYNCHRONOUS streams: depth timestamps offset from rgb by
+    `rgb_depth_offset` s, per-stamp jitter, a `pose_rate`x-rate trajectory,
+    and optional dropped depth frames — exercising io/tum.py's association
+    exactly the way a real capture does. Images go through the port's
+    codec: 8-bit RGB PNGs and 16-bit depth PNGs."""
+    rng = np.random.default_rng(seed)
+    out_dir = Path(out_dir)
+    (out_dir / "rgb").mkdir(parents=True, exist_ok=True)
+    (out_dir / "depth").mkdir(exist_ok=True)
+    t0 = 1305031100.0  # epoch-style base stamp like the real sequences
+    dt = 1.0 / fps
+
+    rgb_lines, depth_lines, gt_lines = [], [], []
+    for i in range(session.nframes):
+        tr = t0 + i * dt + rng.uniform(-ts_jitter, ts_jitter)
+        name = f"{tr:.6f}"
+        image.write(out_dir / "rgb" / f"{name}.png", session.colors[i])
+        rgb_lines.append(f"{name} rgb/{name}.png")
+        if i not in drop_depth:
+            td = tr + rgb_depth_offset + rng.uniform(-ts_jitter, ts_jitter)
+            dname = f"{td:.6f}"
+            d = np.clip(session.depth[i] * 5000.0, 0, 65535).astype(np.uint16)
+            image.write(out_dir / "depth" / f"{dname}.png", d)
+            depth_lines.append(f"{dname} depth/{dname}.png")
+
+    # trajectory at a higher rate with linear interpolation between frames
+    nposes = int(session.nframes * pose_rate)
+    for k in range(nposes):
+        ft = k / pose_rate
+        i0 = min(int(ft), session.nframes - 1)
+        i1 = min(i0 + 1, session.nframes - 1)
+        a = ft - i0
+        t = (1 - a) * session.translations[i0] + a * session.translations[i1]
+        q = (1 - a) * session.quats_wxyz[i0] + a * session.quats_wxyz[i1]
+        q = q / np.linalg.norm(q)
+        tp = t0 + ft * dt + rng.uniform(-ts_jitter, ts_jitter) * 0.5
+        gt_lines.append(
+            f"{tp:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+            f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}"
+        )
+
+    hdr = "# synthetic TUM-format session\n# timestamp data\n"
+    (out_dir / "rgb.txt").write_text(hdr + "\n".join(rgb_lines) + "\n")
+    (out_dir / "depth.txt").write_text(hdr + "\n".join(depth_lines) + "\n")
+    (out_dir / "groundtruth.txt").write_text(
+        "# ground truth trajectory\n# timestamp tx ty tz qx qy qz qw\n"
+        + "\n".join(gt_lines) + "\n"
+    )
     return out_dir

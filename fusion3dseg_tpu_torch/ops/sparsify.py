@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from fusion3dseg_tpu_torch.geometry import quaternion as quat
 from fusion3dseg_tpu_torch.geometry.camera import _floor_to_int32
 from fusion3dseg_tpu_torch.ops.zbuffer import INT32_MAX
 
@@ -73,7 +74,10 @@ def segment_sum(values: torch.Tensor, segments: torch.Tensor, num_segments: int)
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
+    """x / |x| over 3 components; the norm as the FMA chain with a correctly
+    rounded root, what `vector_norm` computes on the CPU (the card's
+    reduction adds the squares in another order)."""
+    return x / quat.norm3_fma(x).clamp(min=1e-12)
 
 
 def _sort_rows(valid, vox, extent_cells):
@@ -168,7 +172,9 @@ def voxel_merge(points, normals, colors, weights, occurences, valid, radius: flo
     seg0 = torch.where(ok, seg_of_row, n)
     nmean = _unit(segment_sum(normals * w[:, None], seg0, n))
     # einsum "nc,nc->n" on XLA's CPU: products rounded, then summed in order
-    agree = (normals * nmean[seg0.clamp(max=n - 1).long()]).sum(dim=-1)
+    # (spelled out: the card's sum over the last axis adds in another order)
+    prod = normals * nmean[seg0.clamp(max=n - 1).long()]
+    agree = (prod[:, 0] + prod[:, 1]) + prod[:, 2]
     secondary = (agree <= min_cosine) & ok
     seg = torch.where(ok, seg_of_row * 2 + secondary.to(torch.int32), C)
     payload = torch.cat([w[:, None], occurences.float()[:, None], points * w[:, None],

@@ -5,8 +5,9 @@ of spans (name, seconds, attributes), printable as a summary or JSON. A
 span measures the host's wall clock and does not wait for the card: work
 still queued on the device when a span closes belongs to a later span.
 Pass `sync=True` (or call `block_until_ready` on the span's outputs) where
-a span must cover the device time too. The profiler trace of the
-reference waits for the CLI slice.
+a span must cover the device time too. `trace(logdir)` records a
+`torch.profiler` trace of a block (CPU, and CUDA where there is a card),
+written as a Chrome trace under `logdir`.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 import contextlib
 import json
 import time
-from typing import Dict, List
+from pathlib import Path
+from typing import Dict, List, Optional
 
 import torch
 
@@ -83,3 +85,24 @@ METRICS = Metrics()
 def span(name: str, verbose: bool = False, sync: bool = False, **attrs):
     with METRICS.span(name, verbose=verbose, sync=sync, **attrs):
         yield
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]):
+    """Record a `torch.profiler` trace around the block when `logdir` is set
+    (`<logdir>/trace.json`, Chrome trace format); nothing otherwise. Yields
+    the profiler, or None."""
+    if logdir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(Path(logdir) / "trace.json"))

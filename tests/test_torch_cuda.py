@@ -442,6 +442,30 @@ def test_file_path_cuda_matches_cpu(cuda_device, tmp_path):
     assert c0[1].dtype == np.int32 and c0[0]["occurences"].dtype == np.uint32
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("turns,radius", [(1.0, 0.05), (2.0, 0.1)])
+def test_file_path_tree_card_equals_cpu_bit_for_bit(cuda_device, tmp_path, turns, radius):
+    # the fusion engine's norms, 3-sums, K @ R and the colour division are
+    # spelled out in the CPU's arithmetic: every artifact file is the same
+    # bytes on the card (with the loop-closure repair at turns 2)
+    import filecmp
+
+    from fusion3dseg_tpu_torch.io import synthetic
+    from fusion3dseg_tpu_torch.pipeline import get3dseg, process3d
+
+    sess = synthetic.make_session(nframes=16, depth_hw=(48, 36), turns=turns,
+                                  room=synthetic.RoomSpec(seed=0), appearance="textured")
+    src = synthetic.write_session_dir(sess, tmp_path / "session")
+    for dev in ("cpu", "cuda"):
+        process3d.process3DSeg(src, tmp_path / dev, radius=radius, device=dev)
+        get3dseg.segment(tmp_path / dev, src / "masks", verbose=False, device=dev)
+        get3dseg.remove_classes(tmp_path / dev, src / "masks", verbose=False, device=dev)
+    a, b = tmp_path / "cpu", tmp_path / "cuda"
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    assert [str(f) for f in files if not filecmp.cmp(a / f, b / f, shallow=False)] == []
+
+
 # ------------------------------------------------------- resizes, training
 
 
@@ -552,3 +576,52 @@ def test_train_checkpoint_resume_on_card(cuda_device, tmp_path):
     params2, _ = tr.train(dataclasses.replace(cfg, resume=True, steps=6), device="cuda",
                           verbose=False)
     assert tr.committed_step(tmp_path) == 6
+
+
+def _plane_cloud(n, seed):
+    rng = np.random.default_rng(seed)
+    a = n // 2
+    b = n - a
+    pts = np.vstack([np.c_[rng.uniform(0, 4, a), np.zeros(a), rng.uniform(0, 3, a)],
+                     np.c_[rng.uniform(0, 4, b), rng.uniform(0, 2.5, b), np.zeros(b)]])
+    return np.round(pts, 2).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,k", [(0.05, 16), (0.1, 32)])
+def test_radius_graph_card_equals_cpu(cuda_device, radius, k):
+    # the graph's ids are exact: the card's equal the CPU port's (which
+    # equals JAX's, tests/test_torch_neighbors.py), both lookup paths
+    from fusion3dseg_tpu_torch.ops import neighbors as nb
+
+    pts = _plane_cloud(30_000, 1)
+    want = nb.radius_graph(pts, radius, k=k, device="cpu")
+    got = nb.radius_graph(torch.from_numpy(pts).to(cuda_device), radius, k=k)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    sparse = nb._radius_graph_impl(torch.from_numpy(pts).to(cuda_device), radius, k=k, ncap=None)
+    assert torch.equal(sparse.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_propagation_and_fills_card_equal_cpu(cuda_device):
+    from fusion3dseg_tpu_torch.ops import components as comp, neighbors as nb
+    from fusion3dseg_tpu_torch.pipeline import refinement as ref
+
+    pts = _plane_cloud(20_000, 2)
+    classes = np.where(pts[:, 0] < 2, 3, 7).astype(np.int32)
+    adj = nb.radius_graph(pts, 0.05, k=12, device="cpu").numpy()
+    want, sw = comp.propagate_labels(adj, classes, device="cpu", return_sweeps=True)
+    got, sw2 = comp.propagate_labels(adj, classes, return_sweeps=True)
+    assert got.is_cuda and torch.equal(got.cpu(), want) and sw == sw2
+    t = comp.split_into_instances(classes, adj, backend="device")
+    n = comp.split_into_instances(classes, adj, backend="native")
+    assert np.array_equal(t[1], n[1]) and t[2] == n[2]
+    seeds = np.zeros(len(pts), bool)
+    seeds[:5] = True
+    assert np.array_equal(comp.floodfill_level(adj, seeds, 6, classes),
+                          comp.floodfill_level(adj, seeds, 6, classes, device="cpu"))
+    vals = (pts[:, :1] * 0.1 + np.random.default_rng(3).random((len(pts), 3)) * 0.05)
+    for v, thr in ((vals[:, 0], 0.04), (vals.astype(np.float32), 0.05)):
+        a = ref.gated_floodfill(adj, seeds, v, thr, device="cpu")
+        b = ref.gated_floodfill(adj, seeds, v, thr)
+        assert b.is_cuda and torch.equal(b.cpu(), a)

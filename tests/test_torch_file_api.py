@@ -193,7 +193,14 @@ def test_split_into_instances_matches_jax(rng, layout):
 
 
 def test_split_device_backend_waits():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcomp.split_into_instances(np.zeros(3, np.int64), np.full((3, 2), -1, np.int32),
-                                   backend="device")
-    assert torch.zeros(1).device.type == "cpu"
+    """The device backend runs on the card by default (refused without one)
+    and on the CPU when asked, with the native backend's result."""
+    classes = np.array([3, 3, 7], np.int64)
+    adj = np.array([[1, -1], [0, -1], [-1, -1]], np.int32)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            tcomp.split_into_instances(classes, adj, backend="device")
+    got = tcomp.split_into_instances(classes, adj, backend="device", device="cpu")
+    want = tcomp.split_into_instances(classes, adj, backend="native")
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2]

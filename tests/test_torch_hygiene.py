@@ -53,6 +53,18 @@ for call in (
     lambda: process3d.process3DSeg(tmp, tmp + "/out"),
     lambda: get3dseg.segment(tmp, tmp + "/masks"),
     lambda: get2dseg.SegmentImage(tmp, tmp + "/seg"),
+    # the graph ops and post-processing, and the CLI, on their default device
+    lambda: __import__("fusion3dseg_tpu_torch.ops.neighbors", fromlist=["x"]).radius_graph(
+        pts, 0.1),
+    lambda: __import__("fusion3dseg_tpu_torch.ops.components", fromlist=["x"]).propagate_labels(
+        np.full((4, 2), -1, np.int32), np.zeros(4, np.int32)),
+    lambda: __import__("fusion3dseg_tpu_torch.ops.components", fromlist=["x"]).floodfill_level(
+        np.full((4, 2), -1, np.int32), np.zeros(4, bool), 2),
+    lambda: __import__("fusion3dseg_tpu_torch.pipeline.refinement",
+                       fromlist=["x"]).gated_floodfill(
+        np.full((4, 2), -1, np.int32), np.zeros(4, bool), np.zeros(4, np.float32), 0.1),
+    lambda: __import__("fusion3dseg_tpu_torch.cli", fromlist=["x"]).main(
+        ["fuse", tmp, tmp + "/out"]),
 ):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
