@@ -86,14 +86,36 @@ Phases (each prints its own lines; any failure exits non-zero):
             to the native one, `propagate_labels`, `floodfill_level` and
             `gated_floodfill` (equal to the CPU's): ms after a synchronize,
             launches, sweeps, peak memory.
+14. parallel  the multi-device decompositions (`parallel/`), each rank a
+            process of `parallel/launch.spawn`: one rank over NCCL on cuda:0,
+            then two ranks (on two cards over NCCL where there are two, else
+            sharing cuda:0 over gloo; gloo's CUDA collectives probed first),
+            then two CPU ranks over gloo. On the card: voting at 1M points x
+            300 frames (frame- and point-sharded, exact); the three sharded
+            label lifters on `make_workload(1M, 300)` against the one-device
+            `tpu_label_fuse` (frames exact; points exactly their own tie rule,
+            computed on one device without collectives; cells >= 0.9995
+            against the one-rank cell-sharded run; the agreement of both with
+            the one-device lifter printed: their ties of equal quantised
+            depth go by rank-local id or gather slot, as in the JAX package;
+            K1 launched on every rank, on aligned rows); both fusion engines on
+            phase 9's 48-frame session (one rank spatially sharded bit for bit
+            the one-device engine; two ranks against it with the JAX package's
+            bars: n, p99 nearest distance, label agreement; the two-rank card
+            run equal to the two-rank CPU run); `train` at B2 width (bfloat16,
+            256x256, global batch 8) for 10 steps at dp 2 and at the default
+            mesh (dp 1 x tp 2): step 1's loss within 1e-2 of the one-device
+            loss, the loss descends. Every call timed beside its one-device
+            call, with its collectives and the bytes gloo moved through the
+            host.
 
 Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 `--phases attention,segmenter,stream` runs a subset while iterating (device
 and build always run; `stream` needs `segmenter`; `fusion`, `files`, `hf`
-and `train` alone load the B2 segmenter themselves, `post` builds its own
-session; the last line then names the phases that ran).
+and `train` alone load the B2 segmenter themselves, `post` and `parallel`
+build their own inputs; the last line then names the phases that ran).
 """
 
 from __future__ import annotations
@@ -127,7 +149,7 @@ NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
 ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files", "hf", "train",
-              "post"]
+              "post", "parallel"]
 JPEG_PSNR_BAR = 35.0  # the port's q95 JPEG of the textured frames against their colours
 FILES_CAPACITY = 1 << 20  # process3DSeg's default
 # port state-dict name -> HF SegformerForSemanticSegmentation name, in order
@@ -154,6 +176,16 @@ TRAIN_STEPS, TRAIN_DEVICE_STEPS, TRAIN_NAT_STEPS = 40, 20, 6
 TRAIN_DESCENT_BAR = 0.8  # mean loss of the last 5 steps against the first 5
 TRAIN_GRAD_BAR = 2e-2  # K2's path against the plain one: relative L2 of all gradients, bf16
 POST_NPTS, POST_K, POST_CAP, POST_ROWS = 1_000_000, 16, 8, 4096
+# phase 14: fusion capacity in all (2^16 a rank on two ranks, 2^17 a chunk
+# frame-sharded), each rank's split window, the train cell, the bars (the
+# JAX package's own: tests/test_model_parallel.py, tests/test_label_fuse.py)
+PAR_CAPACITY, PAR_WINDOW = 1 << 17, 1 << 14
+PAR_SESSION = (48, (256, 192))  # phase 9's session: frames, depth size
+PAR_TRAIN_HW, PAR_BATCH, PAR_TRAIN_STEPS = (256, 256), 8, 10
+PAR_TIMEOUT = 300.0  # seconds a world may take, start-up included
+PAR_LOSS_BAR, PAR_AGREE_BAR = 1e-2, 0.9
+PAR_N_SPATIAL, PAR_N_FRAMES = (0.95, 1.05), (0.6, 1.7)
+PAR_COVER_BAR = 2 * 3 ** 0.5 * FUSION_KW["radius"]
 TREE_SUFFIXES = {".npy", ".json", ".pkl", ".ply", ".txt", ".csv", ".yaml"}
 
 
@@ -1795,6 +1827,499 @@ def post_phase(card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+
+# ------------------------------------------------------------ 14. parallel
+# ranks run these functions in their own processes (`parallel/launch.spawn`
+# imports this script by name); inputs come through .npy files in a
+# temporary directory
+
+
+def _load_inputs(path):
+    import numpy as np
+
+    return {p.stem: np.load(p) for p in Path(path).glob("*.npy")}
+
+
+def _probe_gloo_cuda(dev, world):
+    """Which collectives a gloo group takes for CUDA tensors: {name: True
+    or the error}."""
+    import torch
+    import torch.distributed as dist
+
+    def gather():
+        parts = [torch.empty(4, dtype=torch.uint8, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.ones(4, dtype=torch.uint8, device=dev))
+
+    def gather_into():
+        dist.all_gather_into_tensor(torch.empty(4 * world, dtype=torch.uint8, device=dev),
+                                    torch.ones(4, dtype=torch.uint8, device=dev))
+
+    out = {}
+    for name, fn in (
+            ("all_reduce SUM int32", lambda: dist.all_reduce(
+                torch.ones(4, dtype=torch.int32, device=dev))),
+            ("all_reduce MIN int32", lambda: dist.all_reduce(
+                torch.ones(4, dtype=torch.int32, device=dev), op=dist.ReduceOp.MIN)),
+            ("all_reduce MAX int32", lambda: dist.all_reduce(
+                torch.ones(4, dtype=torch.int32, device=dev), op=dist.ReduceOp.MAX)),
+            ("all_reduce SUM float32", lambda: dist.all_reduce(
+                torch.ones(4, dtype=torch.float32, device=dev))),
+            ("all_gather uint8", gather), ("all_gather_into_tensor uint8", gather_into)):
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+            out[name] = True
+        except Exception as e:  # noqa: BLE001 (the probe reports every refusal)
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _point_shard_rule(n, ndev, args, dev):
+    """The classes `label_fuse_sharded_points` gives on ndev ranks, computed
+    on one device without collectives: per pixel the least (quantised
+    depth, rank-local id, rank) wins, the order its two pmins produce,
+    where the one-device lifter takes the least (depth, global id).
+    Classified by K1's plain version."""
+    import torch
+
+    from fusion3dseg_tpu_torch.geometry import camera
+    from fusion3dseg_tpu_torch.ops import histogram as hist
+    from fusion3dseg_tpu_torch.ops import label_fuse as lf
+    from fusion3dseg_tpu_torch.ops import zbuffer
+
+    (h, w), local_n = HW, n // ndev
+    pts = torch.as_tensor(args[0], device=dev)
+    sess = lf._Session(*args[1:], dev)
+    gid = torch.arange(n, device=dev)
+    key_of_point = ((gid % local_n) << 8) | (gid // local_n)  # (local id, rank)
+    none = torch.iinfo(torch.int64).max
+    C = lf._winner_matrix(n, sess.nframes, dev)
+    for f in range(sess.nframes):
+        u, v, z = camera.project_with_matrices(pts, sess.M[f], sess.R[f], sess.trans[f])
+        ok = zbuffer._in_image(u, v, z, torch.ones_like(z, dtype=torch.bool), h, w)
+        key = (zbuffer._zq(z, 11, 10.0).long() << 28) | key_of_point
+        kmin = zbuffer._segment_min(torch.where(ok, key, none), torch.where(ok, v * w + u, h * w),
+                                    h * w + 1, none)[:h * w]
+        win = ((kmin & 0xFF) * local_n + ((kmin >> 8) & ((1 << 20) - 1)))
+        lf._set_row(C, f, win, kmin != none, sess.masks[f], n)
+    return hist.histogram_classify_reference(C[:, :n], NCLASSES, 0.5)[1]
+
+
+def parallel_rank(rank, path, parts):
+    """One rank of phase 14: the decompositions in `parts` on this rank's
+    device, each timed beside its one-device call on the same device and
+    held to it; returns numbers, verdicts and (rank 0) the fusion states."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.fusion import fusion as fe
+    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.models import train as tr
+    from fusion3dseg_tpu_torch.models.segformer import SegFormer
+    from fusion3dseg_tpu_torch.ops import histogram as hist
+    from fusion3dseg_tpu_torch.ops import label_fuse as lf
+    from fusion3dseg_tpu_torch.ops import voting
+    from fusion3dseg_tpu_torch.parallel import comm, sharding
+    from fusion3dseg_tpu_torch.parallel import fusion as pf
+    from fusion3dseg_tpu_torch.parallel import label_fuse as pl
+    from fusion3dseg_tpu_torch.parallel import voting as pv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank.device
+    on_card = dev.type == "cuda"
+    inp = _load_inputs(path)
+    res = {"rank": rank.rank, "backend": rank.backend, "device": str(dev), "ms": {},
+           "calls": {}, "host_mb": {}, "ok": {}}
+    if on_card and rank.backend == "gloo":
+        res["gloo_cuda"] = _probe_gloo_cuda(dev, rank.world_size)
+        if not all(v is True for v in res["gloo_cuda"].values()):
+            return res
+    mesh = sharding.make_mesh(rank.world_size, tp=1, device_type=dev.type)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def timed(name, fn):
+        """fn's call timed after a synchronize; on the card its second (the
+        first warms up)."""
+        if on_card:
+            fn()
+        sync()
+        c0, t0 = dict(comm.STATS), time.perf_counter()
+        out = fn()
+        sync()
+        res["ms"][name] = 1e3 * (time.perf_counter() - t0)
+        res["calls"][name] = comm.STATS["calls"] - c0["calls"]
+        res["host_mb"][name] = (comm.STATS["host_bytes"] - c0["host_bytes"]) / 1e6
+        return out
+
+    real_k1, layouts = pl.histogram_classify, set()
+
+    def k1(C, nclasses, threshold=0.5):  # K1's wrapper, noting the rows' layout
+        layouts.add(hist.rows_aligned(C.data_ptr(), C.stride(0), C.shape[0]))
+        return real_k1(C, nclasses, threshold)
+
+    pl.histogram_classify = k1
+    hist.histogram_classify.launches = 0  # the parallel path's launches only
+    n, ndev, r = int(inp["npts"]), rank.world_size, rank.rank
+    if "vote" in parts:
+        uv, masks = inp["uv2pt"], inp["masks"]
+        votes = timed("vote one device", lambda: voting.vote_all_frames(
+            uv, masks, n, NCLASSES, device=dev))
+        vf = timed("vote_sharded_frames", lambda: pv.vote_sharded_frames(
+            mesh, uv, masks, n, NCLASSES))
+        vp, cp = timed("vote_sharded_points", lambda: pv.vote_sharded_points(
+            mesh, uv, masks, n, NCLASSES))
+        lo, hi = r * n // ndev, (r + 1) * n // ndev
+        res["ok"]["vote_sharded_frames"] = torch.equal(vf, votes)
+        res["ok"]["vote_sharded_points"] = torch.equal(vp, votes[lo:hi]) and torch.equal(
+            cp, voting.classify(votes[lo:hi], 0.5, NCLASSES))
+        del votes, vf, vp, cp
+    if "label" in parts:
+        args = [inp[k] for k in ("points", "K", "quats", "trans", "masks")]
+        one = timed("label one device (tpu_label_fuse)", lambda: lf.tpu_label_fuse(
+            n, NCLASSES, HW, device=dev)(*args)[1])
+        launches0 = hist.histogram_classify.launches
+        lo, hi = r * n // ndev, (r + 1) * n // ndev
+        got = timed("label_fuse_sharded", lambda: pl.label_fuse_sharded(
+            mesh, *args, HW, nclasses=NCLASSES))
+        res["ok"]["label_fuse_sharded"] = torch.equal(got, one[lo:hi])
+        got = timed("label_fuse_sharded_points", lambda: pl.label_fuse_sharded_points(
+            mesh, *args, HW, nclasses=NCLASSES))
+        res["label_points_differ"] = int((got != one[lo:hi]).sum())
+        res["ok"]["label_fuse_sharded_points: its tie rule"] = torch.equal(
+            got, _point_shard_rule(n, ndev, args, dev)[lo:hi])
+        dl, vs = inp[f"dev_lists_{ndev}"], inp[f"valid_{ndev}"]
+        got = timed("label_fuse_sharded_cells", lambda: pl.label_fuse_sharded_cells(
+            mesh, inp["cells_table"], dl, vs, *args[1:], HW, npts=n, nclasses=NCLASSES))
+        res["label_cells_agree"] = float((got == one).float().mean())
+        if r == 0:
+            res["label_cells"] = got.cpu()
+        res["k1_launches"] = hist.histogram_classify.launches - launches0
+        res["k1_tiled"] = sorted(layouts)
+        del one, got
+    pl.histogram_classify = real_k1
+    if "fusion" in parts:
+        sess = [inp[k] for k in ("Ks", "quats_wxyz", "translations", "points_s", "normals_s",
+                                 "colors_s", "valid_s")]
+        kw = dict(height=int(inp["fusion_h"]), width=int(inp["fusion_w"]),
+                  radius=FUSION_KW["radius"], max_depth=8.0,
+                  min_cosine=float(np.cos(np.deg2rad(FUSION_KW["angle"]))))
+        out = {}
+        if r == 0 and "fusion_one" in parts:  # the one-device references
+            out["one"] = timed("fuse_session one device", lambda: fe.fuse_session(
+                *sess, **kw, capacity=PAR_CAPACITY, device=dev))
+            out["one_split"] = timed("fuse_session one device, split window", lambda: (
+                fe.fuse_session(*sess, **kw, capacity=PAR_CAPACITY,
+                                window=ndev * PAR_WINDOW, window_policy="split", device=dev)))
+        out["spatial"] = timed("fuse_session_spatial_sharded", lambda: (
+            pf.fuse_session_spatial_sharded(mesh, *sess, **kw,
+                                            capacity=PAR_CAPACITY // ndev)))
+        if "split" in parts:
+            out["split"] = timed("fuse_session_spatial_sharded, split window", lambda: (
+                pf.fuse_session_spatial_sharded(mesh, *sess, **kw,
+                                                capacity=PAR_CAPACITY // ndev,
+                                                window=PAR_WINDOW, window_policy="split")))
+        out["frames"] = timed("fuse_session_sharded", lambda: pf.fuse_session_sharded(
+            mesh, *sess, **kw, capacity=PAR_CAPACITY, halo_frames=2))
+        if r == 0:
+            res["fusion"] = {k: {**fe.state_to_arrays(s), "uv2pt": u.cpu().numpy()}
+                             for k, (s, u) in out.items()}
+        del out
+    if "train" in parts:
+        images, labels = np.asarray(inp["images"]), np.asarray(inp["labels"])
+        steps = len(images) // PAR_BATCH
+        batches = [(images[i * PAR_BATCH:(i + 1) * PAR_BATCH],
+                    labels[i * PAR_BATCH:(i + 1) * PAR_BATCH]) for i in range(steps)]
+        b2 = SegFormerConfig.b2()
+        model = SegFormer(b2, torch.Generator().manual_seed(0), param_dtype=torch.float32)
+        with torch.no_grad():
+            res["train_one_loss"] = float(sharding.segmenter_loss(
+                model.to(dev), torch.from_numpy(batches[0][0]).to(dev),
+                torch.from_numpy(batches[0][1]).to(dev), boundary_weight=2.0))
+        del model
+        meshes = {"dp": (ndev, 1)} if ndev == 1 else {"dp": (ndev, 1),
+                                                         "default": sharding.mesh_shape(ndev)}
+        res["train"] = {}
+        for name, (dp, tp) in meshes.items():
+            m = sharding.make_mesh(ndev, tp=tp, device_type=dev.type)
+            rec = {"loss": [], "ms": [], "calls": [], "host_mb": []}
+            mark = {}
+
+            def on_step(it, loss, model, opt, ema):
+                rec["loss"].append(float(loss))  # waits for the step
+                sync()
+                t = time.perf_counter()
+                if mark:
+                    rec["ms"].append(1e3 * (t - mark["t"]))
+                    rec["calls"].append(comm.STATS["calls"] - mark["calls"])
+                    rec["host_mb"].append((comm.STATS["host_bytes"] - mark["host"]) / 1e6)
+                mark.update(t=t, calls=comm.STATS["calls"], host=comm.STATS["host_bytes"])
+
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            cfg = tr.TrainConfig(model=b2, input_hw=PAR_TRAIN_HW, batch_size=PAR_BATCH,
+                                 steps=steps, lr_schedule="constant", learning_rate=2e-4,
+                                 boundary_weight=2.0, ema_decay=0.9, prefetch=0, seed=0)
+            tr.train(cfg, dataset=iter(batches), verbose=False, on_step=on_step, mesh=m)
+            rec["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20 if on_card else 0
+            rec["shape"] = (dp, tp)
+            res["train"][name] = rec
+    return res
+
+
+def _rebinned_n(one):
+    """Occupied cells of the one-device cloud put through the frame-sharded
+    engine's reconciling voxel merge: what that merge alone makes of it."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.ops import sparsify
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in one.items()
+         if k != "uv2pt"}
+    live = torch.arange(len(t["points"]), device=t["n"].device) < t["n"]
+    m = sparsify.voxel_merge(t["points"], t["normals"], t["colors"], t["nmerges"],
+                             t["occurences"], live, FUSION_KW["radius"],
+                             float(np.cos(np.deg2rad(FUSION_KW["angle"]))))
+    return int((m.counts > 0).sum())
+
+
+def _fusion_bars(one, sh, gt):
+    """(n ratio, p99 nearest distance one -> sharded, p99 sharded -> one,
+    per-pixel label agreement through vote_and_classify on the masks gt)
+    of a sharded engine's result against the one-device engine's."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.ops.voting import vote_and_classify
+
+    n1, ns = int(one["n"]), int(sh["n"])
+    p1 = torch.from_numpy(one["points"][:n1]).cuda()
+    ps = torch.from_numpy(sh["points"][:ns]).cuda()
+
+    def p99(x, y):
+        d = torch.cat([torch.cdist(x[i:i + 2048], y).amin(1) for i in range(0, len(x), 2048)])
+        return float(torch.quantile(d, 0.99))
+
+    imgs = []
+    for res, n in ((one, n1), (sh, ns)):
+        uv = res["uv2pt"]
+        _, c = vote_and_classify(uv, gt, npts=n, nclasses=NCLASSES, threshold=0.5,
+                                 device="cuda")
+        c = c.cpu().numpy()
+        imgs.append(np.where(uv >= 0, c[np.clip(uv, 0, n - 1)], -1))
+    both = (imgs[0] >= 0) & (imgs[1] >= 0)
+    return ns / n1, p99(p1, ps), p99(ps, p1), float((imgs[0][both] == imgs[1][both]).mean())
+
+
+def _state_diff(a, b):
+    """(n and uv2pt equal, largest float difference over the live rows) of
+    two fusion results."""
+    import numpy as np
+
+    n = int(a["n"])
+    same = n == int(b["n"]) and np.array_equal(a["uv2pt"], b["uv2pt"]) and all(
+        np.array_equal(a[k][:n], b[k][:n]) for k in ("nmerges", "occurences"))
+    diff = max(float(np.abs(a[k][:n] - b[k][:n]).max()) if n else 0.0
+               for k in ("points", "normals", "colors"))
+    return same, diff
+
+
+def parallel_phase(card):
+    """Phase 14: the multi-device decompositions over `parallel/launch.py`
+    ranks on the card. Returns K1's launches on the parallel path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.io import synthetic
+    from fusion3dseg_tpu_torch.io.rtab import SessionData
+    from fusion3dseg_tpu_torch.io.workload import make_workload
+    from fusion3dseg_tpu_torch.models.train import synthetic_dataset
+    from fusion3dseg_tpu_torch.ops import label_fuse as lf
+    from fusion3dseg_tpu_torch.parallel import launch
+    from fusion3dseg_tpu_torch.parallel import label_fuse as pl
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="f3s_parallel_"))
+    try:
+        # ---- the inputs, made once on the host and read by every rank
+        t0 = time.perf_counter()
+        points, K, quats, trans, masks = make_workload(NPTS, NFRAMES, HW, seed=0)
+        uv2pt = np.random.default_rng(0).integers(-1, NPTS, (NFRAMES, HW[0] * HW[1]),
+                                                  dtype=np.int32)
+        cells_table, cell_lists, counts = lf.build_cell_index(points, K, quats, trans, HW,
+                                                              cell_size=128)
+        arrays = dict(points=points, K=np.asarray(K), quats=quats, trans=trans, masks=masks,
+                      uv2pt=uv2pt, npts=np.int64(NPTS), cells_table=cells_table)
+        for nd in (1, 2):
+            arrays[f"dev_lists_{nd}"], arrays[f"valid_{nd}"] = pl.plan_cell_shards(
+                cells_table, cell_lists, counts, nd)
+        nf, (sh, sw) = PAR_SESSION
+        sess = synthetic.make_session(nframes=nf, depth_hw=(sh, sw))
+        sd = SessionData.from_arrays(sess.colors, sess.depth, sess.K,
+                                     sess.quats_wxyz[:, [1, 2, 3, 0]], sess.translations,
+                                     device="cpu")
+        valid = (sd.depth > 0.1) & (sd.depth <= 8.0)
+        for k, v in (("Ks", sd.Ks), ("quats_wxyz", sd.quats_wxyz),
+                     ("translations", sd.translations), ("points_s", sd.points),
+                     ("normals_s", sd.normals), ("colors_s", sd.colors), ("valid_s", valid)):
+            arrays[k] = np.asarray(v)
+        arrays.update(fusion_h=np.int64(sh), fusion_w=np.int64(sw))
+        gt = sess.gt_mask.reshape(nf, -1)
+        data = synthetic_dataset(PAR_TRAIN_HW, PAR_BATCH, seed=0, appearance="textured")
+        batches = [next(data) for _ in range(PAR_TRAIN_STEPS)]
+        data.close()
+        arrays["images"] = np.concatenate([b[0] for b in batches])
+        arrays["labels"] = np.concatenate([b[1] for b in batches])
+        for k, v in arrays.items():
+            np.save(work / f"{k}.npy", v)
+        log(f"parallel: inputs ({NPTS} x {NFRAMES} workload, its cell index and shard plans, "
+            f"the {nf}-frame {sh}x{sw} session, {PAR_TRAIN_STEPS} textured batches of {PAR_BATCH}) "
+            f"made in {time.perf_counter() - t0:.2f} s (host), "
+            f"{sum(v.nbytes for v in arrays.values()) / 1e6:.0f} MB")
+
+        ncard = torch.cuda.device_count()
+        every = ("vote", "label", "fusion", "fusion_one", "split", "train")
+        worlds = [("one rank, NCCL", 1, "cuda", every),
+                  ("two ranks on two cards, NCCL" if ncard >= 2 else
+                   "two ranks sharing cuda:0, gloo", 2, "cuda", every),
+                  ("two ranks on the CPU, gloo", 2, "cpu", ("fusion",))]
+        runs, k1 = {}, 0
+        for name, nranks, dtype, parts in worlds:
+            t0 = time.perf_counter()
+            try:
+                res = launch.spawn(parallel_rank, nranks, (str(work), parts),
+                                   device_type=dtype, timeout=PAR_TIMEOUT, verbose=True)
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"parallel: {name}: {e}")
+            runs[name] = res
+            shared = dtype == "cuda" and res[0]["backend"] == "gloo"
+            tag = " (ranks share one card: host-staged collectives, not scaling)" if shared \
+                else ""
+            where = card if dtype == "cuda" else "[the host's CPU, one thread a rank]"
+            log(f"parallel: {name}: {nranks} rank(s) on "
+                f"{[x['device'] for x in res]}, backend {res[0]['backend']}, "
+                f"{time.perf_counter() - t0:.1f} s with start-up{tag}")
+            if "gloo_cuda" in res[0]:
+                log(f"parallel: {name}: gloo with CUDA tensors: {res[0]['gloo_cuda']}")
+                refused = [k for k, v in res[0]["gloo_cuda"].items() if v is not True]
+                if refused:
+                    fail(f"parallel: gloo refuses {refused} for CUDA tensors: stage them "
+                         "(parallel/comm.GLOO_CUDA_STAGED)")
+            for x in res:
+                bad = [k for k, v in x["ok"].items() if not v]
+                if bad:
+                    fail(f"parallel: {name}, rank {x['rank']}: {bad} differ from the one-device "
+                         "call")
+                for k in sorted(x["ms"]):
+                    log(f"parallel: {name}, rank {x['rank']} {where}: {k} {x['ms'][k]:.2f} ms, "
+                        f"{x['calls'][k]} collectives, {x['host_mb'][k]:.1f} MB through the "
+                        f"host{tag}")
+            if "label" in parts:
+                for x in res:
+                    if x["k1_launches"] != 6 or x["k1_tiled"] != [True]:
+                        fail(f"parallel: rank {x['rank']} launched K1 {x['k1_launches']} times "
+                             f"(want 6: three lifters, twice), rows aligned {x['k1_tiled']}")
+                    k1 += x["k1_launches"]
+                differ = sum(x["label_points_differ"] for x in res)
+                agree_p = 1.0 - differ / NPTS
+                agree_c = res[0]["label_cells_agree"]
+                if nranks == 1:
+                    cells_one = res[0]["label_cells"]
+                    agree_r = 1.0
+                else:
+                    agree_r = float((res[0]["label_cells"] == cells_one).float().mean())
+                log(f"parallel: {name}: label_fuse_sharded exact; label_fuse_sharded_points "
+                    f"exactly its tie rule (least depth, rank-local id, rank), agreeing "
+                    f"{agree_p:.6f} with the one-device lifter ({differ} points differ: ties "
+                    f"of equal depth across ranks); label_fuse_sharded_cells agrees "
+                    f"{agree_r:.6f} with one "
+                    f"rank's (bar {AGREEMENT_BAR}) and {agree_c:.6f} with the one-device "
+                    f"lifter (its ties go by gather slot: no bar); K1 launched "
+                    f"{sum(x['k1_launches'] for x in res)} times, all on aligned rows (the "
+                    "tiled kernel)")
+                if agree_r < AGREEMENT_BAR:
+                    fail("parallel: the cell-sharded lifter fell below its bar")
+                if nranks == 1 and differ:
+                    fail("parallel: one rank's point-sharded lifter is not exact")
+            if "train" in parts:
+                one = res[0]["train_one_loss"]
+                for mname, rec in res[0]["train"].items():
+                    rel = abs(rec["loss"][0] - one) / abs(one)
+                    first, last = np.mean(rec["loss"][:3]), np.mean(rec["loss"][-3:])
+                    peaks = [round(x["train"][mname]["peak_mib"], 1) for x in res]
+                    log(f"parallel: {name}: train B2 bf16 {PAR_TRAIN_HW[0]}x{PAR_TRAIN_HW[1]}, "
+                        f"global batch {PAR_BATCH}, mesh dp {rec['shape'][0]} x tp "
+                        f"{rec['shape'][1]} {card}: {len(rec['loss'])} steps, "
+                        f"{np.median(rec['ms']):.2f} ms a step (median after a synchronize, "
+                        f"{min(rec['ms']):.2f}-{max(rec['ms']):.2f}), "
+                        f"{int(np.median(rec['calls']))} collectives and "
+                        f"{np.median(rec['host_mb']):.1f} MB through the host a step; peak "
+                        f"memory per rank {peaks} MiB; loss {rec['loss'][0]:.4f} -> "
+                        f"{rec['loss'][-1]:.4f}; step 1 vs one device {one:.4f}: relative "
+                        f"{rel:.2e} (bar {PAR_LOSS_BAR}){tag}")
+                    if not np.isfinite(rec["loss"]).all() or rel > PAR_LOSS_BAR \
+                            or not last < first:
+                        fail(f"parallel: {name}, mesh {mname}: the loss is off or did not "
+                             f"descend: {rec['loss']}")
+            if "fusion" in parts and dtype == "cuda":
+                f = res[0]["fusion"]
+                if nranks == 1:
+                    for a, b in (("spatial", "one"), ("split", "one_split")):
+                        same, diff = _state_diff(f[a], f[b])
+                        if not same or diff:
+                            fail(f"parallel: one rank's {a} engine is not fuse_session bit for "
+                                 f"bit (max float difference {diff})")
+                    log(f"parallel: {name}: one-rank spatially sharded fusion is fuse_session "
+                        f"bit for bit (full merge n {int(f['one']['n'])}, split window n "
+                        f"{int(f['one_split']['n'])})")
+                else:
+                    rebinned = _rebinned_n(f["one"])
+                    for a, b, (lo, hi), ref in (("spatial", "one", PAR_N_SPATIAL, 1.000),
+                                                ("frames", "one", PAR_N_FRAMES, 0.994),
+                                                ("split", "one_split", (1.0, 10.0), None)):
+                        ratio, p1s, ps1, agree = _fusion_bars(f[b], f[a], gt)
+                        cov = max(p1s, ps1) if a != "frames" else p1s
+                        n_bar, note = ratio, ", bar"
+                        if a == "frames":  # its merge re-bins: held to the re-binned count
+                            n_bar = int(f[a]["n"]) / rebinned
+                            note = (f"; {n_bar:.4f} of the one-device cloud's {rebinned} "
+                                    "cells after the same voxel merge, bar")
+                        elif a == "split":  # merges missed past the window re-append
+                            n_bar = int(f[a]["n"]) / int(f["spatial"]["n"])
+                            note = (f"; {n_bar:.4f} of the sharded full merge's n, at least "
+                                    "as many, bar")
+                        log(f"parallel: {name}: {a}: n {int(f[a]['n'])} vs {int(f[b]['n'])} "
+                            f"one-device ({ratio:.4f}{note} {lo}-{hi}); p99 nearest distance "
+                            f"{p1s:.4f} / {ps1:.4f} m (bar {PAR_COVER_BAR:.4f}); label "
+                            f"agreement {agree:.4f} (bar {PAR_AGREE_BAR}"
+                            + (f"; the JAX dryrun read {ref:.3f}" if ref else "") + ")")
+                        if not (lo <= n_bar <= hi) or cov >= PAR_COVER_BAR \
+                                or agree <= PAR_AGREE_BAR:
+                            fail(f"parallel: {a} fusion misses its bars")
+
+        # the two-rank card run against the two-rank CPU run
+        card2 = runs[worlds[1][0]][0]["fusion"]
+        cpu2 = runs[worlds[2][0]][0]["fusion"]
+        for k in ("spatial", "frames"):
+            same, diff = _state_diff(card2[k], cpu2[k])
+            log(f"parallel: {k}: two ranks on the card vs two on the CPU: n, counters and "
+                f"uv2pt equal: {same}; largest float difference {diff:.3e}")
+            if not same or diff:
+                fail(f"parallel: the card's two-rank {k} engine differs from the CPU's")
+        log(f"parallel: phase took {time.perf_counter() - t_phase:.1f} s; K1 launches on the "
+            f"parallel path {k1}")
+        return k1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1876,6 +2401,11 @@ def main():
                 entry["name"], 0)
     if "post" in phases:
         post_phase(card)  # launches no kernel of the kernels line (no K3 in the CLI's B2)
+    if "parallel" in phases:
+        n = parallel_phase(card)  # K1 in every rank's sharded label lifters
+        for entry in kernels:
+            if entry["name"] == "histogram_classify":
+                entry["launches"] += n
     log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

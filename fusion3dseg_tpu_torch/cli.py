@@ -16,7 +16,10 @@ subcommand, with the JAX package's names, arguments and defaults.
   python -m fusion3dseg_tpu_torch all <export_dir> <out_dir>   (seg2d -> fuse -> seg3d)
 
 Subcommands that run tensors take `--device` (default cuda; `--device cpu`
-runs on the CPU). `train` trains on one device.
+runs on the CPU). `train` trains on one device, or, started by torchrun
+(`torchrun --nproc-per-node N -m fusion3dseg_tpu_torch train ...`), over a
+(dp, tp) mesh of all N ranks, as the JAX package trains over all its
+devices; rank 0 prints and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -357,7 +360,10 @@ def _synth(args):
 
 
 def _train(args):
+    import os
     from pathlib import Path
+
+    import torch
 
     from fusion3dseg_tpu_torch.models import SegFormerConfig
     from fusion3dseg_tpu_torch.models.train import (
@@ -380,7 +386,19 @@ def _train(args):
     ds = None
     if args.rgb_dir and args.mask_dir:
         ds = directory_dataset(args.rgb_dir, args.mask_dir, cfg.input_hw, cfg.batch_size)
-    _, loss = train(cfg, dataset=ds, device=args.device)
+    if "WORLD_SIZE" in os.environ:  # started by torchrun: train over its ranks
+        from fusion3dseg_tpu_torch.parallel import launch
+
+        rank = launch.init_from_env(torch.device(args.device).type)
+        args.device = str(rank.device)
+        try:
+            _, loss = train(cfg, dataset=ds, device=args.device)
+        finally:
+            torch.distributed.destroy_process_group()
+        if rank.rank:  # rank 0 alone reports and evaluates
+            return
+    else:
+        _, loss = train(cfg, dataset=ds, device=args.device)
     print(f"final loss: {float(loss)}")
     if args.eval_miou and args.checkpoint_dir:
         runs = [("", Path(args.checkpoint_dir))]

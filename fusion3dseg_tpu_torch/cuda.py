@@ -13,7 +13,9 @@ builds anew.
 `build(names, defines=...)` compiles a variant with preprocessor macros
 set; `tools/kernel_parts.py` uses it to time a kernel with its loads or its
 arithmetic switched off (`F3S_PARTS`), and `use_variant` to launch it
-through the ordinary wrapper.
+through the ordinary wrapper. A process with `F3S_TORCH_NO_BUILD` set (a
+rank of a multi-device run, `parallel/launch.py`) loads built libraries
+only and raises where it would compile.
 """
 
 from __future__ import annotations
@@ -104,6 +106,10 @@ def build(names, defines=()) -> dict[str, Built]:
         if target.exists():
             BUILDS[key] = Built(name, target, 0.0, "")
             continue
+        if os.environ.get("F3S_TORCH_NO_BUILD"):
+            raise RuntimeError(f"{target.name} is not built, and this process may not run "
+                               "nvcc (F3S_TORCH_NO_BUILD: a rank of a multi-device run); "
+                               "build the kernels before starting the ranks")
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

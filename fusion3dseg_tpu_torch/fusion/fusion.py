@@ -230,6 +230,37 @@ def _window(inter, slot_ids, capacity, W, window_policy):
     return span, idx_w
 
 
+def _match_sums(fpts, fnrm, fclr, merge, seg, W: int) -> torch.Tensor:
+    """[W, 10] per window slot: the count, position, colour and normal sums
+    of the pixels where `merge` holds, each slot's rows added in pixel
+    order (`seg` the pixel's window slot)."""
+    ones = torch.ones((fpts.shape[0], 1), dtype=torch.float32, device=fpts.device)
+    return segment_sum(torch.cat([ones, fpts, fclr, fnrm], dim=1), torch.where(merge, seg, W), W)
+
+
+def _merge_window(state: FusionState, idx_w, pts_w, nrm_w, acc: torch.Tensor) -> FusionState:
+    """The state with `acc`'s sums (`_match_sums`) merged into the window's
+    slots `idx_w` (None: the whole buffer; `pts_w`, `nrm_w` their points
+    and normals) as running means: position and colour (sum + old) /
+    (count + 1), the normal renormalised."""
+    def take(arr):
+        return arr if idx_w is None else arr[idx_w]
+
+    clr_w = take(state.colors)
+    cnt = acc[:, 0]
+    touched = (cnt > 0)[:, None]
+    denom = (cnt + 1.0)[:, None]
+    nsum = acc[:, 7:10] + nrm_w
+    new = (torch.where(touched, (acc[:, 1:4] + pts_w) / denom, pts_w),
+           torch.where(touched, nsum / quat.norm3_fma(nsum).clamp(min=1e-12), nrm_w),
+           torch.where(touched, (acc[:, 4:7] + clr_w) / denom, clr_w),
+           take(state.nmerges) + cnt.to(torch.int32),
+           take(state.occurences) + touched[:, 0].to(torch.int32))
+    if idx_w is not None:
+        new = tuple(dst.index_copy(0, idx_w, v) for dst, v in zip(state[:5], new))
+    return FusionState(*new, state.n)
+
+
 def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fclr, fvalid, *,
                 height, width, radius, min_cosine, max_depth, capacity, candidate_px,
                 window: Optional[int] = None, window_policy: str = "newest"):
@@ -269,29 +300,9 @@ def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fc
                                    half=half, radius=radius, min_cosine=min_cosine)
 
     # running-mean merge of this frame's matches into their slots
-    clr_w, nm_w, occ_w = take(state.colors), take(state.nmerges), take(state.occurences)
-    ones = torch.ones((fpts.shape[0], 1), dtype=torch.float32, device=dev)
-    acc = segment_sum(torch.cat([ones, fpts, fclr, fnrm], dim=1),
-                      torch.where(matched, match, W), W)
-    cnt = acc[:, 0]
-    touched = (cnt > 0)[:, None]
-    denom = (cnt + 1.0)[:, None]
-    new_pts = torch.where(touched, (acc[:, 1:4] + pts_w) / denom, pts_w)
-    new_clr = torch.where(touched, (acc[:, 4:7] + clr_w) / denom, clr_w)
-    nsum = acc[:, 7:10] + nrm_w
-    nnrm = nsum / quat.norm3_fma(nsum).clamp(min=1e-12)
-    new_nrm = torch.where(touched, nnrm, nrm_w)
-    new_nm = nm_w + cnt.to(torch.int32)
-    new_occ = occ_w + touched[:, 0].to(torch.int32)
-    if idx_w is None:
-        state = FusionState(new_pts, new_nrm, new_clr, new_nm, new_occ, state.n)
-    else:
-        def put(dst, vals):
-            return dst.index_copy(0, idx_w, vals)
-
-        state = FusionState(put(state.points, new_pts), put(state.normals, new_nrm),
-                            put(state.colors, new_clr), put(state.nmerges, new_nm),
-                            put(state.occurences, new_occ), state.n)
+    state = _merge_window(state, idx_w, pts_w, nrm_w,
+                          _match_sums(fpts, fnrm, fclr, matched, match, W))
+    if idx_w is not None:
         match = torch.where(matched, idx_w.to(torch.int32)[match.clamp(min=0).long()], -1)
 
     # leftover pixels: voxel-sparsify at the merge radius and append

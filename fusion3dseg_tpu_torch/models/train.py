@@ -1,4 +1,4 @@
-"""Training loop for the 2D segmenter on one GPU.
+"""Training loop for the 2D segmenter, on one GPU or over a (dp, tp) mesh.
 
 Counterpart of `fusion3dseg_tpu/models/train.py`. Trains SegFormer on
 (image, mask) batches: synthetic rooms (`synthetic_dataset`, or
@@ -6,7 +6,8 @@ Counterpart of `fusion3dseg_tpu/models/train.py`. Trains SegFormer on
 masks/ (`directory_dataset`), with the train step of `parallel/sharding.py`,
 AdamW under optax's warmup-cosine schedule, optional boundary weighting and
 an exponential moving average, held-out evaluation (`evaluate_synthetic`,
-`mean_iou`) and resumable checkpoints.
+`mean_iou`) and resumable checkpoints. With a process group it trains over
+all its ranks, as the JAX package trains over all its devices.
 
 Parameters train in float32 and the model computes in `config.model.dtype`
 (`SegFormer(param_dtype=torch.float32)`), as Flax keeps float32 parameters.
@@ -401,9 +402,18 @@ def load_ema(checkpoint_dir):
 # ---------------------------------------------------------------- train --
 
 def train(config: TrainConfig = TrainConfig(), dataset: Optional[Iterator] = None,
-          device="cuda", verbose: bool = True, on_step: Optional[Callable] = None):
-    """Run the training loop on one device; returns (params, final loss):
-    the float32 state dict on the device and the last step's loss.
+          device="cuda", verbose: bool = True, on_step: Optional[Callable] = None, mesh=None):
+    """Run the training loop; returns (params, final loss): the whole
+    float32 state dict on the device and the last step's loss.
+
+    With a process group (`parallel/launch.py`, torchrun) the loop trains
+    over a (dp, tp) mesh of all its ranks (`sharding.make_mesh`, or `mesh`),
+    as the reference always does: every rank draws the global batch from
+    the same seed and keeps its dp rows, the MixFFNs split over tp
+    (`sharding.init_sharded_train`), and the loss is the global batch's.
+    Only rank 0 writes checkpoints (whole float32 tensors, the same files
+    as one device writes); every rank reads them to resume. Without a
+    group it trains on `device`.
 
     `on_step(step, loss, model, optimizer, ema)`, when given, runs after
     every step (and its checkpoint): `step` counts steps done, `loss` is
@@ -414,12 +424,15 @@ def train(config: TrainConfig = TrainConfig(), dataset: Optional[Iterator] = Non
             "TrainConfig.model.use_pallas_attention=True: the fused spatial-reduction "
             "attention kernel has no backward (in neither package); train with "
             "use_pallas_attention=False and switch it on for inference")
-    dev = cuda.resolve_device(device)
+    if mesh is None and torch.distributed.is_initialized():
+        mesh = sharding.make_mesh(device_type=cuda.resolve_device(device).type)
+    dev = sharding.mesh_device(mesh) if mesh is not None else cuda.resolve_device(device)
+    writer = mesh is None or torch.distributed.get_rank() == 0
+    verbose = verbose and writer
     gen = torch.Generator(device="cpu").manual_seed(config.seed)
     model = SegFormer(config.model, gen, param_dtype=torch.float32).to(dev).train()
-    params = list(model.parameters())
-    optimizer, scheduler = make_optimizer(config, params)
-    start, ema_flat = 0, None
+    names = [n for n, _ in model.named_parameters()]
+    start, ema_state, opt_state = 0, None, None
 
     def load_params(flat):
         model.load_state_dict(convert.from_flax_params(flat, config.model, torch.float32))
@@ -428,23 +441,40 @@ def train(config: TrainConfig = TrainConfig(), dataset: Optional[Iterator] = Non
     if config.resume and ckpt is not None and (ckpt / "step.txt").exists():
         flat, opt_state, start = load_train_state(ckpt)
         load_params(flat)
-        optimizer.load_state_dict(opt_state["optimizer"])
-        scheduler.load_state_dict(opt_state["scheduler"])
         if config.ema_decay > 0:
             ema_tree = load_ema(ckpt)
             if ema_tree is not None:
-                state = convert.from_flax_params(ema_tree, config.model, torch.float32)
-                names = [n for n, _ in model.named_parameters()]
-                ema_flat = torch.cat([state[n].reshape(-1) for n in names]).to(dev)
+                ema_state = convert.from_flax_params(ema_tree, config.model, torch.float32)
         if verbose:
             print(f"resumed from step {start}")
     elif config.init_params_npz:
         load_params(convert.load_params_npz(config.init_params_npz))
         if verbose:
             print(f"initialized params from {config.init_params_npz}")
-    ema = sharding.FlatEMA(params, config.ema_decay, ema_flat) if config.ema_decay > 0 else None
-    step = sharding.make_train_step(model, optimizer, scheduler,
-                                    boundary_weight=config.boundary_weight, ema=ema)
+
+    def local(named):  # this rank's tp shards of whole tensors
+        return named if mesh is None else sharding.local_state(named, mesh)
+
+    def whole(named):  # whole tensors from this rank's shards
+        return named if mesh is None else sharding.full_state(named, mesh)
+
+    if mesh is None:
+        params = list(model.parameters())
+        optimizer, scheduler = make_optimizer(config, params)
+        ema = sharding.FlatEMA(params, config.ema_decay) if config.ema_decay > 0 else None
+        step = sharding.make_train_step(model, optimizer, scheduler,
+                                        boundary_weight=config.boundary_weight, ema=ema)
+    else:
+        model, optimizer, scheduler, ema, step = sharding.init_sharded_train(
+            model, mesh, optimizer=lambda ps: make_optimizer(config, ps),
+            boundary_weight=config.boundary_weight, ema_decay=config.ema_decay)
+    if opt_state is not None:
+        optimizer.load_state_dict(_opt_state_of(opt_state["optimizer"], names, local))
+        scheduler.load_state_dict(opt_state["scheduler"])
+    if ema is not None and ema_state is not None:
+        ema_state = local(ema_state)
+        ema.flat = torch.cat([ema_state[n].reshape(-1) for n in names]).to(dev)
+    rows = slice(None) if mesh is None else sharding.dp_rows(mesh, config.batch_size)
 
     if dataset is None and config.device_datagen:
         from fusion3dseg_tpu_torch.io.synthetic_device import device_dataset
@@ -474,26 +504,28 @@ def train(config: TrainConfig = TrainConfig(), dataset: Optional[Iterator] = Non
             batches = prefetch_batches(batches, depth=config.prefetch)
 
     def state():
-        return {k: v.detach() for k, v in model.state_dict().items()}
+        return whole({k: v.detach() for k, v in model.state_dict().items()})
 
-    def ema_state():
-        if ema is None:
-            return None
-        names = [n for n, _ in model.named_parameters()]
-        return dict(zip(names, ema.views()))
+    def ema_views():
+        return None if ema is None else whole(dict(zip(names, ema.views())))
 
     def save(it):
-        save_train_state(ckpt, state(), {"optimizer": optimizer.state_dict(),
-                                         "scheduler": scheduler.state_dict()},
-                         it, ema=ema_state(), input_hw=config.input_hw, config=config.model)
+        st, ev = state(), ema_views()
+        opt = {"optimizer": _opt_state_of(optimizer.state_dict(), names, whole),
+               "scheduler": scheduler.state_dict()}
+        if writer:
+            save_train_state(ckpt, st, opt, it, ema=ev, input_hw=config.input_hw,
+                             config=config.model)
+        if mesh is not None:
+            torch.distributed.barrier()  # the commit is whole before any rank reads it
 
     loss, last_saved = None, -1
     t0 = time.perf_counter()
     try:
         for it in range(start, config.steps):
             images, masks = next(batches)
-            images = torch.as_tensor(images).to(dev, non_blocking=True)
-            masks = torch.as_tensor(masks).to(dev, non_blocking=True)
+            images = torch.as_tensor(images)[rows].to(dev, non_blocking=True)
+            masks = torch.as_tensor(masks)[rows].to(dev, non_blocking=True)
             loss = step(images, masks)
             if verbose and (it + 1) % config.log_every == 0:
                 rate = (it + 1 - start) / (time.perf_counter() - t0)
@@ -508,3 +540,16 @@ def train(config: TrainConfig = TrainConfig(), dataset: Optional[Iterator] = Non
     if ckpt is not None and last_saved != config.steps:
         save(config.steps)
     return state(), (float(loss) if loss is not None else None)
+
+
+def _opt_state_of(opt_state: dict, names: list, convert_fn) -> dict:
+    """An optimizer state dict with each parameter's moment tensors passed
+    through `convert_fn` ({name: tensor} -> {name: tensor}): whole tensors
+    from tp shards to write a checkpoint, or shards of whole tensors to
+    resume one. On one device `convert_fn` is the identity."""
+    state = {}
+    for idx, st in opt_state["state"].items():
+        name = names[int(idx)]
+        state[idx] = {k: convert_fn({name: v})[name] if torch.is_tensor(v) and v.dim() else v
+                      for k, v in st.items()}
+    return {**opt_state, "state": state}

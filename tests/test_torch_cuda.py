@@ -625,3 +625,40 @@ def test_propagation_and_fills_card_equal_cpu(cuda_device):
         a = ref.gated_floodfill(adj, seeds, v, thr, device="cpu")
         b = ref.gated_floodfill(adj, seeds, v, thr)
         assert b.is_cuda and torch.equal(b.cpu(), a)
+
+
+# ------------------------------------------------------ the decompositions
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_equals_one_device(cuda_device):
+    """A one-rank NCCL group on cuda:0 (real NCCL collectives) through
+    voting, the frame-sharded label lifter (K1 on the card) and the
+    spatially sharded fusion, each equal to its one-device call."""
+    from fusion3dseg_tpu_torch import cuda
+    from fusion3dseg_tpu_torch.parallel import launch
+
+    import torch_parallel_ranks
+
+    cuda.build(["histogram"])  # ranks load what the caller built
+    rng = np.random.default_rng(0)
+    F, npts, nc = 16, 200, 9
+    vote = dict(uv2pt=rng.integers(-1, npts, (F, 64)).astype(np.int32),
+                masks=rng.integers(0, nc, (F, 64)).astype(np.uint8), npts=npts, nc=nc)
+    label = dict(pts=(rng.normal(size=(800, 3)) + [0, 0, 3.0]).astype(np.float32),
+                 K=np.array([[20.0, 0, 12], [0, 20.0, 16], [0, 0, 1]], np.float32),
+                 quats=np.tile([1.0, 0, 0, 0], (F, 1)).astype(np.float32),
+                 trans=(rng.normal(size=(F, 3)) * 0.1).astype(np.float32),
+                 masks=rng.integers(0, 10, (F, 32 * 24)).astype(np.uint8), hw=(32, 24))
+    _, sd = _fusion_session("cpu")
+    valid = (sd.depth > 0.1) & (sd.depth <= 8.0)
+    args = tuple(np.asarray(x) for x in (sd.Ks, sd.quats_wxyz, sd.translations, sd.points,
+                                         sd.normals, sd.colors, valid))
+    kw = dict(height=48, width=36, radius=0.1, min_cosine=float(np.cos(np.deg2rad(25.0))),
+              max_depth=8.0, capacity=1 << 14)
+    (got,) = launch.spawn(torch_parallel_ranks.one_rank_equals_one_device, 1,
+                          (dict(vote=vote, label=label, fusion=dict(args=args, kw=kw)),),
+                          device_type="cuda", timeout=300.0)
+    assert got["backend"] == "nccl" and got["device"] == "cuda:0", got
+    assert got["k1_launches"] == 1, got
+    assert got["votes"] and got["points"] and got["label"] and got["fusion"], got
