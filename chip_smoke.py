@@ -21,9 +21,13 @@ Phases (each prints its own lines; any failure exits non-zero):
 6. attention  the two attention kernels (spatial-reduction and
             neighbourhood) against their plain versions at the segmenter's
             shapes, a ragged float32 case each and the neighbourhood
-            kernel's backward; timed (in CUDA graphs, between CUDA events)
+            kernel's backward; the spatial-reduction kernel's bfloat16 cases
+            (the wgmma kernel's edges among them) through both its kernels,
+            wgmma and mma.sync; timed (in CUDA graphs, between CUDA events)
             beside the plain version, a bound and
             `scaled_dot_product_attention` (timed here, used nowhere else).
+            Every counted K3 launch of phases 7-12 must take the wgmma
+            kernel; their counts by kernel print before the kernels line.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
             the fused spatial-reduction kernel (launches counted, pixel
@@ -196,6 +200,23 @@ def log(*a):
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+K3_ROUTES = {"wgmma": 0, "mma": 0, "f32": 0}  # K3's main-path launches by kernel
+
+
+def k3_counted(where):
+    """K3's launches since `reset_sr_counts()`, which must all have taken the
+    wgmma kernel; added to K3_ROUTES."""
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    routes = attn.sr_attention.routes
+    if routes["wgmma"] != attn.sr_attention.launches:
+        fail(f"{where}: K3 launched {attn.sr_attention.launches} times, by kernel {routes}: "
+             "not all on wgmma")
+    for route, n in routes.items():
+        K3_ROUTES[route] += n
+    return attn.sr_attention.launches
 
 
 def event_ms(fn, iters, warmup=2):
@@ -483,39 +504,60 @@ def attention_phase(card):
             fail(f"{name} {what}: max abs err {err} against its plain version (bar {bar})")
         return err
 
-    def timed(entry, name, shape, dtype, kernel, plain, library, nbytes, ops):
+    def timed(entry, name, shape, dtype, kernel, plain, library, nbytes, ops, others=None):
         # these kernels are shorter than a launch from Python: time them in
         # CUDA graphs (with events around single calls the host's launch
-        # rate, about 0.05 ms a call, is what shows)
+        # rate, about 0.05 ms a call, is what shows). `others`: further
+        # kernels for the same function, {label: fn}, timed beside it
         k_ms = graph_ms(kernel, iters=50)
+        o_ms = {label: graph_ms(fn, iters=50) for label, fn in (others or {}).items()}
         p_ms = graph_ms(plain, iters=5)
         l_ms = graph_ms(library, iters=50)
         b_ms, by = _bound(nbytes, ops, dtype)
-        log(f"attention: {name} {shape} {dtype} {card}: kernel {k_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), "
+        log(f"attention: {name} {shape} {dtype} {card}: kernel {k_ms:.4f} ms, "
+            + "".join(f"{label} {ms:.4f} ms, " for label, ms in o_ms.items())
+            + f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), "
             f"{100 * b_ms / k_ms:.1f}% of bound; plain version {p_ms:.4f} ms; "
             f"scaled_dot_product_attention {l_ms:.4f} ms")
         row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-               "bound_by": by, "library_ms": l_ms}
+               "bound_by": by, "library_ms": l_ms,
+               **{f"{label.split()[0]}_ms": ms for label, ms in o_ms.items()}}
         if "ms" not in entry:  # the first timed shape is the entry's own
             entry.update(row)
         else:
             entry.setdefault("other_shapes", []).append(row)
 
-    # ---- K3, spatial-reduction attention
+    # ---- K3, spatial-reduction attention: each bfloat16 case through
+    # `sr_attention` (the wgmma kernel on every layout here) and through the
+    # mma.sync kernel named explicitly, both against the plain version
     sra = {"name": "sr_attention", "route": "cuda",
            "source": "fusion3dseg_tpu_torch/csrc/sr_attention.cu",
            "replaces": "fusion3dseg_tpu/ops/attention.py:30", "launches": 0,
            "max_abs_err": 0.0}
     for B, N, H, D, M, dtype, time_it in (
             (8, 4096, 1, 64, 64, "bf16", True), (8, 1024, 2, 64, 64, "bf16", True),
-            (2, 16384, 1, 64, 256, "bf16", True), (1, 1000, 3, 32, 37, "f32", False)):
+            (2, 16384, 1, 64, 256, "bf16", True), (1, 1000, 3, 32, 37, "f32", False),
+            # the wgmma kernel's edges: one key; keys masked in the 64-, 128- and
+            # 256-key kernels; ragged rows; runs that cross (batch, head); q rounded
+            # in shared memory (D = 32); two column blocks (D = 128)
+            (2, 700, 2, 64, 1, "bf16", False), (1, 1000, 3, 64, 37, "bf16", False),
+            (3, 1000, 5, 32, 100, "bf16", False), (2, 640, 1, 64, 200, "bf16", False),
+            (1, 2048, 2, 128, 256, "bf16", False)):
         q, k, v = qkv((B, N, H, D), (B, M, H, D), dtype)
         shape = f"[{B},{N},{H},{D}]x[{B},{M},{H},{D}]"
-        err = held("sr_attention", attn.sr_attention(q, k, v),
-                   attn.sr_attention_reference(q, k, v), dtype, shape)
+        route = attn._sr_route(q, k, v)
+        if route != ("wgmma" if dtype == "bf16" else "f32"):
+            fail(f"sr_attention {shape} {dtype}: routed to {route}")
+        want = attn.sr_attention_reference(q, k, v)
+        err = held("sr_attention", attn.sr_attention(q, k, v), want, dtype, shape)
+        line = f"attention: sr_attention {shape} {dtype}: {route} max abs err {err:.3e}"
+        if dtype == "bf16":
+            err_mma = held("sr_attention (mma)", attn.launch_sr_attention(q, k, v, "mma"),
+                           want, dtype, shape)
+            err = max(err, err_mma)
+            line += f", mma max abs err {err_mma:.3e}"
         sra["max_abs_err"] = max(sra["max_abs_err"], err)
-        log(f"attention: sr_attention {shape} {dtype}: max abs err {err:.3e} vs plain version")
+        log(line + " vs plain version")
         if time_it:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             timed(sra, "sr_attention", shape, dtype,
@@ -523,7 +565,8 @@ def attention_phase(card):
                   lambda: attn.sr_attention_reference(q, k, v),
                   lambda: F.scaled_dot_product_attention(qt, kt, vt),
                   nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                  ops=4 * B * H * N * M * D)
+                  ops=4 * B * H * N * M * D,
+                  others={"mma kernel": lambda: attn.launch_sr_attention(q, k, v, "mma")})
 
     # ---- K2, neighbourhood attention
     nat = {"name": "neighborhood_attention", "route": "cuda",
@@ -646,10 +689,14 @@ def segmenter_phase(card):
 
     def compare(name, seg, plain, per_forward, counter, bar):
         """Masks and logits of the kernel path against the plain versions."""
-        counter.launches = 0
+        k3 = counter is attn.sr_attention
+        if k3:
+            attn.reset_sr_counts()
+        else:
+            counter.launches = 0
         got = masks_of(seg)
         torch.cuda.synchronize()
-        launches = counter.launches
+        launches = k3_counted(name) if k3 else counter.launches
         forwards = nframes // batch
         if launches != per_forward * forwards:
             fail(f"{name}: {counter.__name__} launched {launches} times in {forwards} "
@@ -762,12 +809,12 @@ def stream_phase(card, session, seg):
     for f in range(nf):
         uv2pt[f, rng.choice(npix, size=npts, replace=False)] = rng.permutation(npts)
 
-    attn.sr_attention.launches = 0
+    attn.reset_sr_counts()
     t0 = time.perf_counter()
     votes, classes = stream_segment(sd, seg, uv2pt, npts=npts, nclasses=133,
                                     batch_size=seg.batch_size)
     dt = time.perf_counter() - t0
-    launches = attn.sr_attention.launches
+    launches = k3_counted("stream")
     if launches != 7 * -(-nf // seg.batch_size):
         fail(f"stream_segment launched the spatial-reduction kernel {launches} times")
     if votes.shape != (npts, 134) or votes.dtype != np.int32 or classes.shape != (npts,) \
@@ -952,12 +999,12 @@ def fusion_phase(card, seg_session=None, seg=None):
     kw = FUSION_KW
     segment_session_fast(tsd, segmenter=seg, device="cuda", **kw)  # warm-up
     torch.cuda.synchronize()
-    attn.sr_attention.launches = 0  # count the main path's launches only
+    attn.reset_sr_counts()  # count the main path's launches only
     t0 = time.perf_counter()
     res = segment_session_fast(tsd, segmenter=seg, device="cuda", **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = attn.sr_attention.launches
+    launches = k3_counted("fusion: segmenter branch")
     nf = tsd.nframes
     forwards = -(-nf // 8)  # stream_segment's batch of 8
     pm = np.concatenate([seg.predict_batch(seg_session.colors[i:i + seg.batch_size])
@@ -1041,11 +1088,11 @@ def files_phase(card, seg=None, vga=None):
             seg, _, _ = shipped_b2(8)
         seg.predict_batch(sess.colors[:8])  # warm-up: the model's first forward
         torch.cuda.synchronize()
-        attn.sr_attention.launches = 0  # count the main path's launches only
+        attn.reset_sr_counts()  # count the main path's launches only
         t0 = time.perf_counter()
         get2dseg.SegmentImage(src / "rgb", work / "masks2d", segmenter=seg, batch_size=8)
         t_seg = time.perf_counter() - t0
-        launches = attn.sr_attention.launches
+        launches = k3_counted("files: SegmentImage")
         forwards = -(-nframes // 8)
         frames = np.stack([image.read(src / "rgb" / f"{i}.jpg") for i in range(nframes)])
         want = np.concatenate([seg.predict_batch(frames[i:i + 8]) for i in range(0, nframes, 8)])
@@ -1278,10 +1325,10 @@ def hf_phase(card, seg=None, device="cuda", nframes=16):
         if got_cfg != want_cfg or convert.checkpoint_config(npz) != want_cfg:
             fail(f"hf: inferred config {got_cfg} is not {want_cfg}")
         seg_k, seg_p = segmenters(npz, got_cfg)
-        attn.sr_attention.launches = 0
+        attn.reset_sr_counts()
         mk, lk = masks_and_logits(seg_k)
         sync()
-        launches += attn.sr_attention.launches
+        launches += k3_counted("hf")
         mp, lp = masks_and_logits(seg_p)
         diff = float((lk - lp).abs().max())
         log(f"hf: random B2 + HF head through Segmenter2D {card}: masks {mk.shape} {mk.dtype}, "
@@ -1304,10 +1351,10 @@ def hf_phase(card, seg=None, device="cuda", nframes=16):
         if got_cfg != b2:
             fail(f"hf: inferred config {got_cfg} is not SegFormer-B2's")
         seg_k, seg_p = segmenters(npz, got_cfg)
-        attn.sr_attention.launches = 0
+        attn.reset_sr_counts()
         mk, _ = masks_and_logits(seg_k)
         sync()
-        launches += attn.sr_attention.launches
+        launches += k3_counted("hf")
         mp, _ = masks_and_logits(seg_p)
         agree = float((mk == mp).mean())
         ref = seg if seg is not None else Segmenter2D(
@@ -1523,10 +1570,10 @@ def train_phase(card, seg=None, device="cuda", model=None, hw=(256, 256), batch=
         eseg = Segmenter2D(ecfg, work / "run" / "ema", batch_size=batch, device=dev)
         if eseg.input_hw != tuple(hw):
             fail(f"train: the EMA snapshot's input size read {eseg.input_hw}")
-        attn.sr_attention.launches = 0
+        attn.reset_sr_counts()
         ev = tr.evaluate_synthetic(eseg, nsessions=2, nframes=16)
         sync()
-        k3 += attn.sr_attention.launches
+        k3 += k3_counted("train: evaluate_synthetic")
         log(f"train: EMA snapshot ({steps} steps from random init) through Segmenter2D with "
             f"K3: held-out mIoU {ev['miou']:.4f}, pixel accuracy {ev['pixel_acc']:.4f}; K3 "
             f"launches {attn.sr_attention.launches}")
@@ -1536,12 +1583,12 @@ def train_phase(card, seg=None, device="cuda", model=None, hw=(256, 256), batch=
         # ---- 12g. the calibration sweep with the shipped B2 and K3
         if on_card:
             sseg = seg if seg is not None else shipped_b2(8)[0]
-            attn.sr_attention.launches = 0
+            attn.reset_sr_counts()
             t0 = time.perf_counter()
             rows = calibrate.sweep_conf_threshold(sseg)
             sync()
             dt = time.perf_counter() - t0
-            k3 += attn.sr_attention.launches
+            k3 += k3_counted("train: sweep_conf_threshold")
             pick = calibrate.pick_threshold(rows)
             want = 7 * 3 * 3  # 3 sessions x 3 batches of 8 frames x 7 a forward
             log(f"train: sweep_conf_threshold (shipped B2, 3 sessions x 24 frames at 128x96) "
@@ -2407,6 +2454,7 @@ def main():
             if entry["name"] == "histogram_classify":
                 entry["launches"] += n
     log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
+    log(f"K3 launches by kernel in the counted main-path runs: {json.dumps(K3_ROUTES)}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,10 +10,11 @@ Counterpart of `fusion3dseg_tpu/ops/attention.py`.
 Each wrapper launches its hand-written CUDA kernel (`csrc/sr_attention.cu`,
 `csrc/neighborhood_attention.cu`) on CUDA tensors and runs its plain PyTorch
 version (`*_reference`) on CPU tensors. Nothing else selects between them: a
-CUDA tensor either launches the kernel or raises. Both take q pre-scaling on
+CUDA tensor either launches a kernel or raises. Both take q pre-scaling on
 themselves (callers must not scale) and read `[B, tokens, H, D]` tensors
 through their strides. In bfloat16 both run their products on the tensor
-cores (`mma.sync`), in float32 on the CUDA cores.
+cores, in float32 on the CUDA cores. K3 has two bfloat16 kernels, and
+`_sr_route` alone decides which one a call takes.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ _ERRORS = {
     -1: f"head dim exceeds {MAX_HEAD_DIM}",
     -2: "the keys and values one block needs exceed an SM's shared memory",
     -3: "unsupported dtype",
+    -4: "TMA cannot describe the tensors",
+    -5: "libcuda has no cuTensorMapEncodeTiled",
 }
 
 
@@ -60,8 +63,9 @@ def _scaled(q):
     return q * _scale(q)
 
 
-def _launch(fn_name, lib_name, tensors, out, ints):
-    """One launch of a `csrc` attention kernel on the current stream."""
+def _launch(fn_name, lib_name, tensors, out, ints, kernel=None):
+    """One launch of a `csrc` attention kernel on the current stream;
+    `kernel` (default: the dtype's code) selects among a source's kernels."""
     q = tensors[0]
     B, _, H, D = q.shape
     if D > MAX_HEAD_DIM:
@@ -79,7 +83,8 @@ def _launch(fn_name, lib_name, tensors, out, ints):
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), _DTYPES[q.dtype],
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(),
+                 _DTYPES[q.dtype] if kernel is None else kernel,
                  *ints, (ctypes.c_int64 * 12)(*strides), _scale(q), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: " + _ERRORS.get(err, f"launch failed, cudaError {err}"))
@@ -99,34 +104,81 @@ def sr_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
 
 
+# K3's kernels, by the code `f3s_sr_attention` takes
+SR_ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
+# the wgmma kernel keeps a 64-row tile's scores in registers: M / 2 floats
+# a thread, 128 at M = 256 (wgmma's widest N)
+WGMMA_MAX_KEYS = 256
+
+
+def _tma_layout(t) -> bool:
+    """TMA can describe t [B, tokens, H, D] in bfloat16: a 16-byte aligned
+    base and positive strides of whole 16-byte pieces on every axis longer
+    than 1 (the last axis is contiguous)."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def _sr_route(q, k, v) -> str:
+    """The kernel a CUDA call of `sr_attention` launches: "f32" for float32;
+    for bfloat16 "wgmma" (TMA-fed, one pass) when M <= WGMMA_MAX_KEYS, D is
+    a multiple of 8 and TMA can describe q, k and v, else "mma"
+    (`mma.sync`, any strides, M up to what shared memory holds)."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    if (k.shape[1] <= WGMMA_MAX_KEYS and q.shape[-1] % 8 == 0
+            and all(_tma_layout(t) for t in (q, k, v))):
+        return "wgmma"
+    return "mma"
+
+
+def launch_sr_attention(q, k, v, route: str) -> torch.Tensor:
+    """One launch of K3's kernel `route` on CUDA tensors, counted in
+    `sr_attention.launches` and `sr_attention.routes`. `sr_attention` calls
+    it with `_sr_route`'s choice; measurement tools name a route to time a
+    kernel on a layout the other one would take."""
+    if (route == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"sr_attention: route {route!r} does not take {q.dtype}")
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    _launch("f3s_sr_attention", "sr_attention", (q, k, v), out, (B, N, k.shape[1], H, D),
+            kernel=SR_ROUTES[route])
+    sr_attention.launches += 1
+    sr_attention.routes[route] += 1
+    return out
+
+
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Fused spatial-reduction attention: q [B, N, H, D] against k, v
     [B, M, H, D]; returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D)
     happens here. Any N; D <= 128; K and V of one (batch, head) must fit an
     SM's shared memory (M = 512 at D = 64 in bfloat16 does), else it raises.
-    bfloat16 runs on the tensor cores, float32 on the CUDA cores.
+    bfloat16 runs on the tensor cores (`_sr_route` picks the kernel),
+    float32 on the CUDA cores.
 
     Forward only, like the JAX package's kernel: raises when an input
-    requires grad while grad is enabled. A CUDA tensor launches the kernel
-    (and adds one to `sr_attention.launches`); a CPU tensor runs
-    `sr_attention_reference`.
+    requires grad while grad is enabled. A CUDA tensor launches a kernel
+    (and adds one to `sr_attention.launches` and to its route's count in
+    `sr_attention.routes`); a CPU tensor runs `sr_attention_reference`.
     """
     _check(q, k, v, "sr_attention")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("sr_attention is forward only; run it under torch.no_grad() "
                            "or train with use_pallas_attention=False")
     if q.device.type == "cuda":
-        B, N, H, D = q.shape
-        out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-        _launch("f3s_sr_attention", "sr_attention", (q, k, v), out, (B, N, k.shape[1], H, D))
-        sr_attention.launches += 1
-        return out
+        return launch_sr_attention(q, k, v, _sr_route(q, k, v))
     if q.device.type == "cpu":
         return sr_attention_reference(q, k, v)
     raise ValueError(f"unsupported device {q.device}")
 
 
-sr_attention.launches = 0
+def reset_sr_counts():
+    """Set K3's launch counts (all routes) to 0."""
+    sr_attention.launches = 0
+    sr_attention.routes = dict.fromkeys(SR_ROUTES, 0)
+
+
+reset_sr_counts()
 
 
 # ---------------------------------------------------------------- K2

@@ -1,13 +1,15 @@
-"""What bounds kernels K1 and K2 on the card: each timed whole, with its
-loads left out and with its arithmetic left out.
+"""What bounds kernels K1, K2 and K3 on the card: each timed whole, with
+its loads left out and with its arithmetic left out.
 
     python -m fusion3dseg_tpu_torch.tools.kernel_parts
 
-Builds `csrc/histogram.cu` and `csrc/neighborhood_attention.cu` three times
-(`F3S_PARTS` unset, 1 and 2) and times every variant at the shapes of the
-kernel table: K1 at [300, 1M] uint8, 133 classes, the label lifter's row
-pitch, 85% and 10% of entries invalid; K2 at [8, 64*64, 1, 64] and
-[2, 128*128, 1, 64], window 7, bfloat16. Each variant runs 20 times inside
+Builds `csrc/histogram.cu`, `csrc/neighborhood_attention.cu` and
+`csrc/sr_attention.cu` three times (`F3S_PARTS` unset, 1 and 2) and times
+every variant at the shapes of the kernel table: K1 at [300, 1M] uint8, 133
+classes, the label lifter's row pitch, 85% and 10% of entries invalid; K2
+at [8, 64*64, 1, 64] and [2, 128*128, 1, 64], window 7, bfloat16; K3's two
+bfloat16 kernels (wgmma and mma.sync, each named through
+`launch_sr_attention`) at its three shapes. Each variant runs 20 times inside
 one CUDA graph, replayed 5 times between two CUDA events. The variants with
 a part left out compute wrong results by design; only their times count.
 Needs a CUDA device.
@@ -21,7 +23,7 @@ from fusion3dseg_tpu_torch import cuda
 from fusion3dseg_tpu_torch.ops import attention as attn
 from fusion3dseg_tpu_torch.ops import histogram as hist
 from fusion3dseg_tpu_torch.tools.profiling import card_line
-from fusion3dseg_tpu_torch.tools.time_kernels import graph_ms
+from fusion3dseg_tpu_torch.tools.time_kernels import K3_SHAPES, graph_ms
 
 VARIANTS = (("whole", ()), ("loads left out", ("F3S_PARTS=1",)),
             ("arithmetic left out", ("F3S_PARTS=2",)))
@@ -51,6 +53,13 @@ def main():
         cases.append((f"K2 neighborhood_attention [{B},{h}*{w},1,64] window 7 bf16",
                       "neighborhood_attention",
                       lambda q=q, k=k, v=v, h=h, w=w: attn.neighborhood_attention(q, k, v, h, w, 7)))
+    for B, N, H, M in K3_SHAPES:
+        q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
+                   for s in ((B, N, H, 64), (B, M, H, 64), (B, M, H, 64)))
+        for route in ("wgmma", "mma"):
+            cases.append((f"K3 sr_attention ({route}) [{B},{N},{H},64]x[{B},{M},{H},64] bf16",
+                          "sr_attention",
+                          lambda q=q, k=k, v=v, r=route: attn.launch_sr_attention(q, k, v, r)))
     for title, lib, fn in cases:
         times = []
         for _, defines in VARIANTS:

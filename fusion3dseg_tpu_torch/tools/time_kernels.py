@@ -1,4 +1,4 @@
-"""Times of kernels K1 and K2 at the kernel table's shapes, for any
+"""Times of kernels K1, K2 and K3 at the kernel table's shapes, for any
 checkout of the port, so that two commits can be timed in one process run
 after the other on one card.
 
@@ -6,11 +6,14 @@ after the other on one card.
 
 `--root` names the checkout whose `fusion3dseg_tpu_torch` is imported
 (default: the one this file lies in); it uses only what every version of
-the port has (`histogram_classify`, `neighborhood_attention`). K1: [300, 1M]
+the port has (`histogram_classify`, `neighborhood_attention`,
+`sr_attention`). K1: [300, 1M]
 uint8, rows 1,000,064 bytes apart (16-byte aligned) and 1,000,001 bytes
 apart; 133 classes with 85% and 10% of entries invalid, then 254 and 20
 classes (the counters decide how many blocks an SM holds). K2:
-[8, 64*64, 1, 64] window 7 in bfloat16 and float32. Each kernel runs 20 times inside one CUDA
+[8, 64*64, 1, 64] window 7 in bfloat16 and float32. K3 in bfloat16:
+[8,4096,1,64]x[8,64,1,64], [8,1024,2,64]x[8,64,2,64] and
+[2,16384,1,64]x[2,256,1,64]. Each kernel runs 20 times inside one CUDA
 graph, replayed 5 times between two CUDA events. Needs a CUDA device.
 """
 
@@ -22,6 +25,10 @@ import sys
 from pathlib import Path
 
 import torch
+
+# K3's timed shapes (B, N, H, M) at D = 64: B2 stages 0 and 1 at 256x256,
+# stage 0 at 512x512
+K3_SHAPES = ((8, 4096, 1, 64), (8, 1024, 2, 64), (2, 16384, 1, 256))
 
 
 def graph_ms(fn, iters=20, replays=5):
@@ -77,6 +84,11 @@ def main(argv=None):
                    for _ in range(3))
         ms = graph_ms(lambda: attn.neighborhood_attention(q, k, v, 64, 64, 7))
         print(f"K2 neighborhood_attention [8,64*64,1,64] window 7 {dtype}: {ms:.4f} ms")
+    for B, N, H, M in K3_SHAPES:
+        q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
+                   for s in ((B, N, H, 64), (B, M, H, 64), (B, M, H, 64)))
+        ms = graph_ms(lambda: attn.sr_attention(q, k, v))
+        print(f"K3 sr_attention [{B},{N},{H},64]x[{B},{M},{H},64] bf16: {ms:.4f} ms")
 
 
 if __name__ == "__main__":

@@ -145,26 +145,57 @@ def _qkv(shape_q, shape_kv, dtype, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,H,D,M,dtype", [
-    (8, 4096, 1, 64, 64, torch.bfloat16),  # B2 stage 0 at 256x256
-    (8, 1024, 2, 64, 64, torch.bfloat16),  # B2 stage 1
-    (1, 1000, 3, 32, 37, torch.float32),  # ragged everything
-    (2, 77, 2, 8, 5, torch.float32),  # the smallest lane chunk
-    (1, 512, 1, 128, 300, torch.bfloat16),  # the largest head dim, M past 48 KB
-    (1, 300, 2, 24, 40, torch.bfloat16),  # D between chunk sizes: zero-padded rows
+@pytest.mark.parametrize("B,N,H,D,M,dtype,route", [
+    (8, 4096, 1, 64, 64, torch.bfloat16, "wgmma"),  # B2 stage 0 at 256x256
+    (8, 1024, 2, 64, 64, torch.bfloat16, "wgmma"),  # B2 stage 1
+    (2, 16384, 1, 64, 256, torch.bfloat16, "wgmma"),  # stage 0 at 512x512
+    (1, 1000, 3, 32, 37, torch.float32, "f32"),  # ragged everything
+    (2, 77, 2, 8, 5, torch.float32, "f32"),  # the smallest lane chunk
+    (1, 512, 1, 128, 300, torch.bfloat16, "mma"),  # the largest head dim, M past 256
+    (1, 300, 2, 24, 40, torch.bfloat16, "wgmma"),  # D between 64-column blocks: zero-filled
+    (2, 700, 2, 64, 1, torch.bfloat16, "wgmma"),  # one key
+    (1, 1000, 3, 64, 37, torch.bfloat16, "wgmma"),  # M, N off every tile: masked keys, clipped rows
+    (2, 640, 1, 64, 200, torch.bfloat16, "wgmma"),  # M in the 256-key kernel, masked
+    (1, 600, 2, 16, 100, torch.bfloat16, "wgmma"),  # the 128-key kernel; 1/4 a power of two
+    (3, 1000, 5, 64, 64, torch.bfloat16, "wgmma"),  # 240 tiles: runs cross (batch, head)
+    (40, 64, 5, 64, 64, torch.bfloat16, "wgmma"),  # a tile per (batch, head)
+    (16, 50, 5, 32, 37, torch.bfloat16, "wgmma"),  # and ragged, q rounded in shared memory
+    (2, 1024, 2, 32, 64, torch.bfloat16, "wgmma"),  # D = 32
+    (2, 1000, 1, 128, 64, torch.bfloat16, "wgmma"),  # D = 128: two column blocks
+    (1, 2048, 2, 128, 256, torch.bfloat16, "wgmma"),  # and 256 keys: one K, V stage
 ])
-def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype):
+def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype, route):
     from fusion3dseg_tpu_torch.ops import attention as attn
 
     q, k, v = _qkv((B, N, H, D), (B, M, H, D), dtype, cuda_device)
-    before = attn.sr_attention.launches
+    assert attn._sr_route(q, k, v) == route
+    before, on_route = attn.sr_attention.launches, attn.sr_attention.routes[route]
     got = attn.sr_attention(q, k, v)
     assert attn.sr_attention.launches == before + 1
+    assert attn.sr_attention.routes[route] == on_route + 1
     want = attn.sr_attention_reference(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
     assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,D,M", [
+    (8, 4096, 1, 64, 64), (8, 1024, 2, 64, 64), (2, 16384, 1, 64, 256), (1, 1000, 3, 32, 37),
+])
+def test_sr_attention_mma_kernel_on_wgmma_layouts(cuda_device, B, N, H, D, M):
+    # the mma.sync kernel, named explicitly, on layouts _sr_route sends to wgmma
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    q, k, v = _qkv((B, N, H, D), (B, M, H, D), torch.bfloat16, cuda_device)
+    assert attn._sr_route(q, k, v) == "wgmma"
+    before = attn.sr_attention.routes["mma"]
+    got = attn.launch_sr_attention(q, k, v, "mma")
+    assert attn.sr_attention.routes["mma"] == before + 1
+    want = attn.sr_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= BF16_BAR
 
 
 @pytest.mark.cuda
@@ -177,6 +208,23 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     got = attn.sr_attention(q, k, v)
     want = attn.sr_attention_reference(q.contiguous(), k.contiguous(), v.contiguous())
     assert (got - want).abs().max().item() <= F32_BAR
+    # in bfloat16 the same slices are whole 16-byte pieces: the wgmma kernel
+    fused = qkv.bfloat16()
+    qb, kb, vb = fused[:, :, 0], fused[:, :40, 1], fused[:, :40, 2]
+    assert attn._sr_route(qb, kb, vb) == "wgmma"
+    got = attn.sr_attention(qb, kb, vb)
+    want = attn.sr_attention_reference(qb.contiguous(), kb.contiguous(), vb.contiguous())
+    assert (got.float() - want.float()).abs().max().item() <= BF16_BAR
+    # a base 8 bytes off a 16-byte boundary: the mma kernel
+    flat = torch.randn(4 + 2 * 300 * 64, device=cuda_device).bfloat16()
+    qo = flat[4:].view(2, 300, 1, 64)
+    kc, vc = (torch.randn((2, 40, 1, 64), device=cuda_device).bfloat16() for _ in range(2))
+    assert qo.data_ptr() % 16 == 8 and attn._sr_route(qo, kc, vc) == "mma"
+    before = attn.sr_attention.routes["mma"]
+    got = attn.sr_attention(qo, kc, vc)
+    assert attn.sr_attention.routes["mma"] == before + 1
+    want = attn.sr_attention_reference(qo.contiguous(), kc, vc)
+    assert (got.float() - want.float()).abs().max().item() <= BF16_BAR
     with pytest.raises(RuntimeError, match="forward only"):
         attn.sr_attention(q.clone().requires_grad_(True), k, v)
     big = torch.zeros((1, 8, 1, 256), device=cuda_device)
