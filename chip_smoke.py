@@ -21,20 +21,28 @@ Phases (each prints its own lines; any failure exits non-zero):
 6. attention  the two attention kernels (spatial-reduction and
             neighbourhood) against their plain versions at the segmenter's
             shapes, a ragged float32 case each and the neighbourhood
-            kernel's backward; the spatial-reduction kernel's bfloat16 cases
-            (the wgmma kernel's edges among them) through both its kernels,
-            wgmma and mma.sync; timed (in CUDA graphs, between CUDA events)
-            beside the plain version, a bound and
-            `scaled_dot_product_attention` (timed here, used nowhere else).
-            Every counted K3 launch of phases 7-12 must take the wgmma
-            kernel; their counts by kernel print before the kernels line.
+            kernel's backward; the spatial-reduction kernel (K3) at every
+            SegFormer-B2 call of 256x256, 512x512 and 1024x1024 inputs
+            (batch 8; 64, 256 and 1024 keys) and at its edges (1 to 4096
+            keys, D = 32 to 128, float32 with 1024 keys, a layout TMA cannot
+            describe at 1024 keys), its bfloat16 cases through wgmma and,
+            where its shared memory holds the keys, mma.sync; timed (in CUDA
+            graphs, between CUDA events) beside the plain version, a bound
+            (bytes and products; the exponentials' floor printed beside it)
+            and `scaled_dot_product_attention` (timed here, used nowhere
+            else). Every counted K3 launch of phases 7-12 must take the
+            wgmma kernel; their counts by kernel print before the kernels
+            line.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
             the fused spatial-reduction kernel (launches counted, pixel
             accuracy against ground truth, masks against the same forward
-            through the plain versions, frames/s), then B2 width with a
-            neighbourhood-attention first stage (the shipped weights less
-            that stage's reduction conv), and `predict`'s contract.
+            through the plain versions, frames/s); the same weights at
+            512x512 and 1024x1024 (13 and 16 K3 launches a forward, masks and
+            logits against the plain versions, frames/s, peak memory); then
+            B2 width with a neighbourhood-attention first stage (the shipped
+            weights less that stage's reduction conv), and `predict`'s
+            contract.
 8. stream   `stream_segment` on that session: votes' contract, run twice
             bit-identical, classes against predict_batch + vote_and_classify.
 9. fusion   the main path `segment_session_fast`. Masks branch on the
@@ -139,6 +147,7 @@ NPTS, NFRAMES, HW, NCLASSES = 1_000_000, 300, (256, 192), 133
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor float32 (the table's only non-tensor rate)
 BF16_OPS_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
+EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM exponentials: 16 a clock on each SM, boost clock
 AGREEMENT_BAR = 0.9995
 BF16_BAR, F32_BAR = 2e-2, 1e-4  # attention kernels vs plain versions, unit-normal inputs
 PIXEL_ACC_BAR, MASK_AGREE_BAR, STREAM_AGREE_BAR = 0.95, 0.999, 0.9
@@ -528,21 +537,31 @@ def attention_phase(card):
             entry.setdefault("other_shapes", []).append(row)
 
     # ---- K3, spatial-reduction attention: each bfloat16 case through
-    # `sr_attention` (the wgmma kernel on every layout here) and through the
-    # mma.sync kernel named explicitly, both against the plain version
+    # `sr_attention` (the wgmma kernel on every layout here) and, where its
+    # shared memory holds the keys, through the mma.sync kernel named
+    # explicitly, both against the plain version. Timed: SegFormer-B2's
+    # calls at batch 8 (256x256: M = 64; 512x512: 256; 1024x1024: 1024) and
+    # stage 0 at 512x512 at batch 2
     sra = {"name": "sr_attention", "route": "cuda",
            "source": "fusion3dseg_tpu_torch/csrc/sr_attention.cu",
            "replaces": "fusion3dseg_tpu/ops/attention.py:30", "launches": 0,
            "max_abs_err": 0.0}
+    b2_calls = [(8, N, H, 64, M, "bf16", True) for N, H, M in (
+        (4096, 1, 64), (1024, 2, 64), (16384, 1, 256), (4096, 2, 256), (1024, 5, 256),
+        (65536, 1, 1024), (16384, 2, 1024), (4096, 5, 1024), (1024, 8, 1024))]
     for B, N, H, D, M, dtype, time_it in (
-            (8, 4096, 1, 64, 64, "bf16", True), (8, 1024, 2, 64, 64, "bf16", True),
-            (2, 16384, 1, 64, 256, "bf16", True), (1, 1000, 3, 32, 37, "f32", False),
-            # the wgmma kernel's edges: one key; keys masked in the 64-, 128- and
-            # 256-key kernels; ragged rows; runs that cross (batch, head); q rounded
-            # in shared memory (D = 32); two column blocks (D = 128)
+            *b2_calls, (2, 16384, 1, 64, 256, "bf16", True), (1, 1000, 3, 32, 37, "f32", False),
+            # the wgmma kernel's edges: one key; keys masked in the last key tile;
+            # ragged rows; runs that cross (batch, head); q rounded in shared
+            # memory (D = 32); two column blocks (D = 128); one key past a tile
+            # of 64 and of 128, past what mma.sync holds (849), the key tiles
+            # streamed (2048, 4096); float32 with 1024 keys
             (2, 700, 2, 64, 1, "bf16", False), (1, 1000, 3, 64, 37, "bf16", False),
             (3, 1000, 5, 32, 100, "bf16", False), (2, 640, 1, 64, 200, "bf16", False),
-            (1, 2048, 2, 128, 256, "bf16", False)):
+            (1, 2048, 2, 128, 256, "bf16", False), (2, 700, 2, 64, 257, "bf16", False),
+            (1, 1000, 3, 64, 849, "bf16", False), (1, 777, 2, 64, 2048, "bf16", False),
+            (1, 512, 1, 64, 4096, "bf16", False), (2, 1000, 1, 128, 1024, "bf16", False),
+            (1, 1000, 2, 64, 1024, "f32", False)):
         q, k, v = qkv((B, N, H, D), (B, M, H, D), dtype)
         shape = f"[{B},{N},{H},{D}]x[{B},{M},{H},{D}]"
         route = attn._sr_route(q, k, v)
@@ -551,7 +570,8 @@ def attention_phase(card):
         want = attn.sr_attention_reference(q, k, v)
         err = held("sr_attention", attn.sr_attention(q, k, v), want, dtype, shape)
         line = f"attention: sr_attention {shape} {dtype}: {route} max abs err {err:.3e}"
-        if dtype == "bf16":
+        mma = dtype == "bf16" and attn._mma_fits(M, D)
+        if mma:
             err_mma = held("sr_attention (mma)", attn.launch_sr_attention(q, k, v, "mma"),
                            want, dtype, shape)
             err = max(err, err_mma)
@@ -566,7 +586,25 @@ def attention_phase(card):
                   lambda: F.scaled_dot_product_attention(qt, kt, vt),
                   nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
                   ops=4 * B * H * N * M * D,
-                  others={"mma kernel": lambda: attn.launch_sr_attention(q, k, v, "mma")})
+                  others={"mma kernel": lambda: attn.launch_sr_attention(q, k, v, "mma")}
+                  if mma else None)
+            log(f"attention: sr_attention {shape}: {B * H * N * M / 1e6:.1f} M exponentials, "
+                f"{B * H * N * M / EXP_PER_S * 1e3:.4f} ms at 16 a clock on each of 132 SMs "
+                "(1.98 GHz)")
+        del q, k, v, want
+    # a layout TMA cannot describe (a base 8 bytes off 16) with more keys
+    # than the mma.sync kernel holds: copied into a TMA layout for wgmma
+    flat = torch.randn(4 + 2 * 1024 * 64, device=dev, generator=gen).bfloat16()
+    k = flat[4:].view(2, 1024, 1, 64)
+    q = torch.randn((2, 700, 1, 64), device=dev, generator=gen).bfloat16()
+    if attn._tma_layout(k) or attn._mma_fits(1024, 64) or attn._sr_route(q, k, k) != "wgmma":
+        fail("sr_attention: the offset layout at M = 1024 is not routed through the copy")
+    err = held("sr_attention", attn.sr_attention(q, k, k),
+               attn.sr_attention_reference(q, k.contiguous(), k.contiguous()), "bf16",
+               "a base 8 bytes off 16 at M = 1024")
+    sra["max_abs_err"] = max(sra["max_abs_err"], err)
+    log(f"attention: sr_attention [2,700,1,64]x[2,1024,1,64] bf16, k and v 8 bytes off 16 "
+        f"(copied for wgmma): max abs err {err:.3e} vs plain version")
 
     # ---- K2, neighbourhood attention
     nat = {"name": "neighborhood_attention", "route": "cuda",
@@ -687,6 +725,19 @@ def segmenter_phase(card):
         x = seg._model_input(frames[:batch])
         return seg._logits_sem_conf(x, 0.017, frames.shape[1:3])[0]
 
+    def throughput(seg):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            masks_of(seg)  # ends in a copy to the host
+            times.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        masks_of(seg)
+        log(f"segmenter: predict_batch at {seg.input_hw[0]}x{seg.input_hw[1]} {card}: "
+            f"{nframes} frames in {[round(t, 4) for t in times]} s, best "
+            f"{nframes / min(times):.1f} frames/s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
     def compare(name, seg, plain, per_forward, counter, bar):
         """Masks and logits of the kernel path against the plain versions."""
         k3 = counter is attn.sr_attention
@@ -731,16 +782,22 @@ def segmenter_phase(card):
     log(f"segmenter: pixel accuracy against ground truth {acc:.4f} (bar {PIXEL_ACC_BAR})")
     if acc < PIXEL_ACC_BAR:
         fail(f"pixel accuracy {acc} below {PIXEL_ACC_BAR}")
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        masks_of(seg)  # ends in a copy to the host
-        times.append(time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats()
-    masks_of(seg)
-    log(f"segmenter: predict_batch {card}: {nframes} frames in "
-        f"{[round(t, 4) for t in times]} s, best {nframes / min(times):.1f} frames/s; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    throughput(seg)
+    del plain
+
+    # the same weights at 512x512 (ADE20K's size: 13 K3 calls a forward, M =
+    # 256) and 1024x1024 (Cityscapes': 16 calls, M = 1024), against the plain
+    # versions; no ground-truth bar (the weights were trained at 256x256)
+    for hw, per_forward in (((512, 512), 13), ((1024, 1024), 16)):
+        big, big_plain = (Segmenter2D(cfg, ckpt, input_hw=hw, batch_size=batch, device="cuda",
+                                      use_cuda_attention=use) for use in (True, False))
+        masks_of(big)  # warm-up: cuDNN/cuBLAS plans at this size
+        _, n = compare(f"shipped B2 at {hw[0]}x{hw[1]}, use_pallas_attention", big, big_plain,
+                       per_forward, attn.sr_attention, MASK_AGREE_BAR)
+        sra_launches += n
+        del big_plain
+        throughput(big)
+        del big
 
     # B2 width with a neighbourhood-attention first stage. The weights are the
     # shipped checkpoint's without the first stage's reduction conv and its
@@ -760,7 +817,7 @@ def segmenter_phase(card):
     _, nat_launches = compare("B2 width, nat_windows=(7,0,0,0), shipped weights less the "
                               "first stage's reduction", seg_nat, plain_nat, 3,
                               attn.neighborhood_attention, NAT_MASK_AGREE_BAR)
-    del seg_nat, plain_nat, plain
+    del seg_nat, plain_nat
 
     # predict: the reference predictor's output contract
     out = seg.predict(frames[0][:, :, ::-1])
@@ -2408,7 +2465,8 @@ def main():
     for b in built.values():
         log(f"build: {b.name}.cu nvcc {b.seconds:.2f} s -> {b.path.name}")
         for line in b.ptxas.splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
+            if any(w in line for w in ("registers", "Compiling entry", "spill",
+                                       "Performance Loss")):
                 log(f"build: ptxas: {line.strip()}")
 
     card = f"[{smi}]"

@@ -10,51 +10,87 @@
 //   o_d = T(sum_m p_m * v_md)            float32 accumulation
 // The roundings to T are the TPU kernel's: q scaled in its own type, the
 // probabilities normalised over the full row and cast to v's type before
-// the second product, the output in q's type.
+// the second product, the output in q's type. Any M; D <= 128.
 //
-// Bound on an H100 (SXM): bytes. At the segmenter's shapes (M = 64 or 256,
-// D = 64, bfloat16) the function reads q and writes o once (K and V are a
-// few percent of that): 2.5 us at [8, 4096, 1, 64]. At M = 256 its 4*N*M*D
-// operations (2.2 us on the tensor cores) and N*M exponentials (16 a clock
-// on each SM, about 2 us) come close to that. Measured (tools/kernel_parts.py):
-// at M = 64 a fixed cost of launch, first loads and last stores dominates;
-// at M = 256 the arithmetic does, each consumer running its two products
-// and its exponentials in series, two tiles in flight an SM.
+// Bound on an H100 (SXM; 3.35 TB/s, 989 Tflop/s in bfloat16, exponentials
+// 16 a clock on each of 132 SMs, 1.98 GHz), bfloat16, D = 64:
+//   [8,16384,1,64] x 256 keys (SegFormer-B2 stage 0 at 512x512): bytes
+//     34.1 MB, 10.2 us; products 4*N*M*D = 8.6 Gop, 8.7 us; 33.6 M
+//     exponentials, 8.0 us. All three about equal.
+//   [8,65536,1,64] x 1024 keys (stage 0 at 1024x1024): bytes 136 MB,
+//     40.7 us; products 137 Gop, 139 us; 537 M exponentials, 128 us. The
+//     tensor cores and the exponential unit bound it together.
+// So the bfloat16 kernel overlaps each warpgroup's exponentials with its
+// own products and keeps the bytes to q in and o out. Measured
+// (tools/kernel_parts.py): the K, V streams hide behind the arithmetic
+// (loads left out: within 7% of the whole at 256 and 1024 keys), and no
+// one unit within it bounds it (the exponentials, S or P V left out: 11-15%
+// each at 1024 keys): the consumer warps' dependent chains do, at 41-48%
+// of the bound at 1024 keys, 33-37% at 256; at 64 keys the fixed cost of
+// launch, first loads and last stores.
 //
 // Three kernels; the caller (ops/attention._sr_route) names which.
 //
-// * bfloat16, `sr_attention_wgmma_kernel` (M <= 256, tensors TMA can
-//   describe): persistent blocks, one per SM, walk the 64-row query tiles
-//   in (batch, head)-major order, each block a contiguous run of them, so
-//   that it stages K and V of a (batch, head) once. One producer thread
-//   keeps TMA loads of q tiles in flight on a ring of mbarriers and loads
-//   K, V on a ring of their own; two consumer warpgroups take alternate
-//   tiles. A tile makes one pass over the keys: S = Q K^T by wgmma into
-//   registers (M / 2 floats a thread), the full-row max and sum across the
-//   quad, each exponential taken once, p rounded to bfloat16 in registers
-//   and fed as the register A operand of O = P V (V as stored, [M][D],
-//   MN-major), O through shared memory to a TMA store that overlaps the
-//   next tile. Loads past N, M or D are zero-filled and stores past N or D
+// * bfloat16, `sr_attention_wgmma_kernel` (any M, tensors TMA can
+//   describe): persistent blocks, at most one per SM, walk the 64-row query
+//   tiles in (batch, head)-major order, each block a contiguous run of them
+//   (the number of blocks chosen so that the busiest one has the fewest
+//   item rounds). A run goes in items: up to C consecutive tiles of one
+//   (batch, head), one for each of C consumer warpgroups (C = 3 at D <= 64,
+//   2 at D <= 128). One producer thread keeps TMA loads in flight: the
+//   item's q tiles on a ring of two stages, and K, V in tiles of KT keys
+//   (128 at D <= 64 and M > 64, else 64) on a ring of as many stages as
+//   shared memory holds (4 at D <= 64 and KT = 128, 3 at D <= 128). When all
+//   of a (batch, head)'s key tiles fit the ring they stay resident across
+//   its items (the producer passes each stage on without a load); else they
+//   stream again for every item, out of L2. Every consumer takes every key
+//   tile of its item: S = Q K^T by wgmma into registers (KT / 2 floats a
+//   thread), a running row max and sum across the quad, each exponential
+//   taken once, the accumulator O rescaled in registers by
+//   exp(m_old - m_new). Within a warpgroup the next tile's S = Q K^T and
+//   the previous tile's O += P V are issued together, and the softmax of
+//   the new scores runs while P V is still on the tensor cores
+//   (FlashAttention-3's intra-warpgroup overlap); across warpgroups the
+//   consumers take turns at issuing products (its ping-pong), so that one
+//   warpgroup's exponentials run while the next one's products hold the
+//   tensor cores (10% at 1024 keys); p is packed into the
+//   A-operand registers only once that P V is done (packing it earlier, or
+//   a register touched between the products' issue and their wait, makes
+//   ptxas serialize every wgmma). Where p is rounded: the one-pass softmax
+//   rounds exp(s - m_running) to bfloat16 (the register A operand of
+//   O += P V, V as stored, [keys][D], MN-major) and divides O by the row
+//   sum at the end, where the TPU kernel rounds the normalised p; the two
+//   differ by bfloat16 rounding steps of p, held to the same bar against the
+//   plain version. A JAX-order second pass would take every exponential and
+//   Q K^T twice, and at 1024 keys the exponentials alone are about the
+//   bound. O goes through shared memory to a TMA store that overlaps the
+//   next item. Loads past N, M or D are zero-filled and stores past N or D
 //   clipped, so any N works; keys past M score 0 there and are masked to
-//   -inf before the max. The scale: at D = 16 or 64, 1/sqrt(D) is a power
-//   of two, so T(q * scale) . k = scale * (q . k) bit for bit (barring
-//   subnormals) and the scale goes onto the float32 scores, q straight from
-//   TMA to wgmma; at other D the consumer rounds q * scale to bfloat16 in
-//   shared memory first, as the TPU kernel does.
-// * bfloat16, `sr_attention_mma_kernel` (any other layout; M up to what
-//   shared memory holds): mma.sync m16n8k16, eight warps of 16 query rows a
-//   block, K and V of one (batch, head) staged per block, two passes over
-//   the keys (max and sum, then the normalised product).
+//   -inf. The scale: at D = 16 or 64, 1/sqrt(D) is a power of two, so
+//   T(q * scale) . k = scale * (q . k) bit for bit (barring subnormals) and
+//   the scale goes onto the float32 scores, q straight from TMA to wgmma;
+//   at other D the consumer rounds q * scale to bfloat16 in shared memory
+//   first, as the TPU kernel does.
+// * bfloat16, `sr_attention_mma_kernel` (layouts TMA cannot describe, M up
+//   to what shared memory holds: 848 keys at D = 64, 432 at D = 128; the
+//   caller copies larger ones into a TMA layout for the wgmma kernel):
+//   mma.sync m16n8k16, eight warps of 16 query rows a block, K and V of one
+//   (batch, head) staged per block, two passes over the keys (max and sum,
+//   then the normalised product).
 // * float32: FMAs on the CUDA cores (TF32 tensor-core products would not
 //   hold the 1e-4 agreement asked of float32). A block owns 32 queries; four
 //   adjacent lanes share a query, each holding a quarter of D in registers,
-//   so a score is a quarter dot product plus two shuffles. The block's
-//   scores live in shared memory ([32][S] float32, S padded to 4 mod 8
-//   words against bank conflicts): row max, then sum, then normalise.
+//   so a score is a quarter dot product plus two shuffles. K and V stream
+//   through shared memory in tiles of 64 keys, twice: the first pass keeps
+//   the row's max and sum (the sum rescaled to each new max), the second
+//   recomputes the scores, normalises them and accumulates p * v. A tile's
+//   scores live in shared memory ([32][68] float32, rows of 4 mod 8 words
+//   against bank conflicts).
 //
 // The two bfloat16 kernels read F3S_PARTS: 1 leaves the loads out, 2 the
 // arithmetic (tools/kernel_parts.py times both; the results are wrong).
 
+#include <algorithm>
 #include <cmath>
 
 #include "attention_common.cuh"
@@ -72,37 +108,34 @@ using namespace f3s;
 
 using T = float;
 constexpr int kThreads = 128;
-constexpr int kQueries = kThreads / kLanes;   // queries per block
+constexpr int kQueries = kThreads / kLanes;  // queries per block
+constexpr int kF32Keys = 64;                 // keys of a staged K, V tile
+constexpr int kF32Row = kF32Keys + 4;        // a query's score row: 4 mod 8 words
 
 template <int DPL>
 __global__ void __launch_bounds__(kThreads)
 sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
-                    int N, int M, int H, int D,
-                    Strides sq, Strides sk, Strides sv, Strides so,
-                    float scale, int S) {
+                        const T* __restrict__ v, T* __restrict__ o,
+                        int N, int M, int H, int D,
+                        Strides sq, Strides sk, Strides sv, Strides so, float scale) {
   constexpr int Dp = DPL * kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                           // [M][Dp]
-  T* vs = ks + static_cast<size_t>(M) * Dp;                     // [M][Dp]
-  float* sc = reinterpret_cast<float*>(vs + static_cast<size_t>(M) * Dp);  // [kQueries][S]
+  T* ks = reinterpret_cast<T*>(smem);                                  // [kF32Keys][Dp]
+  T* vs = ks + kF32Keys * Dp;                                          // [kF32Keys][Dp]
+  float* sc = reinterpret_cast<float*>(vs + kF32Keys * Dp);            // [kQueries][kF32Row]
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-
-  // stage K and V of this (batch, head): kThreads / Dp rows per step
-  {
-    const T* kb = k + b * sk.b + h * sk.h;
-    const T* vb = v + b * sv.b + h * sv.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  // rows key0 .. key0 + count - 1 of K or V into a tile: kThreads / Dp rows a step
+  auto stage = [&](const T* src, int64_t stride, T* dst, int key0, int count) {
     const int d = tid % Dp;
     const T zero = from_f32<T>(0.f);
-    for (int m = tid / Dp; m < M; m += kThreads / Dp) {
-      ks[m * Dp + d] = d < D ? kb[m * sk.n + d] : zero;
-      vs[m * Dp + d] = d < D ? vb[m * sv.n + d] : zero;
-    }
-  }
-  __syncthreads();
+    for (int m = tid / Dp; m < count; m += kThreads / Dp)
+      dst[m * Dp + d] = d < D ? src[static_cast<int64_t>(key0 + m) * stride + d] : zero;
+  };
 
   const int lane = tid % kLanes;
   const int qi = tid / kLanes;
@@ -119,11 +152,9 @@ sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
       qr[i] = (live && d < D) ? round_to<T>(to_f32<T>(qp[d]) * scale) : 0.f;
     }
   }
-
-  // scores of this query's row; lane j keeps the entries m = j mod 4
-  float* srow = sc + qi * S;
-  float mx = -CUDART_INF_F;
-  for (int m = 0; m < M; ++m) {
+  // this query's score against staged key m; equal bit for bit on the four
+  // lanes of the query (the shuffled sums add the same pairs)
+  auto score = [&](int m) {
     float kr[DPL];
     load_chunk<T, DPL>(ks + m * Dp + d0, kr);
     float s = 0.f;
@@ -131,30 +162,54 @@ sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DPL; ++i) s = fmaf(qr[i], kr[i], s);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    mx = fmaxf(mx, s);
-    if ((m % kLanes) == lane) srow[m] = s;
-  }
+    return s;
+  };
 
-  float l = 0.f;
-  for (int m = lane; m < M; m += kLanes) {
-    const float e = expf(srow[m] - mx);
-    srow[m] = e;
-    l += e;
+  // pass 1: the row's max and sum; lane j keeps the entries m = j mod 4
+  float* srow = sc + qi * kF32Row;
+  float mx = -CUDART_INF_F, l = 0.f;
+  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
+    const int count = min(kF32Keys, M - key0);
+    __syncthreads();  // the previous tile is read
+    stage(kb, sk.n, ks, key0, count);
+    __syncthreads();
+    float tile_mx = -CUDART_INF_F;
+    for (int m = 0; m < count; ++m) {
+      const float s = score(m);
+      tile_mx = fmaxf(tile_mx, s);
+      if ((m % kLanes) == lane) srow[m] = s;
+    }
+    const float new_mx = fmaxf(mx, tile_mx);
+    float e = 0.f;
+    for (int m = lane; m < count; m += kLanes) e += expf(srow[m] - new_mx);
+    l = l * expf(mx - new_mx) + e;  // expf(-inf) = 0 on the first tile
+    mx = new_mx;
   }
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
-  for (int m = lane; m < M; m += kLanes) srow[m] = round_to<T>(srow[m] / l);
-  __syncwarp();  // the four lanes of a query sit in one warp
 
+  // pass 2: the normalised probabilities, rounded to T, times V
   float acc[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const float p = srow[m];
-    float vr[DPL];
-    load_chunk<T, DPL>(vs + m * Dp + d0, vr);
+  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
+    const int count = min(kF32Keys, M - key0);
+    __syncthreads();
+    stage(kb, sk.n, ks, key0, count);
+    stage(vb, sv.n, vs, key0, count);
+    __syncthreads();
+    for (int m = 0; m < count; ++m) {
+      const float s = score(m);
+      if ((m % kLanes) == lane) srow[m] = round_to<T>(expf(s - mx) / l);
+    }
+    __syncwarp();  // the four lanes of a query sit in one warp
+    for (int m = 0; m < count; ++m) {
+      const float p = srow[m];
+      float vr[DPL];
+      load_chunk<T, DPL>(vs + m * Dp + d0, vr);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+    }
   }
 
   if (live) {
@@ -169,13 +224,11 @@ sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int N,
-           int M, int H, int D, const int64_t* st, float scale,
-           cudaStream_t stream) {
+               int M, int H, int D, const int64_t* st, float scale,
+               cudaStream_t stream) {
   constexpr int Dp = DPL * kLanes;
-  int S = M + ((12 - M % 8) % 8);  // smallest S >= M with S % 8 == 4
-  const size_t smem = 2 * static_cast<size_t>(M) * Dp * sizeof(T) +
-                      static_cast<size_t>(kQueries) * S * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return -2;
+  const size_t smem = 2 * static_cast<size_t>(kF32Keys) * Dp * sizeof(T) +
+                      static_cast<size_t>(kQueries) * kF32Row * sizeof(float);
   auto kern = sr_attention_f32_kernel<DPL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -187,7 +240,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale, S);
+      static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,56 +468,81 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B, in
   return -1;
 }
 
-// ---- bfloat16 on the tensor cores: wgmma fed by TMA (M <= 256)
 
-constexpr int kTileRows = 64;  // query rows of a tile: one wgmma's M
-constexpr int kConsumers = 2;  // consumer warpgroups; one more produces
-constexpr int kWgThreads = 128 * (kConsumers + 1);
-constexpr int kMaxQStages = 4, kMaxKvStages = 2;
+// ---- bfloat16 on the tensor cores: wgmma fed by TMA, keys in tiles (any M)
+
+constexpr int kTileRows = 64;  // query rows of a consumer's tile: one wgmma's M
+constexpr int kQStages = 2;    // q ring: a stage holds one item's tiles
+constexpr int kMaxKvStages = 16;
 constexpr int kSwizzleTile = kTileRows * 128;  // bytes of [64 rows][64] bfloat16
 
+// Consumer warpgroups and the registers `setmaxnreg` gives each role. The
+// pool is the block's launch allocation, threads x the registers ptxas
+// reports (the launch bound's most: 128 at 512 threads, 168 at 384);
+// `launch_wgmma` checks it before a launch, since an `.inc` past the pool
+// blocks forever.
+template <int DP> struct WgShape;
+template <> struct WgShape<64> {   // 128 x 24 + 3 x 128 x 160 <= 512 x 128
+  static constexpr int kConsumers = 3, kProducerRegs = 24, kConsumerRegs = 160;
+};
+template <> struct WgShape<128> {  // 128 x 40 + 2 x 128 x 232 <= 384 x 168
+  static constexpr int kConsumers = 2, kProducerRegs = 40, kConsumerRegs = 232;
+};
+
 struct WgParams {
-  int N, M, H, tiles_per_bh, total_tiles, qstages, kvstages;
+  int N, M, H, tiles_per_bh, total_tiles, key_tiles, kv_stages;
   float q_scale;      // > 0: q is rounded to bfloat16(q * q_scale) before the product
   float score_scale;  // raw score -> log2 units of the softmax
 };
 
-// Shared memory, from a 1024-byte boundary: `kvstages` x [K | V] of one
-// (batch, head), each [MP rows][DP] as DP / 64 swizzled column blocks;
-// `qstages` q tiles [64][DP]; two output tiles for each consumer.
-template <int MP, int DP>
-__global__ void __launch_bounds__(kWgThreads, 1)
+// Shared memory, from a 1024-byte boundary: `kv_stages` x [K | V] tiles of
+// KT keys, each [KT keys][DP] as DP / 64 swizzled column blocks; kQStages x
+// C q tiles [64][DP]; two output tiles for each consumer.
+template <int DP, int KT>
+__global__ void __launch_bounds__(128 * (WgShape<DP>::kConsumers + 1), 1)
 sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap to, WgParams p) {
-  constexpr int kBlocks = DP / 64;                     // 64-column blocks of a row
-  constexpr uint32_t kQBytes = kTileRows * DP * 2;     // a q or o tile
-  constexpr uint32_t kKBytes = MP * DP * 2;            // K or V of one (batch, head)
+  constexpr int kConsumers = WgShape<DP>::kConsumers;
+  constexpr int kKeyTile = KT;  // keys of a K or V tile
+  constexpr int kBlocks = DP / 64;                  // 64-column blocks of a row
+  constexpr uint32_t kQBytes = kTileRows * DP * 2;  // a q or o tile
+  constexpr uint32_t kKvBytes = kKeyTile * DP * 2;  // a K or V tile
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bars[2 * kMaxQStages + 2 * kMaxKvStages];
+  __shared__ uint64_t bars[2 * kQStages + 2 * kMaxKvStages];
   uint64_t* q_full = bars;
-  uint64_t* q_empty = bars + kMaxQStages;
-  uint64_t* kv_full = bars + 2 * kMaxQStages;
+  uint64_t* q_empty = bars + kQStages;
+  uint64_t* kv_full = bars + 2 * kQStages;
   uint64_t* kv_empty = kv_full + kMaxKvStages;
   uint8_t* kv_s = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
-  uint8_t* q_s = kv_s + p.kvstages * 2 * kKBytes;
-  uint8_t* o_s = q_s + p.qstages * kQBytes;
+  uint8_t* q_s = kv_s + p.kv_stages * 2 * kKvBytes;
+  uint8_t* o_s = q_s + kQStages * kConsumers * kQBytes;
 
-  // this block's run of tiles; tile j is rows 64 (j % tiles_per_bh) .. of
-  // (batch, head) j / tiles_per_bh, and its K, V are the run's
-  // (j / tiles_per_bh - bh0)-th
-  const int t0 = static_cast<int>(static_cast<int64_t>(blockIdx.x) * p.total_tiles / gridDim.x);
-  const int t1 =
+  // this block's run of 64-row query tiles j0 .. j1 - 1; tile j is rows
+  // 64 (j % tiles_per_bh) onwards of (batch, head) j / tiles_per_bh. The run
+  // goes in items: up to C consecutive tiles of one (batch, head), consumer
+  // c taking the item's c-th tile. Key tile t of item li (the run's li-th)
+  // is use u = li * period + t of the K, V ring: stage u % kv_stages, phase
+  // (u / kv_stages) & 1. When the ring holds every key tile, period =
+  // kv_stages puts tile t in stage t for every item.
+  const int j0 = static_cast<int>(static_cast<int64_t>(blockIdx.x) * p.total_tiles / gridDim.x);
+  const int j1 =
       static_cast<int>(static_cast<int64_t>(blockIdx.x + 1) * p.total_tiles / gridDim.x);
-  const int bh0 = t0 / p.tiles_per_bh;
+  // the item starting at tile j: its (batch, head) and its number of tiles
+  auto item = [&](int j, int& bh, int& count) {
+    bh = j / p.tiles_per_bh;
+    count = min(kConsumers, min(j1, (bh + 1) * p.tiles_per_bh) - j);
+  };
+  const bool resident = p.key_tiles <= p.kv_stages;
+  const int period = resident ? p.kv_stages : p.key_tiles;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < p.qstages; ++s) {
+    for (int s = 0; s < kQStages; ++s) {
       mbar_init(&q_full[s], 1);
-      mbar_init(&q_empty[s], 4);  // the four warps of the tile's consumer
+      mbar_init(&q_empty[s], 4 * kConsumers);  // every warp of every consumer
     }
-    for (int s = 0; s < p.kvstages; ++s) {
+    for (int s = 0; s < p.kv_stages; ++s) {
       mbar_init(&kv_full[s], 1);
       mbar_init(&kv_empty[s], 4 * kConsumers);
     }
@@ -472,196 +550,285 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // provably warp-uniform
   if (wg == kConsumers) {
     // ---- producer: one thread issues every load, in the consumers' order
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(WgShape<DP>::kProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
-      int kvi = -1;
-      for (int j = t0; j < t1; ++j) {
-        const int i = j - t0, bh = j / p.tiles_per_bh;
-        const int n0 = (j % p.tiles_per_bh) * kTileRows, b = bh / p.H, h = bh % p.H;
-        if (bh - bh0 != kvi) {
-          kvi = bh - bh0;
-          const int s = kvi % p.kvstages;
-          mbar_wait(&kv_empty[s], ((kvi / p.kvstages) & 1) ^ 1);
-          uint8_t* ks = kv_s + s * 2 * kKBytes;
-          if (F3S_PARTS == 1) {
-            mbar_arrive(&kv_full[s]);
-          } else {
-            mbar_arrive_tx(&kv_full[s], 2 * kKBytes);
-#pragma unroll
-            for (int c = 0; c < kBlocks; ++c) {
-              tma_load_4d(ks + c * MP * 128, &tk, &kv_full[s], 64 * c, h, 0, b);
-              tma_load_4d(ks + kKBytes + c * MP * 128, &tv, &kv_full[s], 64 * c, h, 0, b);
-            }
-          }
-        }
-        const int s = i % p.qstages;
-        mbar_wait(&q_empty[s], ((i / p.qstages) & 1) ^ 1);
+      int held = -1;  // the (batch, head) whose key tiles the ring holds
+      for (int j = j0, li = 0, bh, count; j < j1; j += count, ++li) {
+        item(j, bh, count);
+        const int n0 = (j % p.tiles_per_bh) * kTileRows;
+        const int b = bh / p.H, h = bh % p.H;
+        const int s = li % kQStages;
+        mbar_wait(&q_empty[s], ((li / kQStages) & 1) ^ 1);
         if (F3S_PARTS == 1) {
           mbar_arrive(&q_full[s]);
         } else {
-          mbar_arrive_tx(&q_full[s], kQBytes);
+          mbar_arrive_tx(&q_full[s], count * kQBytes);
+          for (int c = 0; c < count; ++c)
 #pragma unroll
-          for (int c = 0; c < kBlocks; ++c)
-            tma_load_4d(q_s + s * kQBytes + c * kSwizzleTile, &tq, &q_full[s], 64 * c, h, n0, b);
+            for (int cb = 0; cb < kBlocks; ++cb)
+              tma_load_4d(q_s + (s * kConsumers + c) * kQBytes + cb * kSwizzleTile, &tq,
+                          &q_full[s], 64 * cb, h, n0 + c * kTileRows, b);
         }
+        const bool again = resident && bh == held;
+        for (int t = 0; t < p.key_tiles; ++t) {
+          const int u = li * period + t, ks = u % p.kv_stages;
+          mbar_wait(&kv_empty[ks], ((u / p.kv_stages) & 1) ^ 1);
+          if (again || F3S_PARTS == 1) {
+            mbar_arrive(&kv_full[ks]);  // the stage already holds this tile
+          } else {
+            mbar_arrive_tx(&kv_full[ks], 2 * kKvBytes);
+            uint8_t* kt = kv_s + ks * 2 * kKvBytes;
+#pragma unroll
+            for (int cb = 0; cb < kBlocks; ++cb) {
+              tma_load_4d(kt + cb * kKeyTile * 128, &tk, &kv_full[ks], 64 * cb, h,
+                          t * kKeyTile, b);
+              tma_load_4d(kt + kKvBytes + cb * kKeyTile * 128, &tv, &kv_full[ks], 64 * cb,
+                          h, t * kKeyTile, b);
+            }
+          }
+        }
+        held = bh;
       }
     }
   } else {
-    // ---- consumers: warpgroup wg takes tiles t0 + wg, t0 + wg + 2, ...
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    // ---- consumers: warpgroup wg takes the wg-th tile of every item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(WgShape<DP>::kConsumerRegs));
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, c4 = lane % 4;
     uint8_t* o_mine = o_s + wg * 2 * kQBytes;
-    int kvi = -1, stored = 0;
-    // release K, V index kvi (each warp once) and wait for the next
-    auto next_kv = [&]() {
-      if (kvi >= 0 && lane == 0) mbar_arrive(&kv_empty[kvi % p.kvstages]);
-      ++kvi;
-      mbar_wait(&kv_full[kvi % p.kvstages], (kvi / p.kvstages) & 1);
+    // each warp's arrival once its lanes are done with a stage
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
     };
-    for (int i = wg; t0 + i < t1; i += kConsumers) {
-      const int j = t0 + i, bh = j / p.tiles_per_bh;
-      const int n0 = (j % p.tiles_per_bh) * kTileRows, b = bh / p.H, h = bh % p.H;
-      while (kvi < bh - bh0) next_kv();
-      const int s = i % p.qstages;
-      mbar_wait(&q_full[s], (i / p.qstages) & 1);
-      uint8_t* qt = q_s + s * kQBytes;
-      const uint8_t* kt = kv_s + (kvi % p.kvstages) * 2 * kKBytes;
-      const uint8_t* vt = kt + kKBytes;
-
-      if (p.q_scale > 0.f) {  // round q * scale to bfloat16 in place
+    int stored = 0;
+    // The consumers take turns at issuing their products (FlashAttention-3's
+    // ping-pong): warpgroup wg waits on named barrier 4 + wg (its 128
+    // threads and the 128 of the warpgroup before it) and, once its
+    // products are issued, passes the turn on, so that one warpgroup's
+    // exponentials run while the next one's products hold the tensor cores.
+    // Every consumer takes key_tiles + 1 turns an item (the first S, each
+    // S with the previous P V, the last P V), live or not; the last
+    // consumer gives the first turn, the first takes the last.
+    auto turn_wait = [&]() { named_bar_sync(4 + wg, 256); };
+    auto turn_pass = [&]() { named_bar_arrive(4 + (wg + 1) % kConsumers, 256); };
+    if (wg == kConsumers - 1) named_bar_arrive(4, 256);
+    float sc[kKeyTile / 2];  // scores, then exponentials, of one key tile
+#pragma unroll
+    for (int x = 0; x < kKeyTile / 2; ++x) sc[x] = 0.f;
+    for (int j = j0, li = 0, bh, count; j < j1; j += count, ++li) {
+      item(j, bh, count);
+      const int n0 = (j % p.tiles_per_bh + wg) * kTileRows;
+      const int b = bh / p.H, h = bh % p.H;
+      // an item with fewer tiles than consumers: the others keep the barriers' count
+      const bool rows = wg < count, live = rows && F3S_PARTS != 2;
+      const int s = li % kQStages;
+      mbar_wait(&q_full[s], (li / kQStages) & 1);
+      uint8_t* qt = q_s + (s * kConsumers + wg) * kQBytes;
+      if (live && p.q_scale > 0.f) {  // round q * scale to bfloat16 in place
 #pragma unroll
         for (int x = tid; x < static_cast<int>(kQBytes / 16); x += 128) {
           uint4 w = reinterpret_cast<const uint4*>(qt)[x];
           uint32_t* e = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            e[u] = pack_bf16(__uint_as_float(e[u] << 16) * p.q_scale,
-                             __uint_as_float(e[u] & 0xffff0000u) * p.q_scale);
+          for (int y = 0; y < 4; ++y)
+            e[y] = pack_bf16(__uint_as_float(e[y] << 16) * p.q_scale,
+                             __uint_as_float(e[y] & 0xffff0000u) * p.q_scale);
           reinterpret_cast<uint4*>(qt)[x] = w;
         }
         fence_async_shared();
         named_bar_sync(1 + wg, 128);
       }
 
+      // rows 16 warp + g (sc[4j], sc[4j + 1]; oc likewise) and + 8
+      // (sc[4j + 2], sc[4j + 3]), keys or columns 8j + 2 c4 and the next
       float oc[DP / 2];
 #pragma unroll
       for (int x = 0; x < DP / 2; ++x) oc[x] = 0.f;
-      if (F3S_PARTS != 2) {
-        // S = Q K^T: both K-major, k steps of 16 along D
-        float sc[MP / 2];
+      uint32_t pa[kKeyTile / 4];  // p of the previous key tile: the A operand of P V
+      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+      auto stage_of = [&](int t) {  // waits for key tile t; returns its stage
+        const int u = li * period + t, ks = u % p.kv_stages;
+        mbar_wait(&kv_full[ks], (u / p.kv_stages) & 1);
+        return ks;
+      };
+      // S = Q K^T of the key tile in stage ks: both K-major, k steps of 16 along D
+      auto scores = [&](int ks) {
+        const uint32_t qa = smem_addr(qt), ka = smem_addr(kv_s + ks * 2 * kKvBytes);
 #pragma unroll
-        for (int x = 0; x < MP / 2; ++x) sc[x] = 0.f;
-        pin(sc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < DP / 16; ++ks) {
-          const uint32_t qa = smem_addr(qt) + ks / 4 * kSwizzleTile + ks % 4 * 32;
-          const uint32_t ka = smem_addr(kt) + ks / 4 * MP * 128 + ks % 4 * 32;
-          Wgmma<MP>::ss(sc, sw128_desc(qa, 16, 1024), sw128_desc(ka, 16, 1024), 1);
-        }
+        for (int kd = 0; kd < DP / 16; ++kd)
+          Wgmma<kKeyTile>::ss(sc, sw128_desc(qa + kd / 4 * kSwizzleTile + kd % 4 * 32, 16, 1024),
+                              sw128_desc(ka + kd / 4 * kKeyTile * 128 + kd % 4 * 32, 16, 1024),
+                              kd > 0);
         wgmma_commit();
-        wgmma_wait_all();
-        pin(sc);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&q_empty[s]);
-
-        // softmax over the full row: rows 16 warp + g (sc[4j], sc[4j + 1])
-        // and + 8 (sc[4j + 2], sc[4j + 3]), keys 8j + 2 c4 and the next
-        if (p.M < MP) {
+      };
+      // O += P V of the key tile in stage ks: V [keys][DP] is MN-major, 16
+      // keys (2048 bytes) a k step
+      auto accumulate = [&](int ks) {
+        const uint32_t va = smem_addr(kv_s + ks * 2 * kKvBytes + kKvBytes);
 #pragma unroll
-          for (int jj = 0; jj < MP / 8; ++jj) {
-            const int key = 8 * jj + 2 * c4;
-            if (key >= p.M) sc[4 * jj] = sc[4 * jj + 2] = -CUDART_INF_F;
-            if (key + 1 >= p.M) sc[4 * jj + 1] = sc[4 * jj + 3] = -CUDART_INF_F;
+        for (int kc = 0; kc < kKeyTile / 16; ++kc)
+          Wgmma<DP>::rs(oc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                        sw128_desc(va + kc * 2048, kKeyTile * 128, 1024), 1);
+        wgmma_commit();
+      };
+      // the running softmax over key tile t's scores: the new row maxima,
+      // O's corrections exp(m_old - m_new), the sums; the exponentials stay
+      // in sc
+      auto softmax = [&](int t, float& corr0, float& corr1) {
+        if ((t + 1) * kKeyTile > p.M) {  // keys past M score -inf
+#pragma unroll
+          for (int j = 0; j < kKeyTile / 8; ++j) {
+            const int key = t * kKeyTile + 8 * j + 2 * c4;
+            if (key >= p.M) sc[4 * j] = sc[4 * j + 2] = -CUDART_INF_F;
+            if (key + 1 >= p.M) sc[4 * j + 1] = sc[4 * j + 3] = -CUDART_INF_F;
           }
         }
-        float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+        float a0[4], a1[4];  // four partial maxima and sums a row: shorter chains
 #pragma unroll
-        for (int jj = 0; jj < MP / 8; ++jj) {
-          m0 = fmaxf(m0, fmaxf(sc[4 * jj], sc[4 * jj + 1]));
-          m1 = fmaxf(m1, fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+        for (int x = 0; x < 4; ++x) a0[x] = a1[x] = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < kKeyTile / 8; ++j) {
+          a0[j % 4] = fmaxf(a0[j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
+          a1[j % 4] = fmaxf(a1[j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
         }
+        float t0 = fmaxf(fmaxf(a0[0], a0[1]), fmaxf(a0[2], a0[3]));
+        float t1 = fmaxf(fmaxf(a1[0], a1[1]), fmaxf(a1[2], a1[3]));
 #pragma unroll
         for (int off = 1; off <= 2; off <<= 1) {  // the four lanes of a row
-          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+          t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+          t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
         }
-        const float c0 = m0 * p.score_scale, c1 = m1 * p.score_scale;
-        float l0 = 0.f, l1 = 0.f;
+        // every tile has a key below M, so the new maxima are finite and
+        // the first tile's corrections are exp2(-inf) = 0
+        t0 = fmaxf(m0, t0);
+        t1 = fmaxf(m1, t1);
+        corr0 = ex2((m0 - t0) * p.score_scale);
+        corr1 = ex2((m1 - t1) * p.score_scale);
+        m0 = t0;
+        m1 = t1;
+        const float c0 = t0 * p.score_scale, c1 = t1 * p.score_scale;
+        float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int jj = 0; jj < MP / 8; ++jj) {
-          sc[4 * jj] = ex2(fmaf(sc[4 * jj], p.score_scale, -c0));
-          sc[4 * jj + 1] = ex2(fmaf(sc[4 * jj + 1], p.score_scale, -c0));
-          sc[4 * jj + 2] = ex2(fmaf(sc[4 * jj + 2], p.score_scale, -c1));
-          sc[4 * jj + 3] = ex2(fmaf(sc[4 * jj + 3], p.score_scale, -c1));
-          l0 += sc[4 * jj] + sc[4 * jj + 1];
-          l1 += sc[4 * jj + 2] + sc[4 * jj + 3];
+        for (int j = 0; j < kKeyTile / 8; ++j) {
+          sc[4 * j] = ex2(fmaf(sc[4 * j], p.score_scale, -c0));
+          sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], p.score_scale, -c0));
+          sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], p.score_scale, -c1));
+          sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], p.score_scale, -c1));
+          s0[j % 4] += sc[4 * j] + sc[4 * j + 1];
+          s1[j % 4] += sc[4 * j + 2] + sc[4 * j + 3];
         }
+        const float e0 = (s0[0] + s0[1]) + (s0[2] + s0[3]);
+        const float e1 = (s1[0] + s1[1]) + (s1[2] + s1[3]);
+        l0 = fmaf(l0, corr0, e0);  // this lane's columns; summed across the quad at the end
+        l1 = fmaf(l1, corr1, e1);
+      };
+      // p in bfloat16 from the exponentials, 16 keys a k step, in the
+      // A-operand layout (once the P V that reads pa is done)
+      auto pack_p = [&]() {
+#pragma unroll
+        for (int kc = 0; kc < kKeyTile / 16; ++kc) {
+          pa[4 * kc] = pack_bf16(sc[8 * kc], sc[8 * kc + 1]);
+          pa[4 * kc + 1] = pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]);
+          pa[4 * kc + 2] = pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]);
+          pa[4 * kc + 3] = pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7]);
+        }
+      };
+
+      if (!live) {  // keep the barriers' count only
+        for (int t = 0; t < p.key_tiles; ++t) {
+          release(&kv_empty[stage_of(t)]);
+          turn_wait();
+          turn_pass();
+        }
+        turn_wait();
+        turn_pass();
+        release(&q_empty[s]);
+      } else {
+        int prev = stage_of(0);
+        float corr0, corr1;
+        turn_wait();
+        wgmma_fence();
+        scores(prev);
+        turn_pass();
+        wgmma_wait<0>();
+        pin(sc);
+        softmax(0, corr0, corr1);  // O is still 0: no correction
+        pack_p();
+        for (int t = 1; t < p.key_tiles; ++t) {
+          const int ks = stage_of(t);
+          // this tile's S and the previous tile's P V together; the
+          // exponentials below run while P V is on the tensor cores
+          turn_wait();
+          wgmma_fence();
+          scores(ks);
+          accumulate(prev);
+          turn_pass();
+          wgmma_wait<1>();  // S is done
+          pin(sc);
+          softmax(t, corr0, corr1);
+          wgmma_wait<0>();  // P V is done
+          pin(oc);
+          pin(pa);
+          release(&kv_empty[prev]);
+#pragma unroll
+          for (int j = 0; j < DP / 8; ++j) {  // O into the new maxima's units
+            oc[4 * j] *= corr0;
+            oc[4 * j + 1] *= corr0;
+            oc[4 * j + 2] *= corr1;
+            oc[4 * j + 3] *= corr1;
+          }
+          pack_p();
+          prev = ks;
+        }
+        release(&q_empty[s]);  // every S is done
+        turn_wait();
+        wgmma_fence();
+        accumulate(prev);
+        turn_pass();
+        wgmma_wait<0>();
+        pin(oc);
+        pin(pa);
+        release(&kv_empty[prev]);
+      }
+
+      if (rows) {
 #pragma unroll
         for (int off = 1; off <= 2; off <<= 1) {
           l0 += __shfl_xor_sync(0xffffffffu, l0, off);
           l1 += __shfl_xor_sync(0xffffffffu, l1, off);
         }
         const float r0 = 1.f / l0, r1 = 1.f / l1;
-        // p in bfloat16, 16 keys a k step, in the A-operand layout
-        uint32_t pa[MP / 4];
+        // O / l to a swizzled tile, then one TMA store (rows past N,
+        // columns past D clipped); the store of two tiles ago must have
+        // read this buffer
+        uint8_t* ot = o_mine + (stored & 1) * kQBytes;
+        if (tid == 0) tma_store_wait_read<1>();
+        named_bar_sync(1 + wg, 128);
+        const int row = 16 * warp + g;
 #pragma unroll
-        for (int kc = 0; kc < MP / 16; ++kc) {
-          pa[4 * kc] = pack_bf16(sc[8 * kc] * r0, sc[8 * kc + 1] * r0);
-          pa[4 * kc + 1] = pack_bf16(sc[8 * kc + 2] * r1, sc[8 * kc + 3] * r1);
-          pa[4 * kc + 2] = pack_bf16(sc[8 * kc + 4] * r0, sc[8 * kc + 5] * r0);
-          pa[4 * kc + 3] = pack_bf16(sc[8 * kc + 6] * r1, sc[8 * kc + 7] * r1);
+        for (int j = 0; j < DP / 8; ++j) {
+          uint8_t* dst = ot + j / 8 * kSwizzleTile + row * 128 + c4 * 4;
+          const int piece = ((j % 8) ^ (row % 8)) * 16;  // rows row and row + 8 swizzle alike
+          *reinterpret_cast<uint32_t*>(dst + piece) = pack_bf16(oc[4 * j] * r0, oc[4 * j + 1] * r0);
+          *reinterpret_cast<uint32_t*>(dst + 8 * 128 + piece) =
+              pack_bf16(oc[4 * j + 2] * r1, oc[4 * j + 3] * r1);
         }
-
-        // O = P V: V [keys][DP] is MN-major; 16 keys (2048 bytes) a k step
-        pin(pa);
-        pin(oc);
-        wgmma_fence();
+        fence_async_shared();
+        named_bar_sync(1 + wg, 128);
+        if (tid == 0) {
 #pragma unroll
-        for (int kc = 0; kc < MP / 16; ++kc)
-          Wgmma<DP>::rs(oc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
-                        sw128_desc(smem_addr(vt) + kc * 2048, MP * 128, 1024), 1);
-        wgmma_commit();
-        wgmma_wait_all();
-        pin(pa);
-        pin(oc);
-      } else {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&q_empty[s]);
+          for (int cb = 0; cb < kBlocks; ++cb)
+            tma_store_4d(&to, ot + cb * kSwizzleTile, 64 * cb, h, n0, b);
+          tma_store_commit();
+        }
+        ++stored;
       }
-
-      // O to a swizzled tile, then one TMA store (rows past N, columns past
-      // D clipped); the store of two tiles ago must have read this buffer
-      uint8_t* ot = o_mine + (stored & 1) * kQBytes;
-      if (tid == 0) tma_store_wait_read<1>();
-      named_bar_sync(1 + wg, 128);
-      const int r0 = 16 * warp + g;
-#pragma unroll
-      for (int jj = 0; jj < DP / 8; ++jj) {
-        uint8_t* row = ot + jj / 8 * kSwizzleTile + r0 * 128 + c4 * 4;
-        const int piece = ((jj % 8) ^ (r0 % 8)) * 16;  // rows r0 and r0 + 8 swizzle alike
-        *reinterpret_cast<uint32_t*>(row + piece) = pack_bf16(oc[4 * jj], oc[4 * jj + 1]);
-        *reinterpret_cast<uint32_t*>(row + 8 * 128 + piece) =
-            pack_bf16(oc[4 * jj + 2], oc[4 * jj + 3]);
-      }
-      fence_async_shared();
-      named_bar_sync(1 + wg, 128);
-      if (tid == 0) {
-#pragma unroll
-        for (int c = 0; c < kBlocks; ++c) tma_store_4d(&to, ot + c * kSwizzleTile, 64 * c, h, n0, b);
-        tma_store_commit();
-      }
-      ++stored;
     }
-    // walk (and release) every K, V index of the run, so that the producer
-    // never waits on a warpgroup that had no tile of that (batch, head)
-    const int last = (t1 - 1) / p.tiles_per_bh - bh0;
-    while (kvi < last) next_kv();
-    if (lane == 0) mbar_arrive(&kv_empty[kvi % p.kvstages]);
+    if (wg == 0) turn_wait();  // the last turn
     if (tid == 0) tma_store_wait_all();
   }
 }
@@ -692,11 +859,12 @@ EncodeTiled encode_tiled() {
 
 // A bfloat16 [B, T, H, D] tensor with element strides st = (b, t, h), the
 // last axis contiguous, as a 4-d map (D, H, T, B) whose box is 64 columns
-// of `rows` tokens of one (batch, head), 128-byte swizzled. A stride of an
-// axis of extent 1 is never stepped; it gets a value TMA accepts.
+// of `rows` tokens of one (batch, head), 128-byte swizzled. A stride of an axis
+// of extent 1 is never stepped; it gets a value TMA accepts (whole 16-byte
+// pieces).
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int T, int H,
                 int D, const int64_t* st, int rows) {
-  const int64_t sh = H > 1 ? st[2] : D;
+  const int64_t sh = H > 1 ? st[2] : (D + 7) / 8 * 8;
   const int64_t sn = T > 1 ? st[1] : sh * H;
   const int64_t sb = B > 1 ? st[0] : sn * T;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
@@ -711,67 +879,102 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MP, int DP>
+// The number of persistent blocks, at most one per SM: the one whose
+// busiest block has the fewest item rounds (a run of tiles splits into items
+// of up to `consumers` tiles at every (batch, head) boundary, and every item
+// takes a consumer through all the keys), then the fewest tiles, then the
+// most blocks. 1024 tiles of 16 a (batch, head) take 3 rounds on 128 blocks
+// and 4 on 132.
+int choose_grid(int sms, int total, int tiles_per_bh, int consumers) {
+  const int most = sms < total ? sms : total;
+  int best = most, best_rounds = 0x7fffffff, best_tiles = 0x7fffffff;
+  for (int g = most; g >= 1 && 2 * g >= most; --g) {
+    int rounds = 0, tiles = 0;
+    for (int b = 0; b < g; ++b) {
+      const int j0 = static_cast<int>(static_cast<int64_t>(b) * total / g);
+      const int j1 = static_cast<int>(static_cast<int64_t>(b + 1) * total / g);
+      int r = 0;
+      for (int j = j0; j < j1;) {
+        const int end = std::min(j1, (j / tiles_per_bh + 1) * tiles_per_bh);
+        r += (end - j + consumers - 1) / consumers;
+        j = end;
+      }
+      rounds = std::max(rounds, r);
+      tiles = std::max(tiles, j1 - j0);
+    }
+    if (rounds < best_rounds || (rounds == best_rounds && tiles < best_tiles)) {
+      best = g;
+      best_rounds = rounds;
+      best_tiles = tiles;
+    }
+  }
+  return best;
+}
+
+template <int DP, int KT>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                  int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
+  using Shape = WgShape<DP>;
+  constexpr int kThreadsWg = 128 * (Shape::kConsumers + 1);
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -5;
   CUtensorMap tq, tk, tv, to;
   if (!tensor_map(encode, &tq, q, B, N, H, D, st, kTileRows) ||
-      !tensor_map(encode, &tk, k, B, M, H, D, st + 3, MP) ||
-      !tensor_map(encode, &tv, v, B, M, H, D, st + 6, MP) ||
+      !tensor_map(encode, &tk, k, B, M, H, D, st + 3, KT) ||
+      !tensor_map(encode, &tv, v, B, M, H, D, st + 6, KT) ||
       !tensor_map(encode, &to, o, B, N, H, D, st + 9, kTileRows))
     return -4;
-  // the deepest rings that fit: two K, V stages and four q stages at D <= 64
-  const size_t tile = kTileRows * DP * 2, kv = 2 * static_cast<size_t>(MP) * DP * 2;
-  WgParams prm{};
-  size_t smem = 0;
-  for (int ks = kMaxKvStages; ks >= 1 && smem == 0; --ks)
-    for (int qs = kMaxQStages; qs >= 2 && smem == 0; --qs) {
-      const size_t need = 1024 + ks * kv + qs * tile + 2 * kConsumers * tile;
-      if (need + 128 <= static_cast<size_t>(kMaxSmem)) {  // 128: the barriers
-        smem = need;
-        prm.qstages = qs;
-        prm.kvstages = ks;
-      }
-    }
-  if (smem == 0) return -2;
-  auto kern = sr_attention_wgmma_kernel<MP, DP>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  auto kern = sr_attention_wgmma_kernel<DP, KT>;
+  // the registers setmaxnreg hands out must lie within the launch's pool
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * kThreadsWg <
+      128 * (Shape::kProducerRegs + Shape::kConsumers * Shape::kConsumerRegs))
+    return -6;
+  // as many K, V stages as fit beside the q ring and the output tiles
+  const size_t tile = kTileRows * DP * 2, kv = 2 * static_cast<size_t>(KT) * DP * 2;
+  const size_t fixed = 1024 + (kQStages + 2) * Shape::kConsumers * tile;
+  const size_t room = static_cast<size_t>(kMaxSmem) - attr.sharedSizeBytes - fixed;
+  int stages = static_cast<int>(room / kv);
+  if (stages > kMaxKvStages) stages = kMaxKvStages;
+  if (stages < 2) return -2;
+  const size_t smem = fixed + stages * kv;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  WgParams prm{};
   prm.N = N;
   prm.M = M;
   prm.H = H;
   prm.tiles_per_bh = (N + kTileRows - 1) / kTileRows;
-  prm.total_tiles = B * H * prm.tiles_per_bh;
+  const int64_t total = static_cast<int64_t>(B) * H * prm.tiles_per_bh;
+  if (total > 0x7fffffff / 2) return -7;
+  prm.total_tiles = static_cast<int>(total);
+  prm.key_tiles = (M + KT - 1) / KT;
+  prm.kv_stages = stages;
   // a power-of-two scale moves onto the float32 scores exactly
   int e = 0;
   const bool pow2 = std::frexp(scale, &e) == 0.5f;
   prm.q_scale = pow2 ? 0.f : scale;
   prm.score_scale = pow2 ? scale * kLog2e : kLog2e;
-  const int grid = sms < prm.total_tiles ? sms : prm.total_tiles;
-  kern<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, to, prm);
+  const int grid = choose_grid(sms, prm.total_tiles, prm.tiles_per_bh, Shape::kConsumers);
+  kern<<<grid, kThreadsWg, smem, stream>>>(tq, tk, tv, to, prm);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int DP>
-int dispatch_wgmma_m(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
-                     int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
-  if (M <= 64) return launch_wgmma<64, DP>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (M <= 128) return launch_wgmma<128, DP>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (M <= 256) return launch_wgmma<256, DP>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  return -2;
 }
 
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                    int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
-  if (D <= 64) return dispatch_wgmma_m<64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 128) return dispatch_wgmma_m<128>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  // at D <= 64 key tiles of 128 (the per-tile costs spread over more
+  // keys), of 64 where there are no more keys than that; at D <= 128 tiles
+  // of 64 (two stages of 128 would not fit beside the q and o tiles)
+  if (D <= 64 && M <= 64) return launch_wgmma<64, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 64) return launch_wgmma<64, 128>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 128) return launch_wgmma<128, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   return -1;
 }
 
@@ -780,13 +983,16 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
 // Launches on `stream`. q, o: [B, N, H, D]; k, v: [B, M, H, D]; `strides`
 // holds the (batch, token, head) strides in elements of q, k, v, o in that
 // order (12 values); the last axis of each is contiguous. kernel: 0 float32,
-// 1 bfloat16 on mma.sync, 2 bfloat16 on wgmma (M <= 256; 16-byte aligned
-// bases, strides of whole 16-byte pieces, D a multiple of 8). `scale` is
-// 1/sqrt(D) already rounded to the dtype.
+// 1 bfloat16 on mma.sync, 2 bfloat16 on wgmma (16-byte aligned bases,
+// strides of whole 16-byte pieces). `scale` is 1/sqrt(D) already rounded to
+// the dtype.
 // Returns 0 on success, cudaGetLastError() otherwise, -1 when D > 128, -2
-// when what a block stages exceeds the shared memory of an SM, -3 for an
-// unknown kernel, -4 when TMA cannot describe a tensor, -5 when libcuda
-// has no cuTensorMapEncodeTiled. Requires B * H <= 65535; the caller checks.
+// when what a block stages exceeds the shared memory of an SM (mma.sync
+// only), -3 for an unknown kernel, -4 when TMA cannot describe a tensor, -5
+// when libcuda has no cuTensorMapEncodeTiled, -6 when the wgmma kernel's
+// register allocation is smaller than its warpgroups ask for, -7 when the
+// wgmma kernel's work items overflow an int. Requires B * H <= 65535; the
+// caller checks.
 extern "C" int f3s_sr_attention(const void* q, const void* k, const void* v,
                                 void* o, int kernel, int B, int N, int M, int H,
                                 int D, const int64_t* strides, float scale,

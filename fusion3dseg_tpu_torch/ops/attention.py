@@ -33,7 +33,10 @@ _ERRORS = {
     -3: "unsupported dtype",
     -4: "TMA cannot describe the tensors",
     -5: "libcuda has no cuTensorMapEncodeTiled",
+    -6: "the kernel's register allocation is smaller than its warpgroups ask for",
+    -7: "too many query tiles for one launch",
 }
+_MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
 
 def _check(q, k, v, name):
@@ -106,9 +109,6 @@ def sr_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
 
 # K3's kernels, by the code `f3s_sr_attention` takes
 SR_ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
-# the wgmma kernel keeps a 64-row tile's scores in registers: M / 2 floats
-# a thread, 128 at M = 256 (wgmma's widest N)
-WGMMA_MAX_KEYS = 256
 
 
 def _tma_layout(t) -> bool:
@@ -119,28 +119,57 @@ def _tma_layout(t) -> bool:
         t.stride(i) > 0 and t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
 
 
+def _wgmma_direct(q, k, v) -> bool:
+    """The wgmma kernel reads q, k, v (and writes a fresh output) as they
+    are: D a multiple of 8 and every tensor a TMA layout."""
+    return q.shape[-1] % 8 == 0 and all(_tma_layout(t) for t in (q, k, v))
+
+
+def _mma_fits(M: int, D: int) -> bool:
+    """The mma.sync kernel stages K and V of one (batch, head), [Mp, 16 NK + 8]
+    and V transposed [16 NK, Mp + 8] in bfloat16, in an SM's shared memory:
+    848 keys at D = 64, 432 at D = 128."""
+    nk = -(-D // 16)
+    nk = 1 << (nk - 1).bit_length()  # the kernel's head-dim padding: 1, 2, 4 or 8
+    mp = -(-M // 16) * 16
+    return (mp * (16 * nk + 8) + 16 * nk * (mp + 8)) * 2 <= _MAX_SMEM
+
+
 def _sr_route(q, k, v) -> str:
     """The kernel a CUDA call of `sr_attention` launches: "f32" for float32;
-    for bfloat16 "wgmma" (TMA-fed, one pass) when M <= WGMMA_MAX_KEYS, D is
-    a multiple of 8 and TMA can describe q, k and v, else "mma"
-    (`mma.sync`, any strides, M up to what shared memory holds)."""
+    for bfloat16 "wgmma" (TMA-fed, keys streamed in tiles, any M) when TMA
+    can describe q, k and v, else "mma" (`mma.sync`, any strides) while K
+    and V of one (batch, head) fit its shared memory, else "wgmma" again on
+    copies of q, k and v in a TMA layout (`_tma_copy`)."""
     if q.dtype != torch.bfloat16:
         return "f32"
-    if (k.shape[1] <= WGMMA_MAX_KEYS and q.shape[-1] % 8 == 0
-            and all(_tma_layout(t) for t in (q, k, v))):
+    if _wgmma_direct(q, k, v) or not _mma_fits(k.shape[1], q.shape[-1]):
         return "wgmma"
     return "mma"
+
+
+def _tma_copy(t, width: int):
+    """t [B, T, H, D] copied into fresh storage whose rows are `width`
+    (>= D, a multiple of 8) elements, as a [B, T, H, D] view of it."""
+    out = torch.empty((*t.shape[:3], width), dtype=t.dtype, device=t.device)[..., :t.shape[3]]
+    return out.copy_(t)
 
 
 def launch_sr_attention(q, k, v, route: str) -> torch.Tensor:
     """One launch of K3's kernel `route` on CUDA tensors, counted in
     `sr_attention.launches` and `sr_attention.routes`. `sr_attention` calls
     it with `_sr_route`'s choice; measurement tools name a route to time a
-    kernel on a layout the other one would take."""
+    kernel on a layout the other one would take. "wgmma" on tensors TMA
+    cannot describe copies them into a TMA layout first; the result is then
+    a view of storage whose rows are D rounded up to 8."""
     if (route == "f32") != (q.dtype == torch.float32):
         raise ValueError(f"sr_attention: route {route!r} does not take {q.dtype}")
     B, N, H, D = q.shape
-    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    width = D
+    if route == "wgmma" and D <= MAX_HEAD_DIM and not _wgmma_direct(q, k, v):
+        width = -(-D // 8) * 8
+        q, k, v = (_tma_copy(t, width) for t in (q, k, v))
+    out = torch.empty((B, N, H, width), dtype=q.dtype, device=q.device)[..., :D]
     _launch("f3s_sr_attention", "sr_attention", (q, k, v), out, (B, N, k.shape[1], H, D),
             kernel=SR_ROUTES[route])
     sr_attention.launches += 1
@@ -151,10 +180,10 @@ def launch_sr_attention(q, k, v, route: str) -> torch.Tensor:
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Fused spatial-reduction attention: q [B, N, H, D] against k, v
     [B, M, H, D]; returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D)
-    happens here. Any N; D <= 128; K and V of one (batch, head) must fit an
-    SM's shared memory (M = 512 at D = 64 in bfloat16 does), else it raises.
-    bfloat16 runs on the tensor cores (`_sr_route` picks the kernel),
-    float32 on the CUDA cores.
+    happens here. Any N, any M, D <= 128 (the JAX kernel's domain: M up to
+    what VMEM holds). bfloat16 runs on the tensor cores (`_sr_route` picks
+    the kernel), float32 on the CUDA cores; the wgmma and float32 kernels
+    stream the keys through shared memory in tiles.
 
     Forward only, like the JAX package's kernel: raises when an input
     requires grad while grad is enabled. A CUDA tensor launches a kernel

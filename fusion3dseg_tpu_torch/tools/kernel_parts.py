@@ -8,14 +8,17 @@ Builds `csrc/histogram.cu`, `csrc/neighborhood_attention.cu` and
 every variant at the shapes of the kernel table: K1 at [300, 1M] uint8, 133
 classes, the label lifter's row pitch, 85% and 10% of entries invalid; K2
 at [8, 64*64, 1, 64] and [2, 128*128, 1, 64], window 7, bfloat16; K3's two
-bfloat16 kernels (wgmma and mma.sync, each named through
-`launch_sr_attention`) at its three shapes. Each variant runs 20 times inside
+bfloat16 kernels (wgmma and, where its shared memory holds the keys,
+mma.sync, each named through `launch_sr_attention`) at `K3_SHAPES` (B2's
+calls at 256x256, 512x512 and 1024x1024). Each variant runs 20 times inside
 one CUDA graph, replayed 5 times between two CUDA events. The variants with
 a part left out compute wrong results by design; only their times count.
-Needs a CUDA device.
+`--kernels k3` times one kernel alone. Needs a CUDA device.
 """
 
 from __future__ import annotations
+
+import argparse
 
 import torch
 
@@ -29,7 +32,10 @@ VARIANTS = (("whole", ()), ("loads left out", ("F3S_PARTS=1",)),
             ("arithmetic left out", ("F3S_PARTS=2",)))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="k1,k2,k3", help="comma-separated subset of k1,k2,k3")
+    kernels = set(ap.parse_args(argv).kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
@@ -39,7 +45,7 @@ def main():
     F, N, nclasses = 300, 1_000_000, 133
     pitch = hist.row_pitch(N + 1)
     cases = []
-    for share in (0.85, 0.10):
+    for share in (0.85, 0.10) if "k1" in kernels else ():
         C = torch.randint(0, nclasses + 1, (F, pitch), device=dev, dtype=torch.int32,
                           generator=gen)
         C = torch.where(torch.rand((F, pitch), device=dev, generator=gen) < share, 255, C)
@@ -47,16 +53,16 @@ def main():
         cases.append((f"K1 histogram_classify [{F}, {N}] pitch {pitch}, "
                       f"{round(100 * share)}% invalid", "histogram",
                       lambda C=C: hist.histogram_classify(C, nclasses, 0.5)))
-    for B, h, w in ((8, 64, 64), (2, 128, 128)):
+    for B, h, w in ((8, 64, 64), (2, 128, 128)) if "k2" in kernels else ():
         q, k, v = (torch.randn((B, h * w, 1, 64), device=dev, generator=gen).bfloat16()
                    for _ in range(3))
         cases.append((f"K2 neighborhood_attention [{B},{h}*{w},1,64] window 7 bf16",
                       "neighborhood_attention",
                       lambda q=q, k=k, v=v, h=h, w=w: attn.neighborhood_attention(q, k, v, h, w, 7)))
-    for B, N, H, M in K3_SHAPES:
+    for B, N, H, M in K3_SHAPES if "k3" in kernels else ():
         q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
                    for s in ((B, N, H, 64), (B, M, H, 64), (B, M, H, 64)))
-        for route in ("wgmma", "mma"):
+        for route in ("wgmma", "mma") if attn._mma_fits(M, 64) else ("wgmma",):
             cases.append((f"K3 sr_attention ({route}) [{B},{N},{H},64]x[{B},{M},{H},64] bf16",
                           "sr_attention",
                           lambda q=q, k=k, v=v, r=route: attn.launch_sr_attention(q, k, v, r)))

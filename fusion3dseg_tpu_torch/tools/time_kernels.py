@@ -11,10 +11,12 @@ the port has (`histogram_classify`, `neighborhood_attention`,
 uint8, rows 1,000,064 bytes apart (16-byte aligned) and 1,000,001 bytes
 apart; 133 classes with 85% and 10% of entries invalid, then 254 and 20
 classes (the counters decide how many blocks an SM holds). K2:
-[8, 64*64, 1, 64] window 7 in bfloat16 and float32. K3 in bfloat16:
-[8,4096,1,64]x[8,64,1,64], [8,1024,2,64]x[8,64,2,64] and
-[2,16384,1,64]x[2,256,1,64]. Each kernel runs 20 times inside one CUDA
-graph, replayed 5 times between two CUDA events. Needs a CUDA device.
+[8, 64*64, 1, 64] window 7 in bfloat16 and float32. K3 in bfloat16 at
+`K3_SHAPES`: SegFormer-B2's calls at 256x256, 512x512 and 1024x1024
+(batch 8) and [2,16384,1,64]x[2,256,1,64]; a checkout whose K3 raises at a
+shape says so. `--kernels k3` times K3 alone. Each kernel runs 20 times
+inside one CUDA graph, replayed 5 times between two CUDA events. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ from pathlib import Path
 
 import torch
 
-# K3's timed shapes (B, N, H, M) at D = 64: B2 stages 0 and 1 at 256x256,
-# stage 0 at 512x512
-K3_SHAPES = ((8, 4096, 1, 64), (8, 1024, 2, 64), (2, 16384, 1, 256))
+# K3's timed shapes (B, N, H, M) at D = 64: SegFormer-B2's calls at batch 8,
+# stages 0 and 1 at 256x256, stages 0-2 at 512x512, stages 0-3 at
+# 1024x1024; and stage 0 at 512x512 at batch 2
+K3_SHAPES = ((8, 4096, 1, 64), (8, 1024, 2, 64), (2, 16384, 1, 256),
+             (8, 16384, 1, 256), (8, 4096, 2, 256), (8, 1024, 5, 256),
+             (8, 65536, 1, 1024), (8, 16384, 2, 1024), (8, 4096, 5, 1024), (8, 1024, 8, 1024))
 
 
 def graph_ms(fn, iters=20, replays=5):
@@ -55,7 +60,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose fusion3dseg_tpu_torch is timed")
-    root = str(Path(ap.parse_args(argv).root).resolve())
+    ap.add_argument("--kernels", default="k1,k2,k3", help="comma-separated subset of k1,k2,k3")
+    args = ap.parse_args(argv)
+    root = str(Path(args.root).resolve())
+    kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     sys.path.insert(0, root)
@@ -69,7 +77,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     F, N = 300, 1_000_000
-    for pitch in (1_000_064, 1_000_001):
+    for pitch in (1_000_064, 1_000_001) if "k1" in kernels else ():
         for nclasses, share in ((133, 0.85), (133, 0.10), (254, 0.85), (20, 0.85)):
             C = torch.randint(0, nclasses + 1, (F, pitch), device=dev, dtype=torch.int32,
                               generator=gen)
@@ -79,16 +87,19 @@ def main(argv=None):
             print(f"K1 histogram_classify [{F}, {N}] pitch {pitch}, {nclasses} classes, "
                   f"{round(100 * share)}% invalid: {ms:.4f} ms")
             del C
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if "k2" in kernels else ():
         q, k, v = (torch.randn((8, 64 * 64, 1, 64), device=dev, generator=gen).to(dtype)
                    for _ in range(3))
         ms = graph_ms(lambda: attn.neighborhood_attention(q, k, v, 64, 64, 7))
         print(f"K2 neighborhood_attention [8,64*64,1,64] window 7 {dtype}: {ms:.4f} ms")
-    for B, N, H, M in K3_SHAPES:
+    for B, N, H, M in K3_SHAPES if "k3" in kernels else ():
         q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
                    for s in ((B, N, H, 64), (B, M, H, 64), (B, M, H, 64)))
-        ms = graph_ms(lambda: attn.sr_attention(q, k, v))
-        print(f"K3 sr_attention [{B},{N},{H},64]x[{B},{M},{H},64] bf16: {ms:.4f} ms")
+        try:  # a checkout whose K3 does not take this M raises
+            ms = f"{graph_ms(lambda: attn.sr_attention(q, k, v)):.4f} ms"
+        except RuntimeError as e:
+            ms = f"raises ({e})"
+        print(f"K3 sr_attention [{B},{N},{H},64]x[{B},{M},{H},64] bf16: {ms}")
 
 
 if __name__ == "__main__":

@@ -151,18 +151,34 @@ def _qkv(shape_q, shape_kv, dtype, device, seed=0):
     (2, 16384, 1, 64, 256, torch.bfloat16, "wgmma"),  # stage 0 at 512x512
     (1, 1000, 3, 32, 37, torch.float32, "f32"),  # ragged everything
     (2, 77, 2, 8, 5, torch.float32, "f32"),  # the smallest lane chunk
-    (1, 512, 1, 128, 300, torch.bfloat16, "mma"),  # the largest head dim, M past 256
+    (1, 512, 1, 128, 300, torch.bfloat16, "wgmma"),  # the largest head dim, M past 256
     (1, 300, 2, 24, 40, torch.bfloat16, "wgmma"),  # D between 64-column blocks: zero-filled
     (2, 700, 2, 64, 1, torch.bfloat16, "wgmma"),  # one key
     (1, 1000, 3, 64, 37, torch.bfloat16, "wgmma"),  # M, N off every tile: masked keys, clipped rows
-    (2, 640, 1, 64, 200, torch.bfloat16, "wgmma"),  # M in the 256-key kernel, masked
-    (1, 600, 2, 16, 100, torch.bfloat16, "wgmma"),  # the 128-key kernel; 1/4 a power of two
+    (2, 640, 1, 64, 200, torch.bfloat16, "wgmma"),  # two 128-key tiles, the last masked
+    (1, 600, 2, 16, 100, torch.bfloat16, "wgmma"),  # one 128-key tile; 1/4 a power of two
     (3, 1000, 5, 64, 64, torch.bfloat16, "wgmma"),  # 240 tiles: runs cross (batch, head)
     (40, 64, 5, 64, 64, torch.bfloat16, "wgmma"),  # a tile per (batch, head)
     (16, 50, 5, 32, 37, torch.bfloat16, "wgmma"),  # and ragged, q rounded in shared memory
     (2, 1024, 2, 32, 64, torch.bfloat16, "wgmma"),  # D = 32
     (2, 1000, 1, 128, 64, torch.bfloat16, "wgmma"),  # D = 128: two column blocks
-    (1, 2048, 2, 128, 256, torch.bfloat16, "wgmma"),  # and 256 keys: one K, V stage
+    (1, 2048, 2, 128, 256, torch.bfloat16, "wgmma"),  # and 256 keys: 4 tiles, 3 stages
+    # keys in tiles of 128 (64 at D = 128): one key past two tiles; M where
+    # the mma.sync kernel's shared memory gave out (849, 433); the ring
+    # holding every key tile (up to 512 at D = 64) or streaming them (1024,
+    # 2048, 4096; past 192 at D = 128)
+    (2, 700, 2, 64, 257, torch.bfloat16, "wgmma"),
+    (2, 640, 1, 64, 400, torch.bfloat16, "wgmma"),  # B2 stage 0 at 640x640
+    (1, 1000, 3, 64, 849, torch.bfloat16, "wgmma"),
+    (8, 1024, 8, 64, 1024, torch.bfloat16, "wgmma"),  # B2 stage 3 at 1024x1024
+    (1, 777, 2, 64, 2048, torch.bfloat16, "wgmma"),  # ragged N
+    (1, 512, 1, 64, 4096, torch.bfloat16, "wgmma"),
+    (1, 600, 2, 128, 433, torch.bfloat16, "wgmma"),
+    (2, 1000, 1, 128, 1024, torch.bfloat16, "wgmma"),
+    (3, 450, 5, 32, 1000, torch.bfloat16, "wgmma"),  # items cross (batch, head); q rounded
+    (2, 300, 2, 64, 363, torch.float32, "f32"),  # float32 K, V tiles: past the old limits
+    (1, 1000, 2, 64, 1024, torch.float32, "f32"),
+    (1, 200, 1, 128, 5000, torch.float32, "f32"),
 ])
 def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype, route):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -230,9 +246,30 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     big = torch.zeros((1, 8, 1, 256), device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         attn.sr_attention(big, big, big)
-    many = torch.zeros((1, 5000, 1, 128), device=cuda_device)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        attn.sr_attention(many, many, many)
+    # 5000 keys at D = 128 in float32: the key tiles stream (this raised
+    # before K3 took any M)
+    many = torch.randn((1, 5000, 1, 128), device=cuda_device)
+    got = attn.sr_attention(many, many, many)
+    want = attn.sr_attention_reference(many, many, many)
+    assert (got - want).abs().max().item() <= F32_BAR
+    # a layout TMA cannot describe, with more keys than the mma.sync kernel
+    # holds: copied into a TMA layout for the wgmma kernel
+    flat = torch.randn(4 + 1024 * 64, device=cuda_device).bfloat16()
+    ko = flat[4:].view(1, 1024, 1, 64)
+    qc = torch.randn((1, 700, 1, 64), device=cuda_device).bfloat16()
+    assert not attn._mma_fits(1024, 64) and attn._sr_route(qc, ko, ko) == "wgmma"
+    before = attn.sr_attention.routes["wgmma"]
+    got = attn.sr_attention(qc, ko, ko)
+    assert attn.sr_attention.routes["wgmma"] == before + 1
+    want = attn.sr_attention_reference(qc, ko.contiguous(), ko.contiguous())
+    assert (got.float() - want.float()).abs().max().item() <= BF16_BAR
+    # and a head dim whose rows are not whole 16-byte pieces (D = 20)
+    q20, k20 = (torch.randn((2, s, 2, 20), device=cuda_device).bfloat16() for s in (300, 2000))
+    assert attn._sr_route(q20, k20, k20) == "wgmma"
+    got = attn.sr_attention(q20, k20, k20)
+    want = attn.sr_attention_reference(q20, k20, k20)
+    assert got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= BF16_BAR
 
 
 @pytest.mark.cuda
@@ -306,22 +343,38 @@ def test_neighborhood_attention_backward(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [{"use_pallas_attention": True}, {"nat_windows": (5, 0, 0, 0)}],
-                         ids=["sr_kernel", "nat_kernel"])
+@pytest.mark.parametrize("kw", [{"use_pallas_attention": True}, {"nat_windows": (5, 0, 0, 0)},
+                                {"b2": True, "use_pallas_attention": True}],
+                         ids=["sr_kernel", "nat_kernel", "b2_1024"])
 def test_segmenter_cuda_matches_cpu(cuda_device, kw):
     # the segmenter on the card (through the kernels) against the port on
-    # the CPU (which the CPU tests hold to JAX): float32, a tiny config at
-    # 128x128 so that stage 0 has N = 1024 and takes the fused branch
+    # the CPU (which the CPU tests hold to JAX), float32: a tiny config at
+    # 128x128 so that stage 0 has N = 1024 and takes the fused branch; and
+    # the shipped B2 at 1024x1024, where every stage has 1024 keys and all
+    # 16 blocks take the kernel
+    import dataclasses
+
     from fusion3dseg_tpu_torch.io.synthetic import make_session
-    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
     from fusion3dseg_tpu_torch.ops import attention as attn
     from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
 
-    cfg = SegFormerConfig(num_classes=134, embed_dims=(8, 16, 24, 32), depths=(1, 1, 1, 1),
-                          num_heads=(1, 2, 3, 4), decoder_dim=32, dtype=torch.float32, **kw)
+    kw = dict(kw)
     frames = make_session(nframes=2, depth_hw=(48, 36), appearance="textured").colors
     counter = attn.sr_attention if "use_pallas_attention" in kw else attn.neighborhood_attention
     before = counter.launches
+    if kw.pop("b2", False):
+        cfg = dataclasses.replace(SegFormerConfig.b2(), dtype=torch.float32, **kw)
+        ckpt = convert.shipped_checkpoint("b2")
+        on_card, on_cpu = (Segmenter2D(cfg, ckpt, input_hw=(1024, 1024), batch_size=2,
+                                       device=dev) for dev in ("cuda", "cpu"))
+        got = on_card.predict_batch(frames, 0.0)
+        assert counter.launches == before + 16  # 3 + 4 + 6 + 3 blocks, each M = 1024
+        agree = (got == on_cpu.predict_batch(frames, 0.0)).mean()
+        assert agree >= 0.999, agree
+        return
+    cfg = SegFormerConfig(num_classes=134, embed_dims=(8, 16, 24, 32), depths=(1, 1, 1, 1),
+                          num_heads=(1, 2, 3, 4), decoder_dim=32, dtype=torch.float32, **kw)
     on_card = Segmenter2D(cfg, input_hw=(128, 128), batch_size=2, seed=0, device="cuda")
     on_cpu = Segmenter2D(cfg, input_hw=(128, 128), batch_size=2, seed=0, device="cpu")
     x = on_cpu._model_input(frames)

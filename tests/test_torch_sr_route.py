@@ -36,16 +36,38 @@ def _aligned_view(shape, offset_elems, row=None):
 @pytest.mark.parametrize("shape_q,shape_kv,route", [
     ((8, 4096, 1, 64), (8, 64, 1, 64), "wgmma"),  # B2 stage 0
     ((8, 1024, 2, 64), (8, 64, 2, 64), "wgmma"),  # B2 stage 1
-    ((2, 16384, 1, 64), (2, 256, 1, 64), "wgmma"),  # the most keys it takes
-    ((2, 512, 1, 64), (2, 257, 1, 64), "mma"),  # one key more
-    ((1, 512, 1, 128), (1, 300, 1, 128), "mma"),
+    ((2, 16384, 1, 64), (2, 256, 1, 64), "wgmma"),
+    ((2, 512, 1, 64), (2, 257, 1, 64), "wgmma"),  # keys in tiles: any M
+    ((1, 512, 1, 128), (1, 300, 1, 128), "wgmma"),
     ((1, 300, 2, 24), (1, 40, 2, 24), "wgmma"),  # D a multiple of 8
     ((1, 300, 2, 20), (1, 40, 2, 20), "mma"),  # D, and the head stride, not
     ((2, 700, 2, 64), (2, 1, 2, 64), "wgmma"),  # one key
+    ((8, 65536, 1, 64), (8, 1024, 1, 64), "wgmma"),  # B2 stage 0 at 1024x1024
+    ((1, 300, 2, 20), (1, 1600, 2, 20), "mma"),  # the most keys mma.sync holds at D = 20
+    ((1, 300, 2, 20), (1, 1601, 2, 20), "wgmma"),  # one more: copied into a TMA layout
 ])
 def test_route_by_shape(shape_q, shape_kv, route):
     q, k, v = _bf16(*shape_q), _bf16(*shape_kv), _bf16(*shape_kv)
     assert tattn._sr_route(q, k, v) == route
+
+
+@pytest.mark.parametrize("M,D,fits", [(848, 64, True), (849, 64, False), (432, 128, True),
+                                        (433, 128, False), (1600, 20, True), (1601, 20, False)])
+def test_mma_shared_memory(M, D, fits):
+    # K [Mp, 16 NK + 8] and V transposed [16 NK, Mp + 8] in bfloat16 against
+    # an SM's 232,448 bytes (Mp = M rounded up to 16, NK = D / 16 rounded
+    # up to a power of two)
+    assert tattn._mma_fits(M, D) == fits
+
+
+@pytest.mark.parametrize("D,width", [(64, 64), (20, 24), (3, 8)])
+def test_tma_copy(D, width):
+    # a layout TMA cannot describe, copied into rows of whole 16-byte pieces
+    t = _aligned_view((2, 30, 3, D), 1, row=3 * D + 1)
+    assert not tattn._tma_layout(t)
+    c = tattn._tma_copy(t, width)
+    assert c.shape == t.shape and torch.equal(c, t)
+    assert c.stride() == (30 * 3 * width, 3 * width, width, 1) and tattn._tma_layout(c)
 
 
 def test_route_by_dtype():
