@@ -32,7 +32,12 @@ Phases (each prints its own lines; any failure exits non-zero):
             and `scaled_dot_product_attention` (timed here, used nowhere
             else). Every counted K3 launch of phases 7-12 must take the
             wgmma kernel; their counts by kernel print before the kernels
-            line.
+            line. The neighbourhood kernel (K2): its launcher's chunk plan
+            against `_nat_plan` (every odd window to 255, widths to 256),
+            windows 1 to 63 in both dtypes at D = 7 to 128 (windows 15-63
+            streaming the halo, column pieces, a halo clamped inside the
+            window), timed at window 7 ([8, 64*64] and [2, 128*128]) and 23
+            beside its bound and the masked `scaled_dot_product_attention`.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
             the fused spatial-reduction kernel (launches counted, pixel
@@ -41,8 +46,9 @@ Phases (each prints its own lines; any failure exits non-zero):
             512x512 and 1024x1024 (13 and 16 K3 launches a forward, masks and
             logits against the plain versions, frames/s, peak memory); then
             B2 width with a neighbourhood-attention first stage (the shipped
-            weights less that stage's reduction conv), and `predict`'s
-            contract.
+            weights less that stage's reduction conv) at windows 7 and 23
+            (K2 launches counted, masks against the plain versions), and
+            `predict`'s contract.
 8. stream   `stream_segment` on that session: votes' contract, run twice
             bit-identical, classes against predict_batch + vote_and_classify.
 9. fusion   the main path `segment_session_fast`. Masks branch on the
@@ -492,9 +498,12 @@ def _window_pairs(n, r):
 def attention_phase(card):
     """Phase 6: K3 and K2 against their plain versions. Returns their
     entries for the kernels line (`launches` still 0: phase 7 counts them)."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
+    from fusion3dseg_tpu_torch import cuda
     from fusion3dseg_tpu_torch.ops import attention as attn
 
     dev = torch.device("cuda")
@@ -611,6 +620,23 @@ def attention_phase(card):
            "source": "fusion3dseg_tpu_torch/csrc/neighborhood_attention.cu",
            "replaces": "fusion3dseg_tpu/ops/attention.py:151", "launches": 0,
            "max_abs_err": 0.0}
+    # the launcher's chunk plan against its mirror in ops/attention.py, over
+    # the domain tests/test_torch_nat_windows.py checks on the CPU
+    plan_fn = cuda.load("neighborhood_attention").f3s_nat_plan
+    plan_fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int64)]
+    got_plan, cases = (ctypes.c_int64 * 4)(), 0
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for D in (8, 24, 32, 64, 128):
+            for window in range(1, 256, 2):
+                for w in range(1, 257):
+                    want_plan = tuple(attn._nat_plan(window, D, dtype, w))
+                    if plan_fn(code, window, D, w, got_plan) != 0 or tuple(got_plan) != want_plan:
+                        fail(f"neighborhood_attention: the launcher plans {tuple(got_plan)} for "
+                             f"window {window}, D {D}, {dtype}, width {w}; _nat_plan "
+                             f"{want_plan}")
+                    cases += 1
+    log(f"attention: neighborhood_attention: the launcher's chunk plan equals _nat_plan in "
+        f"{cases} cases (odd windows 1-255, D 8-128, widths 1-256, both dtypes)")
     for B, h, w, H, D, window, dtype, time_it in (
             (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", True),
             (1, 9, 11, 2, 8, 5, "f32", False),
@@ -620,7 +646,20 @@ def attention_phase(card):
             (1, 12, 30, 1, 64, 13, "bf16", False), (1, 13, 9, 1, 16, 13, "f32", False),
             (1, 20, 7, 2, 24, 3, "bf16", False), (2, 10, 12, 2, 128, 5, "bf16", False),
             (1, 11, 10, 1, 20, 5, "bf16", False), (1, 9, 9, 3, 7, 3, "bf16", False),
-            (1, 9, 9, 3, 7, 3, "f32", False)):
+            (1, 9, 9, 3, 7, 3, "f32", False),
+            # windows whose halo is streamed in chunks: 23 at B2's stage 0
+            # (timed), 15 and 23 at D = 64 and 128 in both dtypes on ragged
+            # grids, 41 and 63 with rows cut into column pieces (63 at 12 x
+            # 100, D = 128), and a halo clamped far inside the window (63 on
+            # a 9 x 10 image)
+            (8, 64, 64, 1, 64, 23, "bf16", True), (1, 16, 16, 1, 64, 15, "f32", False),
+            (2, 17, 19, 1, 64, 15, "bf16", False), (1, 21, 18, 2, 128, 15, "bf16", False),
+            (1, 21, 18, 2, 128, 15, "f32", False), (2, 40, 37, 1, 64, 23, "f32", False),
+            (1, 30, 27, 1, 128, 23, "bf16", False), (1, 30, 27, 1, 128, 23, "f32", False),
+            (1, 24, 30, 2, 128, 41, "bf16", False), (1, 24, 30, 2, 64, 41, "f32", False),
+            (1, 12, 100, 1, 128, 63, "bf16", False), (1, 20, 24, 1, 128, 63, "f32", False),
+            (1, 33, 100, 1, 64, 63, "bf16", False), (1, 9, 10, 1, 128, 63, "bf16", False),
+            (1, 9, 10, 1, 64, 63, "f32", False)):
         N = h * w
         q, k, v = qkv((B, N, H, D), (B, N, H, D), dtype)
         shape = f"[{B},{h}*{w},{H},{D}] window {window}"
@@ -628,7 +667,7 @@ def attention_phase(card):
                    attn.neighborhood_attention_reference(q, k, v, h, w, window), dtype, shape)
         nat["max_abs_err"] = max(nat["max_abs_err"], err)
         log(f"attention: neighborhood_attention {shape} {dtype}: max abs err {err:.3e} "
-            "vs plain version")
+            f"vs plain version; {attn._nat_plan(window, D, dtypes[dtype], w)}")
         if time_it:
             r = window // 2
             iy, ix = torch.arange(h, device=dev), torch.arange(w, device=dev)
@@ -804,20 +843,25 @@ def segmenter_phase(card):
     # norm, which a neighbourhood stage does not have: not trained for this
     # attention, but decisive logits, so that masks can be compared (seeded
     # random weights give near-flat logits whose argmax flips on rounding)
-    cfg_nat = dataclasses.replace(SegFormerConfig.b2(), nat_windows=(7, 0, 0, 0))
     flat = {k: v for k, v in convert.flatten_params(convert.load_params_npz(ckpt)).items()
             if not (k.startswith("stage0_") and ("/sr/" in k or
                                                  "EfficientAttention_0/LayerNorm_0" in k))}
-    state = convert.from_flax_params(flat, cfg_nat)
-    seg_nat, plain_nat = (Segmenter2D(cfg_nat, input_hw=(256, 256), batch_size=batch,
-                                      device="cuda", use_cuda_attention=use)
-                          for use in (True, False))
-    for s in (seg_nat, plain_nat):
-        s.model.load_state_dict(state)
-    _, nat_launches = compare("B2 width, nat_windows=(7,0,0,0), shipped weights less the "
-                              "first stage's reduction", seg_nat, plain_nat, 3,
-                              attn.neighborhood_attention, NAT_MASK_AGREE_BAR)
-    del seg_nat, plain_nat
+    nat_launches = 0
+    # window 7, whose halo the kernel stages once, and window 23 (stage 0's
+    # 64 x 64 tokens, D = 64), whose halo it streams in bands of rows
+    for window in (7, 23):
+        cfg_nat = dataclasses.replace(SegFormerConfig.b2(), nat_windows=(window, 0, 0, 0))
+        state = convert.from_flax_params(flat, cfg_nat)
+        seg_nat, plain_nat = (Segmenter2D(cfg_nat, input_hw=(256, 256), batch_size=batch,
+                                          device="cuda", use_cuda_attention=use)
+                              for use in (True, False))
+        for s in (seg_nat, plain_nat):
+            s.model.load_state_dict(state)
+        _, n = compare(f"B2 width, nat_windows=({window},0,0,0), shipped weights less the "
+                       "first stage's reduction", seg_nat, plain_nat, 3,
+                       attn.neighborhood_attention, NAT_MASK_AGREE_BAR)
+        nat_launches += n
+        del seg_nat, plain_nat
 
     # predict: the reference predictor's output contract
     out = seg.predict(frames[0][:, :, ::-1])

@@ -18,46 +18,65 @@
 //
 // Bound on an H100 (SXM): bytes. The function reads q, k, v and writes o
 // once (4 * B*N*H*D elements; 16.8 MB, 5 us at [8, 64*64, 1, 64] bfloat16)
-// and does 4 * window^2 * D operations per query, under a microsecond at the
-// tensor cores' bfloat16 rate even when done densely over a tile's halo.
+// and does 4 * window^2 * D operations per query: 0.4 us at the tensor
+// cores' bfloat16 rate at window 7, 3.7 us at window 23 (both at that
+// shape), so bytes bound it up to window 27 or so at D = 64.
 //
-// Both kernels: a block owns an 8 x 8 tile of queries of one (batch, head)
-// and stages the (8 + 2r)^2 halo of K and V in shared memory once, with
-// 16-byte cp.async copies all in flight at once (zero-filled outside the
-// image and past D), so each K/V element is read from L2 (1 + 2r/8)^2 times
-// (3.06 at window 7) instead of window^2 times. Where D, the strides or the
-// bases do not allow 16-byte copies the staging falls back to one element a
-// load. No padded K/V copy in device memory, no [B*H, N, D] transposes
-// (strides are read directly), no height % tile requirement: a ragged tile
-// computes on zeros and does not store.
+// Both kernels: a block owns an 8 x 8 tile of queries of one (batch, head).
+// The keys any of its queries sees lie in the tile's halo, (8 + 2r)^2
+// positions around it clamped to the image (r = window / 2; positions
+// outside the image are masked, so they are never staged). The block walks
+// that clamped halo in chunks: bands of `band_rows` rows, each cut into
+// pieces of `band_cols` columns where one whole row of K and V would not
+// fit. Chunks go through a ring of two shared-memory buffers filled by
+// 16-byte cp.async copies: while the block computes on one chunk, the next
+// one's copies are in flight. The running maximum and sum of the online
+// softmax carry from chunk to chunk, as the TPU kernel's carry across its
+// rows of keys (`dy_step`). Where the whole clamped halo fits the budget
+// (`kBudget`, four blocks an SM) it is one chunk in one buffer, staged once:
+// window 7 at D <= 64 in bfloat16, as before. So any odd window runs, at
+// any width, with at most kBudget bytes (or the 64 output rows of the
+// bfloat16 kernel's store, whichever is more) of shared memory a block;
+// `nat_plan` chooses and ops/attention.py `_nat_plan` mirrors it. Each K/V
+// element is read from L2 once for every tile whose halo holds it, (1 +
+// 2r/8)^2 times in the interior (3.06 at window 7) instead of window^2
+// times. Where D, the strides or the bases do not allow 16-byte copies the
+// staging falls back to one element a load. No padded K/V copy in device
+// memory, no [B*H, N, D] transposes (strides are read directly), no
+// height % tile requirement: a ragged tile computes on zeros and does not
+// store.
 //
 // * bfloat16 (`nat_mma_kernel`): both products on the tensor cores, mma.sync
 //   m16n8k16. A warp owns 16 queries, two rows of the tile, and multiplies
-//   them against every key of its own sub-halo: (2 + 2r) halo rows, each cut
-//   into slots of 8 columns (128 key slots at window 7, of which 49 a query
-//   are its window). Keys outside a query's window or outside the image
-//   score -inf from coordinates; softmax runs online over steps of four
-//   slots in the accumulator layout, in base 2; slots on halo rows outside
-//   the image are skipped. K and V fragments come from the position-major
-//   halo by ldmatrix (V's transposed by the instruction), rows of D + 8
-//   elements so that the eight rows of a matrix fall on different banks. The
-//   probabilities stay float32-grade: p is split into a bfloat16 high part
-//   and a bfloat16 remainder and the second product runs on both, so
-//   the plain version needs no rounding of p. The output goes through the K
-//   halo's room in shared memory, so that a lane stores 16 bytes. The dense
-//   work is 2.6 times the windowed work and still far below the bound.
-//   Shared memory at window 7, D = 64: 2 * 196 * 72 * 2 = 56,448 bytes a
-//   block, four blocks (16 warps, at most 128 registers a thread) an SM; the
-//   512 blocks of [8, 64*64, 1, 64] and of [2, 128*128, 1, 64] are one wave
-//   of the 528 slots, so every block stages at once (25.7 MB of halo from
-//   L2) and then every block computes: the two do not overlap, and the
-//   computing is the longer (`tools/kernel_parts.py` times the two apart).
-//   It runs at under one instruction a cycle an SM: four warps a scheduler,
-//   each a chain of mma.sync, shuffles and exponentials through a step.
+//   them against every key of a chunk on the rows its queries see (at most
+//   2 + 2r of them), each row cut into slots of 8 columns. Keys outside a
+//   query's window score -inf from coordinates; softmax runs online over
+//   steps of four slots in the accumulator layout, in base 2. Warps finish
+//   a chunk at different times; the block meets at one __syncthreads before
+//   a chunk (its copies have landed) and one after (its buffer may be
+//   refilled), every warp through every chunk, so ragged tiles and warps
+//   with no rows in a chunk cannot deadlock. K and V fragments come from the
+//   position-major chunk by ldmatrix (V's transposed by the instruction),
+//   rows of D + 8 elements so that the eight rows of a matrix fall on
+//   different banks. The probabilities stay float32-grade: p is split into a
+//   bfloat16 high part and a bfloat16 remainder and the second product runs
+//   on both, so the plain version needs no rounding of p. The output goes
+//   through the first buffer's room in shared memory, so that a lane stores
+//   16 bytes. The dense work (the chunk's width against every query of the
+//   warp) is 2.6 times the windowed work at window 7 and still far below the
+//   bound. At window 7, D = 64: 2 * 196 * 72 * 2 = 56,448 bytes a block, four
+//   blocks (16 warps, at most 128 registers a thread) an SM; the 512 blocks
+//   of [8, 64*64, 1, 64] and of [2, 128*128, 1, 64] are one wave of the 528
+//   slots (`tools/kernel_parts.py` times the staging and the products
+//   apart). It runs at under one instruction a cycle an SM: four warps a
+//   scheduler, each a chain of mma.sync, shuffles and exponentials through a
+//   step.
 // * float32 (`nat_f32_kernel`): FMAs on the CUDA cores (TF32 products would
 //   not hold the 1e-4 agreement asked of float32). Four adjacent lanes share
 //   a query, each with a quarter of D in registers; a score is a quarter dot
-//   product plus two shuffles, softmax online per key.
+//   product plus two shuffles, softmax online per key. A warp is one tile
+//   row; it visits the chunk's columns that any of its queries' windows
+//   holds, each lane masking the keys outside its own.
 
 #include "attention_common.cuh"
 
@@ -72,50 +91,105 @@ namespace {
 
 using namespace f3s;
 
-constexpr int kTile = 8;  // queries per tile side
+constexpr int kTile = 8;       // queries per tile side
+constexpr int kBudget = 57344;  // bytes of K and V a block stages: four blocks an SM
 
-// Stage the halo x halo positions around a tile, top-left at (y0, x0), of K
-// and V of one (batch, head) into ks, vs [halo * halo][ld], Dp <= ld elements
-// a row filled (zeros outside the image and at d >= D). The copies are
-// committed as one cp.async group; the caller waits and synchronises.
+// How a block walks its tile's clamped halo: chunks of `rows` x `cols`
+// positions (cols a multiple of 8 unless it is the whole clamped width),
+// through `stages` buffers, `smem` bytes in all. ops/attention.py
+// `_nat_plan` mirrors it.
+struct Plan {
+  int rows, cols, stages;
+  int64_t smem;
+};
+
+// `ld` elements of `elem` bytes a staged row of K or V; `out_bytes` the
+// room the kernel's epilogue needs.
+Plan nat_plan(int window, int width, int ld, int elem, int64_t out_bytes) {
+  const int halo = kTile + 2 * (window / 2);
+  const int64_t pos = 2LL * ld * elem;  // one position of K and one of V
+  const int wide = halo < width ? halo : width;  // the halo clamped to the image's width
+  Plan p;
+  if (static_cast<int64_t>(halo) * wide * pos <= kBudget) {
+    p = {halo, wide, 1, static_cast<int64_t>(halo) * wide * pos};
+  } else {
+    const int64_t per = kBudget / 2;  // one buffer of the ring
+    int cols = wide;
+    if (cols * pos > per) cols = static_cast<int>(per / pos) / 8 * 8;
+    const int64_t rows = per / (cols * pos);
+    p = {static_cast<int>(rows < halo ? rows : halo), cols, 2, 0};
+    p.smem = 2LL * p.rows * p.cols * pos;
+  }
+  if (p.smem < out_bytes) p.smem = out_bytes;
+  return p;
+}
+
+// A chunk of the tile's clamped halo, in image coordinates: rows [y0, y1),
+// columns [x0, x1).
+struct Chunk {
+  int y0, y1, x0, x1;
+};
+
+// The halo of the tile at (ty0, tx0) clamped to the image, cut into chunks
+// of at most rows x cols, rows outer.
+struct Walk {
+  int Y0, Y1, X0, X1, rows, cols, ncx, count;
+
+  __device__ Walk(int ty0, int tx0, int r, int height, int width, int rows_, int cols_)
+      : Y0(max(ty0 - r, 0)), Y1(min(ty0 + kTile + r, height)), X0(max(tx0 - r, 0)),
+        X1(min(tx0 + kTile + r, width)), rows(rows_), cols(cols_) {
+    ncx = (X1 - X0 + cols - 1) / cols;
+    count = (Y1 - Y0 + rows - 1) / rows * ncx;
+  }
+  __device__ Chunk operator[](int c) const {
+    Chunk ch;
+    ch.y0 = Y0 + c / ncx * rows;
+    ch.y1 = min(Y1, ch.y0 + rows);
+    ch.x0 = X0 + c % ncx * cols;
+    ch.x1 = min(X1, ch.x0 + cols);
+    return ch;
+  }
+};
+
+// Stage chunk `ch` of K and V of one (batch, head) into ks, vs, position-
+// major [(y - y0) * (x1 - x0) + x - x0][ld], Dp <= ld elements a row filled
+// (zeros at d >= D). Every position lies in the image. The copies are
+// committed as one cp.async group.
 template <typename T, int Dp>
-__device__ __forceinline__ void stage_halo(T* ks, T* vs, int ld, const T* kb, const T* vb,
-                                           int64_t skn, int64_t svn, int y0, int x0,
-                                           int halo, int height, int width, int D,
-                                           bool vec, int tid, int nthreads) {
+__device__ __forceinline__ void stage_chunk(T* ks, T* vs, int ld, const T* kb, const T* vb,
+                                            int64_t skn, int64_t svn, const Chunk& ch,
+                                            int width, int D, bool vec, int tid, int nthreads) {
+  const int rows = ch.y1 - ch.y0, cols = ch.x1 - ch.x0;
   if (vec) {  // 16 bytes a copy: D, the strides and the bases allow it
     constexpr int kPer = 16 / static_cast<int>(sizeof(T));
     constexpr int kChunks = Dp / kPer;
-    // a thread keeps its column of the halo and its 16 bytes of D and walks
+    // a thread keeps its column of the chunk and its 16 bytes of D and walks
     // down the rows: one pointer step and two copies a row
     const int64_t krow = width * skn, vrow = width * svn;
-    for (int it = tid; it < halo * kChunks; it += nthreads) {
-      const int hx = it / kChunks, d = it % kChunks * kPer;
-      const int gx = x0 + hx;
-      const bool xin = gx >= 0 && gx < width && d < D;
-      const T* kp = kb + gx * skn + d + y0 * krow;
-      const T* vp = vb + gx * svn + d + y0 * vrow;
-      T* kd = ks + hx * ld + d;
-      T* vd = vs + hx * ld + d;
-      for (int hy = 0; hy < halo; ++hy) {
-        const bool in = xin && y0 + hy >= 0 && y0 + hy < height;
+    for (int it = tid; it < cols * kChunks; it += nthreads) {
+      const int cx = it / kChunks, d = it % kChunks * kPer;
+      const bool in = d < D;
+      const int64_t gx = ch.x0 + cx;
+      const T* kp = kb + gx * skn + d + ch.y0 * krow;
+      const T* vp = vb + gx * svn + d + ch.y0 * vrow;
+      T* kd = ks + cx * ld + d;
+      T* vd = vs + cx * ld + d;
+      for (int cy = 0; cy < rows; ++cy) {
         cp_async16(kd, in ? kp : kb, in ? 16 : 0);
         cp_async16(vd, in ? vp : vb, in ? 16 : 0);
         kp += krow;
         vp += vrow;
-        kd += halo * ld;
-        vd += halo * ld;
+        kd += cols * ld;
+        vd += cols * ld;
       }
     }
   } else {
     const T zero = from_f32<T>(0.f);
-    for (int idx = tid; idx < halo * halo * Dp; idx += nthreads) {
+    for (int idx = tid; idx < rows * cols * Dp; idx += nthreads) {
       const int pos = idx / Dp, d = idx % Dp;
-      const int gy = y0 + pos / halo, gx = x0 + pos % halo;
-      const bool in = gy >= 0 && gy < height && gx >= 0 && gx < width && d < D;
-      const int64_t tok = static_cast<int64_t>(gy) * width + gx;
-      ks[pos * ld + d] = in ? kb[tok * skn + d] : zero;
-      vs[pos * ld + d] = in ? vb[tok * svn + d] : zero;
+      const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
+      ks[pos * ld + d] = d < D ? kb[tok * skn + d] : zero;
+      vs[pos * ld + d] = d < D ? vb[tok * svn + d] : zero;
     }
   }
   cp_async_commit();
@@ -134,26 +208,28 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
                const BF* __restrict__ v, BF* __restrict__ o,
                int height, int width, int window, int H, int D, int tiles_x,
                Strides sq, Strides sk, Strides sv, Strides so, float scale,
-               bool vec, bool pairs, bool vec_out) {
+               int band_rows, int band_cols, bool vec, bool pairs, bool vec_out) {
   constexpr int Dp = 32 * NK2;
   constexpr int NK = 2 * NK2;   // 16-wide chunks of the head dim
   constexpr int ND = Dp / 8;    // 8-wide chunks of the head dim
-  constexpr int LD = Dp + 8;    // row of the staged halo, elements
+  constexpr int LD = Dp + 8;    // row of a staged position, elements
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = window / 2;
-  const int halo = kTile + 2 * r;  // halo side, in positions
-  BF* ks = reinterpret_cast<BF*>(smem);  // [halo*halo][LD]
-  BF* vs = ks + halo * halo * LD;        // [halo*halo][LD]
+  // buffer s of the ring: K at base + 2 s * size, V after it
+  const int size = band_rows * band_cols * LD;
+  BF* base = reinterpret_cast<BF*>(smem);
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int ty0 = (blockIdx.x / tiles_x) * kTile;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
+  const BF* kb = k + b * sk.b + h * sk.h;
+  const BF* vb = v + b * sv.b + h * sv.h;
+  const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
   if (F3S_PARTS != 1)
-    stage_halo<BF, Dp>(ks, vs, LD, k + b * sk.b + h * sk.h, v + b * sv.b + h * sv.h,
-                       sk.n, sv.n, ty0 - r, tx0 - r, halo, height, width, D, vec, tid,
-                       kMmaThreads);
+    stage_chunk<BF, Dp>(base, base + size, LD, kb, vb, sk.n, sv.n, walk[0], width, D, vec,
+                        tid, kMmaThreads);
 
   const int lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -163,7 +239,7 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   const bool live0 = qx < width && qy0 < height, live1 = qx < width && qy0 + 1 < height;
   const int64_t tok0 = static_cast<int64_t>(qy0) * width + qx;
 
-  // q * scale, rounded to bfloat16, as A fragments (while the halo lands)
+  // q * scale, rounded to bfloat16, as A fragments (while the chunk lands)
   uint32_t qa[NK][4];
   {
     const BF* q0 = q + b * sq.b + h * sq.h + tok0 * sq.n;
@@ -190,18 +266,6 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
     }
   }
 
-  // the keys of this warp: halo rows wy .. wy + 1 + 2r, every row in ntx
-  // slots of 8 columns. Column hx of the halo is in the window of the query
-  // in tile column g iff g <= hx <= g + 2r; row hy (counted from wy) in that
-  // of the query in row wy + i iff i <= hy <= i + 2r.
-  const int ntx = (halo + 7) / 8;
-  uint32_t okx = 0;  // bit 2 * xb + e: column 8 * xb + 2t + e is a key of this lane's queries
-  for (int xb = 0; xb < ntx; ++xb)
-    for (int e = 0; e < 2; ++e) {
-      const int hx = 8 * xb + 2 * t + e, gx = tx0 - r + hx;
-      if (hx >= g && hx <= g + 2 * r && gx >= 0 && gx < width) okx |= 1u << (2 * xb + e);
-    }
-
   float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;  // maxima in base-2 units
   float acc[ND][4];
 #pragma unroll
@@ -209,29 +273,42 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[dc][i] = 0.f;
 
-  cp_async_wait_all();
-  __syncthreads();
+  for (int c = 0; c < walk.count; ++c) {
+    if (c + 1 < walk.count) {  // the next chunk's copies fly under this one's products
+      BF* nk = base + 2 * ((c + 1) % 2) * size;
+      if (F3S_PARTS != 1)
+        stage_chunk<BF, Dp>(nk, nk + size, LD, kb, vb, sk.n, sv.n, walk[c + 1], width, D,
+                            vec, tid, kMmaThreads);
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
 
-  const uint32_t ks_s = smem_addr(ks), vs_s = smem_addr(vs);
-  const int nslots = F3S_PARTS == 2 ? 0 : (2 + 2 * r) * ntx;
-  int hy[kSlots], xb[kSlots];  // slot j of a step: halo row wy + hy[j], columns 8 * xb[j] ..
-#pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    hy[j] = j / ntx;
-    xb[j] = j % ntx;
-  }
-  for (int it = 0; it < nslots; it += kSlots) {
-    bool rowin[kSlots], any = false;
-    int pos[kSlots];  // this lane's ldmatrix row: key lane % 8 of the slot
+    // this warp's keys in the chunk: rows [y0, y1) that a query of rows
+    // qy0, qy0 + 1 sees, every row in nsx slots of 8 columns from ch.x0
+    const Chunk ch = walk[c];
+    const int cols = ch.x1 - ch.x0;
+    const int y0 = max(ch.y0, qy0 - r), y1 = min(ch.y1, qy0 + 2 + r);
+    const int nsx = (cols + 7) / 8;
+    const int nslots = F3S_PARTS == 2 || y1 <= y0 ? 0 : (y1 - y0) * nsx;
+    const uint32_t ks_s = smem_addr(base + 2 * (c % 2) * size);
+    const uint32_t vs_s = ks_s + size * 2;
+    int sy[kSlots], sx[kSlots];  // slot j of a step: row y0 + sy[j], columns ch.x0 + 8 sx[j] ..
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
-      const int gy = ty0 + wy - r + hy[j];
-      rowin[j] = it + j < nslots && gy >= 0 && gy < height;
-      any = any || rowin[j];
-      const int hx = min(8 * xb[j] + lane % 8, halo - 1);  // slots past the halo repeat its edge
-      pos[j] = rowin[j] ? (wy + hy[j]) * halo + hx : 0;
+      sy[j] = j / nsx;
+      sx[j] = j % nsx;
     }
-    if (any) {
+    for (int it = 0; it < nslots; it += kSlots) {
+      bool in[kSlots];
+      int pos[kSlots];  // this lane's ldmatrix row: key lane % 8 of the slot
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        in[j] = it + j < nslots;
+        const int cx = min(8 * sx[j] + lane % 8, cols - 1);  // slots past the chunk repeat its edge
+        pos[j] = in[j] ? (y0 + sy[j] - ch.y0) * cols + cx : 0;
+      }
       float s[kSlots][4];
 #pragma unroll
       for (int j = 0; j < kSlots; ++j) {
@@ -245,9 +322,13 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
           mma_bf16(s[j], qa[2 * kc2], kb4[0], kb4[1]);
           mma_bf16(s[j], qa[2 * kc2 + 1], kb4[2], kb4[3]);
         }
-        // to base 2, -inf where the key is not in the query's window
-        const bool y0ok = rowin[j] && hy[j] <= 2 * r, y1ok = rowin[j] && hy[j] >= 1;
-        const bool x0ok = (okx >> (2 * xb[j])) & 1u, x1ok = (okx >> (2 * xb[j] + 1)) & 1u;
+        // to base 2, -inf where the key is not in the query's window: row y
+        // against query rows qy0 and qy0 + 1, columns x, x + 1 against qx
+        const int y = y0 + sy[j];
+        const bool y0ok = in[j] && y <= qy0 + r, y1ok = in[j] && y >= qy0 + 1 - r;
+        const int x = ch.x0 + 8 * sx[j] + 2 * t;
+        const bool x0ok = x < ch.x1 && abs(x - qx) <= r;
+        const bool x1ok = x + 1 < ch.x1 && abs(x + 1 - qx) <= r;
         s[j][0] = y0ok && x0ok ? s[j][0] * kLog2e : -CUDART_INF_F;
         s[j][1] = y0ok && x1ok ? s[j][1] * kLog2e : -CUDART_INF_F;
         s[j][2] = y1ok && x0ok ? s[j][2] * kLog2e : -CUDART_INF_F;
@@ -296,10 +377,10 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const float a = s[jp + j][2 * i], c = s[jp + j][2 * i + 1];
-            const float ah = round_to<BF>(a), ch = round_to<BF>(c);
-            ph[2 * j + i] = pack_bf16(ah, ch);
-            pl[2 * j + i] = pack_bf16(a - ah, c - ch);
+            const float a = s[jp + j][2 * i], cc = s[jp + j][2 * i + 1];
+            const float ah = round_to<BF>(a), ch_ = round_to<BF>(cc);
+            ph[2 * j + i] = pack_bf16(ah, ch_);
+            pl[2 * j + i] = pack_bf16(a - ah, cc - ch_);
           }
         const uint32_t va = vs_s + (((lane / 8) & 1 ? pos[jp + 1] : pos[jp]) * LD + (lane / 16) * 8) * 2;
 #pragma unroll
@@ -313,15 +394,16 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
           }
         }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < kSlots; ++j) {  // kSlots slots on
-      xb[j] += kSlots;
-      while (xb[j] >= ntx) {
-        xb[j] -= ntx;
-        ++hy[j];
+      for (int j = 0; j < kSlots; ++j) {  // kSlots slots on
+        sx[j] += kSlots;
+        while (sx[j] >= nsx) {
+          sx[j] -= nsx;
+          ++sy[j];
+        }
       }
     }
+    __syncthreads();  // every warp is done with this buffer
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -330,10 +412,9 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
   if (vec_out) {
-    // through shared memory (the K halo's room), so that a lane stores 16
-    // bytes and eight lanes a query's whole row
-    __syncthreads();  // every warp is done with K and V
-    BF* os = ks;      // [64 queries][LD]
+    // through shared memory (the first buffer's room), so that a lane stores
+    // 16 bytes and eight lanes a query's whole row
+    BF* os = base;  // [64 queries][LD]
     const int m0q = (tid / 32) * 16 + g;  // tile row m / 8, column m % 8
 #pragma unroll
     for (int dc = 0; dc < ND; ++dc) {
@@ -381,22 +462,24 @@ __global__ void __launch_bounds__(kF32Threads)
 nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                int height, int width, int window, int H, int D, int tiles_x,
-               Strides sq, Strides sk, Strides sv, Strides so, float scale, bool vec) {
+               Strides sq, Strides sk, Strides sv, Strides so, float scale,
+               int band_rows, int band_cols, bool vec) {
   constexpr int Dp = DPL * kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = window / 2;
-  const int halo = kTile + 2 * r;  // halo side, in positions
-  float* ks = reinterpret_cast<float*>(smem);  // [halo*halo][Dp]
-  float* vs = ks + halo * halo * Dp;           // [halo*halo][Dp]
+  const int size = band_rows * band_cols * Dp;  // a buffer's K (or V), floats
+  float* base = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int ty0 = (blockIdx.x / tiles_x) * kTile;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  stage_halo<float, Dp>(ks, vs, Dp, k + b * sk.b + h * sk.h, v + b * sv.b + h * sv.h,
-                        sk.n, sv.n, ty0 - r, tx0 - r, halo, height, width, D, vec, tid,
-                        kF32Threads);
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
+  stage_chunk<float, Dp>(base, base + size, Dp, kb, vb, sk.n, sv.n, walk[0], width, D, vec,
+                         tid, kF32Threads);
 
   const int lane = tid % kLanes;
   const int qi = tid / kLanes;
@@ -421,34 +504,50 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
 
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int dy = 0; dy < window; ++dy) {
-    const int ny = qy + dy - r;
-    const bool yok = ny >= 0 && ny < height;
-    for (int dx = 0; dx < window; ++dx) {
-      const int nx = qx + dx - r;
-      const bool ok = yok && nx >= 0 && nx < width;
-      const int pos = (ly + dy) * halo + (lx + dx);
-      float kr[DPL], vr[DPL];
-      load_chunk<float, DPL>(ks + pos * Dp + d0, kr);
-      load_chunk<float, DPL>(vs + pos * Dp + d0, vr);
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) s = fmaf(qr[i], kr[i], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s = ok ? s : -CUDART_INF_F;
-      const float m_new = fmaxf(m, s);
-      // exp(-inf - -inf) guards: nothing accumulated yet, or a masked key
-      const float c = (m == -CUDART_INF_F) ? 0.f : expf(m - m_new);
-      const float p = (s == -CUDART_INF_F) ? 0.f : expf(s - m_new);
-      l = l * c + p;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[i], acc[i] * c);
-      m = m_new;
+  for (int c = 0; c < walk.count; ++c) {
+    if (c + 1 < walk.count) {
+      float* nk = base + 2 * ((c + 1) % 2) * size;
+      stage_chunk<float, Dp>(nk, nk + size, Dp, kb, vb, sk.n, sv.n, walk[c + 1], width, D,
+                             vec, tid, kF32Threads);
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
     }
+    __syncthreads();
+
+    // rows of the chunk in the window of this warp's row; columns x = qx -
+    // r + dx for the dx where some query of the row finds x in the chunk
+    const Chunk ch = walk[c];
+    const int cols = ch.x1 - ch.x0;
+    const float* ks = base + 2 * (c % 2) * size;
+    const float* vs = ks + size;
+    const int y0 = max(ch.y0, qy - r), y1 = min(ch.y1, qy + r + 1);
+    const int dx0 = max(0, ch.x0 - tx0 - (kTile - 1) + r), dx1 = min(window, ch.x1 - tx0 + r);
+    for (int y = y0; y < y1; ++y) {
+      for (int dx = dx0; dx < dx1; ++dx) {
+        const int x = qx + dx - r;
+        const bool ok = x >= ch.x0 && x < ch.x1;
+        const int pos = (y - ch.y0) * cols + min(max(x, ch.x0), ch.x1 - 1) - ch.x0;
+        float kr[DPL], vr[DPL];
+        load_chunk<float, DPL>(ks + pos * Dp + d0, kr);
+        load_chunk<float, DPL>(vs + pos * Dp + d0, vr);
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) s = fmaf(qr[i], kr[i], s);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s = ok ? s : -CUDART_INF_F;
+        const float m_new = fmaxf(m, s);
+        // exp(-inf - -inf) guards: nothing accumulated yet, or a masked key
+        const float cf = (m == -CUDART_INF_F) ? 0.f : expf(m - m_new);
+        const float p = (s == -CUDART_INF_F) ? 0.f : expf(s - m_new);
+        l = l * cf + p;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[i], acc[i] * cf);
+        m = m_new;
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
   }
 
   if (live) {
@@ -477,13 +576,13 @@ bool can_vectorise(const void* k, const void* v, const int64_t* st, int D, int e
 }
 
 template <typename Kernel, typename T, typename... Flags>
-int launch(Kernel kern, int threads, size_t smem, const T* q, const T* k, const T* v, T* o,
-           const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream,
+int launch(Kernel kern, int threads, const Plan& plan, const T* q, const T* k, const T* v,
+           T* o, const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream,
            Flags... flags) {
-  if (smem > static_cast<size_t>(kMaxSmem)) return -2;
+  const int smem = static_cast<int>(plan.smem);  // at most kBudget or 64 rows of the output
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tiles_x = (gm.width + kTile - 1) / kTile;
@@ -492,15 +591,25 @@ int launch(Kernel kern, int threads, size_t smem, const T* q, const T* k, const 
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   kern<<<grid, threads, smem, stream>>>(q, k, v, o, gm.height, gm.width, gm.window, gm.H,
-                                        gm.D, tiles_x, sq, sk, sv, so, scale, flags...);
+                                        gm.D, tiles_x, sq, sk, sv, so, scale, plan.rows,
+                                        plan.cols, flags...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NK2>
+Plan mma_plan(int window, int width) {
+  constexpr int LD = 32 * NK2 + 8;
+  return nat_plan(window, width, LD, sizeof(BF), kTile * kTile * LD * sizeof(BF));
+}
+
+template <int DPL>
+Plan f32_plan(int window, int width) {
+  return nat_plan(window, width, DPL * kLanes, sizeof(float), 0);
 }
 
 template <int NK2>
 int launch_mma(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
                const int64_t* st, float scale, cudaStream_t stream) {
-  const int halo = kTile + 2 * (gm.window / 2);
-  const size_t smem = 2 * static_cast<size_t>(halo) * halo * (32 * NK2 + 8) * sizeof(BF);
   // 4-byte loads of q and stores of o need even D, strides and addresses
   bool pairs = gm.D % 2 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
                reinterpret_cast<uintptr_t>(o) % 4 == 0;
@@ -508,20 +617,18 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const Geome
   // 16-byte stores of o: D and o's strides whole groups of 8, its base aligned
   bool vec_out = gm.D % 8 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
   for (int i = 9; i < 12; ++i) vec_out = vec_out && st[i] % 8 == 0;
-  return launch(nat_mma_kernel<NK2>, kMmaThreads, smem, static_cast<const BF*>(q),
-                static_cast<const BF*>(k), static_cast<const BF*>(v), static_cast<BF*>(o),
-                gm, st, scale, stream, can_vectorise(k, v, st, gm.D, sizeof(BF)), pairs,
-                vec_out);
+  return launch(nat_mma_kernel<NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width),
+                static_cast<const BF*>(q), static_cast<const BF*>(k),
+                static_cast<const BF*>(v), static_cast<BF*>(o), gm, st, scale, stream,
+                can_vectorise(k, v, st, gm.D, sizeof(BF)), pairs, vec_out);
 }
 
 template <int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
                const int64_t* st, float scale, cudaStream_t stream) {
-  const int halo = kTile + 2 * (gm.window / 2);
-  const size_t smem = 2 * static_cast<size_t>(halo) * halo * DPL * kLanes * sizeof(float);
-  return launch(nat_f32_kernel<DPL>, kF32Threads, smem, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<float*>(o), gm, st, scale, stream,
+  return launch(nat_f32_kernel<DPL>, kF32Threads, f32_plan<DPL>(gm.window, gm.width),
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o), gm, st, scale, stream,
                 can_vectorise(k, v, st, gm.D, sizeof(float)));
 }
 
@@ -530,10 +637,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Geome
 // Launches on `stream`. q, k, v, o: [B, height * width, H, D]; `strides`
 // holds the (batch, token, head) strides in elements of q, k, v, o in that
 // order (12 values); the last axis of each is contiguous. dtype: 0 float32,
-// 1 bfloat16. `window` is odd. `scale` is 1/sqrt(D) already rounded to the
-// dtype. Returns 0 on success, cudaGetLastError() otherwise, -1 when
-// D > 128, -2 when the halo of one tile exceeds the shared memory of an SM,
-// -3 for an unknown dtype. Requires B * H <= 65535; the caller checks.
+// 1 bfloat16. `window` is odd, of any size. `scale` is 1/sqrt(D) already
+// rounded to the dtype. Returns 0 on success, cudaGetLastError() otherwise,
+// -1 when D > 128, -3 for an unknown dtype. Requires B * H <= 65535; the
+// caller checks.
 extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
                                           const void* v, void* o, int dtype,
                                           int B, int height, int width,
@@ -558,4 +665,27 @@ extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
     return launch_mma<4>(q, k, v, o, gm, strides, scale, s);
   }
   return -3;
+}
+
+// The plan a launch of `f3s_neighborhood_attention` takes, for checking
+// ops/attention.py `_nat_plan`: plan = [rows, cols, stages, shared bytes].
+// Returns 0, or -1 / -3 as the launcher would.
+extern "C" int f3s_nat_plan(int dtype, int window, int D, int width, int64_t* plan) {
+  if (D > 128) return -1;
+  Plan p;
+  if (dtype == 0) {
+    p = D <= 8 ? f32_plan<2>(window, width) : D <= 16 ? f32_plan<4>(window, width)
+        : D <= 32 ? f32_plan<8>(window, width) : D <= 64 ? f32_plan<16>(window, width)
+        : f32_plan<32>(window, width);
+  } else if (dtype == 1) {
+    p = D <= 32 ? mma_plan<1>(window, width) : D <= 64 ? mma_plan<2>(window, width)
+        : D <= 96 ? mma_plan<3>(window, width) : mma_plan<4>(window, width);
+  } else {
+    return -3;
+  }
+  plan[0] = p.rows;
+  plan[1] = p.cols;
+  plan[2] = p.stages;
+  plan[3] = p.smem;
+  return 0;
 }

@@ -1,12 +1,13 @@
-"""Image files: PNG and baseline JPEG, read and written without OpenCV.
+"""Image files: PNG and JPEG, read and written without OpenCV.
 
 The JAX package reads and writes every image through OpenCV (`cv2.imread`,
 `cv2.imwrite`, `cv2.resize`); the port runs where no image library is
-installed, so it brings its own codec. The PNG chunk
-structure and zlib stream are handled here with Python's `zlib`; the row
-filters and the JPEG codec are a small host C++ library,
-`native/image_codec.cpp`, built with `g++` at first use into the build
-directory (`io/native.build`). A failed build raises.
+installed, so it brings its own codec. The PNG chunk structure, zlib
+stream, Adam7 interlacing and sub-byte samples are handled here with
+Python's `zlib` and numpy; the row filters, the JPEG codec and the Exif
+parser are a small host C++ library, `native/image_codec.cpp`, built with
+`g++` at first use into the build directory (`io/native.build`). A failed
+build raises.
 
 What `read` returns follows `cv2.imread` with the channels in RGB order
 (OpenCV's are BGR; callers of the JAX package flip them, callers of this
@@ -17,18 +18,32 @@ module must not):
   * `read(path, gray=True)`: [H, W] uint8. A colour JPEG gives its luma
     plane (what libjpeg returns for a grayscale output); a colour PNG
     converts with libpng's rule, (9797 R + 19234 G + 3737 B) >> 15 and
-    gray pixels unchanged, which is what `cv2.imread(f, 0)` does.
+    gray pixels unchanged at 8 bits, rounded ((... + 16384) >> 15) and
+    then shifted to 8 bits at 16, which is what `cv2.imread(f, 0)` does.
   * `read(path, unchanged=True)`: the stored samples: [H, W] for gray
     (uint16 for 16-bit PNG, such as RTAB-Map's depth in millimetres),
-    [H, W, 3] or [H, W, 4] for colour.
+    [H, W, 3] or [H, W, 4] for colour. A PNG's alpha comes from its alpha
+    channel, or for palette and RGB images from a tRNS chunk, as OpenCV's
+    4-channel read gives it; a gray image's tRNS is dropped.
 
-The format is sniffed from the magic bytes, not the file name. JPEG
-decoding follows libjpeg-turbo's defaults (ISLOW IDCT, fancy upsampling,
-its fixed-point YCbCr tables) and so equals `cv2.imread`; progressive and
-arithmetic-coded JPEGs raise. `write` picks the format from the file
-name: PNG (8-bit gray or RGB, 16-bit gray; filter 0, zlib level 1, which
-decodes to the same samples as OpenCV's file) or baseline JPEG (quality
-95 and 4:2:0 by default, standard Huffman tables, as `cv2.imwrite`).
+  Both of the first two modes turn the image as its Exif Orientation tag
+  says (JPEG APP1, PNG eXIf; OpenCV's ExifTransform: 2 mirrors, 3 turns
+  by 180 degrees, 4 flips, 5-8 transpose first), so a phone's portrait
+  photograph comes out upright; the unchanged read keeps the stored
+  layout, as `IMREAD_UNCHANGED` does.
+
+Read: PNG of every colour type (gray, RGB, palette, gray + alpha, RGBA) at
+every legal bit depth (1, 2, 4, 8, 16), interlaced or not; JPEG baseline,
+extended sequential and progressive Huffman, 8-bit, gray or YCbCr/RGB, any
+integer sampling, restart intervals. JPEG decoding follows libjpeg-turbo's
+defaults (ISLOW IDCT, fancy upsampling, its fixed-point YCbCr tables) and so
+equals `cv2.imread`. Refused: arithmetic-coded, lossless, hierarchical and
+12-bit JPEG, CMYK/YCCK JPEG, and every other format (BMP, TIFF, WebP, ...).
+The format is sniffed from the magic bytes, not the file name. `write`
+picks the format from the file name: PNG (8-bit gray or RGB, 16-bit gray;
+filter 0, zlib level 1, which decodes to the same samples as OpenCV's file)
+or baseline JPEG (quality 95 and 4:2:0 by default, standard Huffman tables,
+as `cv2.imwrite`).
 
 `resize_nearest` reproduces `cv2.resize(..., INTER_NEAREST)`'s source
 index rule, floor(x * (1 / (dst / src))).
@@ -56,13 +71,15 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
     "png_unfilter": [_U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _U8P],
     "jpeg_info": [_U8P, ctypes.c_int64, _I32P],
+    "exif_orientation": [_U8P, ctypes.c_int64],
     "jpeg_decode": [_U8P, ctypes.c_int64, ctypes.c_int, _U8P, ctypes.c_int, ctypes.c_int],
     "jpeg_encode": [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P,
                     ctypes.c_int64],
 }
 _ERRORS = {
-    -1: "truncated data", -2: "not a JPEG stream", -3: "progressive JPEG (baseline only)",
-    -4: "arithmetic-coded JPEG (Huffman only)", -5: "unsupported JPEG layout",
+    -1: "truncated data", -2: "not a JPEG stream",
+    -4: "arithmetic-coded JPEG (Huffman only)",
+    -5: "unsupported JPEG layout (lossless, hierarchical, 12-bit or not 1 or 3 components)",
     -6: "corrupt data", -7: "corrupt Huffman data", -8: "no frame header",
     -9: "output buffer too small",
 }
@@ -101,32 +118,84 @@ def read(path, gray: bool = False, unchanged: bool = False) -> np.ndarray:
 
 def decode(data: bytes, gray: bool = False, unchanged: bool = False) -> np.ndarray:
     if data[:8] == PNG_MAGIC:
-        img = _decode_png(data)
-    elif data[:3] == b"\xff\xd8\xff":
-        return _decode_jpeg(data, gray=gray and not unchanged, unchanged=unchanged)
-    else:
-        raise ImageError("neither a PNG nor a JPEG stream")
-    if unchanged:
-        return img
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 3 and img.shape[2] == 4:
-        img = img[..., :3]
-    if gray:
-        return img if img.ndim == 2 else _png_gray(img)
-    return img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=2)
+        return _decode_png(data, gray, unchanged)
+    if data[:3] == b"\xff\xd8\xff":
+        return _decode_jpeg(data, gray, unchanged)
+    raise ImageError("neither a PNG nor a JPEG stream")
+
+
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """`img` [H, W, ...] turned as Exif Orientation `orientation` asks, as
+    OpenCV's ExifTransform does: 5-8 transpose first, then 2 and 6 mirror
+    left-right, 4 and 8 flip top-bottom, 3 and 7 do both; 1 and any other
+    value leave the image as it is."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
 
 
 def _png_gray(rgb: np.ndarray) -> np.ndarray:
     """libpng's png_set_rgb_to_gray(0.299, 0.587): coefficients truncated
-    to 15 bits, the sum truncated, gray pixels passed through."""
-    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
-    y = (9797 * r + 19234 * g + 3737 * b) >> 15
-    return np.where((r == g) & (r == b), r, y).astype(np.uint8)
+    to 15 bits. 8-bit samples: the sum truncated, gray pixels passed
+    through. 16-bit samples: the sum rounded, then the high byte (libpng
+    converts before it strips the low bytes)."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    y = 9797 * r + 19234 * g + 3737 * b
+    if rgb.dtype == np.uint16:
+        return ((y + 16384) >> 15 >> 8).astype(np.uint8)
+    return np.where((r == g) & (r == b), r, y >> 15).astype(np.uint8)
 
 
-def _decode_png(data: bytes) -> np.ndarray:
-    pos, ihdr, idat, palette = 8, None, [], None
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# legal bit depths of each PNG colour type, and its samples a pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _png_samples(raw: bytes, w: int, h: int, depth: int, channels: int,
+                 interlace: bool) -> np.ndarray:
+    """The zlib-inflated image data -> [h, w, channels] samples (uint16 at
+    depth 16, else uint8 holding the sample values, 0 .. 2^depth - 1).
+    Interlaced data holds the seven Adam7 passes one after another, each
+    with its own filtered rows; a pass with no pixels has no rows."""
+    bits = depth * channels
+    bpp = max(1, bits // 8)  # the filters' byte distance
+    out = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8) if interlace else None
+    lib, off = _lib(), 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        rowbytes = (pw * bits + 7) // 8
+        n = ph * (rowbytes + 1)
+        if off + n > len(raw):
+            raise ImageError("truncated PNG data")
+        src = np.frombuffer(raw, np.uint8, count=n, offset=off)
+        off += n
+        rows = np.empty((ph, rowbytes), np.uint8)
+        _check(lib.png_unfilter(_u8(src), ph, rowbytes, bpp, _u8(rows)), "PNG")
+        if depth == 16:
+            px = rows.view(">u2").astype(np.uint16)
+        elif depth == 8:
+            px = rows
+        else:  # 1, 2 or 4 bits a sample, the first in the high bits
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+            px = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+            px = px.reshape(ph, -1)[:, :pw * channels]
+        if not interlace:
+            return px.reshape(h, w, channels)
+        out[y0::dy, x0::dx] = px.reshape(ph, pw, channels)
+    return out
+
+
+def _decode_png(data: bytes, gray: bool, unchanged: bool) -> np.ndarray:
+    pos, ihdr, idat, palette, trns, exif = 8, None, [], None, None, None
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
@@ -136,6 +205,10 @@ def _decode_png(data: bytes) -> np.ndarray:
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"eXIf":
+            exif = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -146,45 +219,66 @@ def _decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = ihdr
     if w * h > MAX_PIXELS:
         raise ImageError(f"{w}x{h} exceeds {MAX_PIXELS} pixels")
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
-    if channels is None or depth not in (8, 16) or (ctype == 3 and depth != 8):
-        raise ImageError(f"unsupported PNG (colour type {ctype}, bit depth {depth})")
-    if interlace:
-        raise ImageError("interlaced PNG")
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ImageError(f"unsupported PNG (colour type {ctype}, bit depth {depth}, "
+                         f"interlace {interlace})")
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ImageError(f"corrupt PNG data ({e})") from None
-    bpp = channels * depth // 8
-    rowbytes = w * bpp
-    if len(raw) < h * (rowbytes + 1):
-        raise ImageError("truncated PNG data")
-    src = np.frombuffer(raw, np.uint8, count=h * (rowbytes + 1))
-    out = np.empty(h * rowbytes, np.uint8)
-    _check(_lib().png_unfilter(_u8(src), h, rowbytes, bpp, _u8(out)), "PNG")
-    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
-    img = img.reshape(h, w, channels)
-    if ctype == 3:
+    img = _png_samples(raw, w, h, depth, _PNG_CHANNELS[ctype], bool(interlace))
+    if ctype == 3:  # palette -> RGB, or RGBA where tRNS gives alpha and it is kept
         if palette is None:
             raise ImageError("palette PNG without PLTE")
-        return palette[img[..., 0]]
-    if ctype == 4:  # gray + alpha -> RGBA, as OpenCV's unchanged read gives
+        table = np.concatenate([palette, np.full((len(palette), 1), 255, np.uint8)], axis=1)
+        if trns is not None:
+            table[:len(trns[:len(palette)]), 3] = np.frombuffer(trns[:len(palette)], np.uint8)
+        idx = img[..., 0]
+        if int(idx.max(initial=0)) >= len(palette):
+            raise ImageError("PNG palette index out of range")
+        img = table[idx] if unchanged and trns is not None else table[idx, :3]
+    elif ctype == 0:
+        img = img[..., 0]
+        if depth < 8:  # libpng's expansion to 8 bits: s * 255 / (2^depth - 1)
+            img = img * np.uint8(255 // ((1 << depth) - 1))
+    elif ctype == 4:  # gray + alpha -> RGBA, as OpenCV's unchanged read gives
         img = np.concatenate([np.repeat(img[..., :1], 3, axis=2), img[..., 1:]], axis=2)
-    return img[..., 0] if channels == 1 else img
+    elif ctype == 2 and trns is not None and len(trns) >= 6 and unchanged:
+        key = np.array(struct.unpack(">3H", trns[:6]), np.uint16)
+        if depth == 8:
+            key &= 0xFF
+        alpha = np.where((img == key).all(axis=2), 0, (1 << depth) - 1).astype(img.dtype)
+        img = np.concatenate([img, alpha[..., None]], axis=2)
+    if unchanged:
+        return img
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = img[..., :3]
+    if gray:
+        img = img if img.ndim == 2 else _png_gray(img)
+    else:
+        img = img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=2)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    return orient(img, _exif_orientation(exif)) if exif else img
+
+
+def _exif_orientation(tiff: bytes) -> int:
+    src = np.frombuffer(tiff, np.uint8)
+    return int(_lib().exif_orientation(_u8(src), len(src)))
 
 
 def _decode_jpeg(data: bytes, gray: bool, unchanged: bool) -> np.ndarray:
     src = np.frombuffer(data, np.uint8)
-    info = np.zeros(3, np.int32)
+    info = np.zeros(4, np.int32)
     lib = _lib()
     _check(lib.jpeg_info(_u8(src), len(src), info.ctypes.data_as(_I32P)), "JPEG")
-    w, h, ncomp = (int(v) for v in info)
+    w, h, ncomp, orientation = (int(v) for v in info)
     if w * h > MAX_PIXELS:
         raise ImageError(f"{w}x{h} exceeds {MAX_PIXELS} pixels")
-    gray = gray or (unchanged and ncomp == 1)
-    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
-    _check(lib.jpeg_decode(_u8(src), len(src), int(gray), _u8(out), w, h), "JPEG")
-    return out
+    one = (gray and not unchanged) or (unchanged and ncomp == 1)
+    out = np.empty((h, w) if one else (h, w, 3), np.uint8)
+    _check(lib.jpeg_decode(_u8(src), len(src), int(one), _u8(out), w, h), "JPEG")
+    return out if unchanged else orient(out, orientation)
 
 
 # ---------------------------------------------------------------- write --

@@ -1,18 +1,30 @@
-// Image codec of the PyTorch port: PNG row filters and baseline JPEG.
+// Image codec of the PyTorch port: PNG row filters, JPEG and the Exif
+// orientation tag.
 //
 // A host library with a plain C interface, loaded with ctypes by
-// `fusion3dseg_tpu_torch/io/image.py`, which does the PNG chunk and zlib
-// work in Python. It covers what RTAB-Map exports and what OpenCV writes
-// with its defaults:
+// `fusion3dseg_tpu_torch/io/image.py`, which does the PNG chunk, zlib,
+// interlace and bit-depth work in Python. It covers what RTAB-Map, TUM
+// and phone cameras write and what OpenCV writes:
 //
 //   * PNG: undo the five row filters (Paeth and Average run along a row).
-//   * JPEG read: baseline sequential Huffman (SOF0/SOF1), 8-bit, 1 or 3
-//     components, any integer sampling (4:4:4, 4:2:2, 4:2:0, ...), restart
-//     intervals, interleaved and single-component scans. It follows
-//     libjpeg-turbo's defaults, which OpenCV decodes with: the ISLOW
-//     integer IDCT with its descale and range limit, "fancy" triangular
-//     chroma upsampling with its edge rules, and the fixed-point YCbCr->RGB
-//     tables. Progressive and arithmetic-coded files are refused.
+//   * JPEG read: sequential (SOF0/SOF1) and progressive (SOF2) Huffman,
+//     8-bit, 1 or 3 components, any integer sampling (4:4:4, 4:2:2, 4:2:0,
+//     ...), restart intervals, interleaved and single-component scans.
+//     Progressive scans (spectral selection, successive approximation, EOB
+//     runs) decode as libjpeg-turbo's jdphuff.c does into a coefficient
+//     buffer of the whole image; every block then goes through the same
+//     output path as a sequential file. That path follows libjpeg-turbo's
+//     defaults, which OpenCV decodes with: the ISLOW integer IDCT with its
+//     descale and range limit, "fancy" triangular chroma upsampling with its
+//     edge rules, and the fixed-point YCbCr->RGB tables. libjpeg-turbo's
+//     block smoothing acts only while some coefficient bits are still
+//     unknown, which a complete file never leaves, so it has no counterpart
+//     here. Arithmetic-coded (SOF9-SOF15), lossless and 12-bit files, and
+//     four-component (CMYK/YCCK) ones, are refused.
+//   * Exif: the Orientation tag (0x0112) of a TIFF structure, read the way
+//     OpenCV's ExifReader reads it: from the first APP1 segment of a JPEG
+//     (past its 6-byte "Exif\0\0" header), or from a PNG eXIf chunk that
+//     image.py hands over.
 //   * JPEG write: baseline, 4:2:0 for colour (one component for gray), the
 //     standard quantization tables scaled to a quality, the standard
 //     Huffman tables, no optimization.
@@ -33,7 +45,6 @@ enum Err {
   kOk = 0,
   kTruncated = -1,
   kNotJpeg = -2,
-  kProgressive = -3,
   kArithmetic = -4,
   kUnsupported = -5,
   kBadData = -6,
@@ -205,7 +216,8 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool frame = false, adobe = false, jfif = false;
+  bool frame = false, progressive = false, adobe = false, jfif = false;
+  int64_t app1 = -1, app1_len = 0;  // the first APP1 segment's body
   int adobe_transform = -1;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
@@ -248,14 +260,16 @@ struct Decoder {
     return kOk;
   }
 
-  int decode_block(BitReader& br, Component& c, int& pred, int td, int ta, int16_t* blk) {
-    int t = decode_symbol(br, dc[td]);
+  // A sequential scan's block: DC difference and every AC coefficient.
+  int decode_block(BitReader& br, int& pred, const Huffman& hd, const Huffman& ha,
+                   int16_t* blk) {
+    int t = decode_symbol(br, hd);
     if (t < 0 || t > 11) return kBadHuffman;
     int diff = t ? extend(br.get(t), t) : 0;
     pred += diff;
     blk[0] = (int16_t)pred;
     for (int k = 1; k < 64;) {
-      int rs = decode_symbol(br, ac[ta]);
+      int rs = decode_symbol(br, ha);
       if (rs < 0) return kBadHuffman;
       int r = rs >> 4, s = rs & 15;
       if (s) {
@@ -269,14 +283,120 @@ struct Decoder {
         break;
       }
     }
-    (void)c;
     return kOk;
+  }
+
+  // Progressive scans, as libjpeg-turbo's jdphuff.c decodes them. The scan
+  // covers coefficients ss..se (zigzag) at bit al; ah != 0 refines bits
+  // that an earlier scan sent. eobrun counts blocks left in an EOB run.
+  int ss = 0, se = 63, ah = 0, al = 0;
+  int eobrun = 0;
+
+  int decode_dc_first(BitReader& br, int& pred, const Huffman& hd, int16_t* blk) {
+    int t = decode_symbol(br, hd);
+    if (t < 0 || t > 11) return kBadHuffman;
+    pred += t ? extend(br.get(t), t) : 0;
+    blk[0] = (int16_t)((unsigned)pred << al);
+    return kOk;
+  }
+
+  int decode_dc_refine(BitReader& br, int16_t* blk) {
+    if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+    return kOk;
+  }
+
+  int decode_ac_first(BitReader& br, const Huffman& ha, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return kOk;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_symbol(br, ha);
+      if (rs < 0) return kBadHuffman;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) return kBadData;
+        blk[g_zigzag[k]] = (int16_t)((unsigned)extend(br.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) - 1;
+        if (r) eobrun += br.get(r);
+        break;
+      }
+    }
+    return kOk;
+  }
+
+  int decode_ac_refine(BitReader& br, const Huffman& ha, int16_t* blk) {
+    const int p1 = 1 << al, m1 = -p1;
+    // a coefficient already nonzero takes one correction bit
+    auto refine = [&](int16_t& coef) {
+      if (br.get(1) && (coef & p1) == 0) coef = (int16_t)(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode_symbol(br, ha);
+        if (rs < 0) return kBadHuffman;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly nonzero coefficient, of size 1: its sign
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // skip r zero coefficients (refining the nonzero ones on the way),
+        // then place s on the next zero one
+        do {
+          int16_t& coef = blk[g_zigzag[k]];
+          if (coef != 0) {
+            refine(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > 63) return kBadData;
+          blk[g_zigzag[k]] = (int16_t)s;
+        }
+      }
+    }
+    if (eobrun > 0) {  // the rest of the band: corrections only
+      for (; k <= se; ++k)
+        if (blk[g_zigzag[k]] != 0) refine(blk[g_zigzag[k]]);
+      --eobrun;
+    }
+    return kOk;
+  }
+
+  int decode_unit(BitReader& br, int& pred, int td, int ta, int16_t* blk) {
+    if (!progressive) return decode_block(br, pred, dc[td], ac[ta], blk);
+    if (ss == 0) return ah ? decode_dc_refine(br, blk) : decode_dc_first(br, pred, dc[td], blk);
+    return ah ? decode_ac_refine(br, ac[ta], blk) : decode_ac_first(br, ac[ta], blk);
   }
 
   int parse_sos(int64_t p, int seglen, int64_t& data_start) {
     if (!frame) return kNoFrame;
     int ns = buf[p];
     if (ns < 1 || ns > 4 || seglen < 1 + 2 * ns + 3) return kBadData;
+    ss = buf[p + 1 + 2 * ns];
+    se = buf[p + 2 + 2 * ns];
+    ah = buf[p + 3 + 2 * ns] >> 4;
+    al = buf[p + 3 + 2 * ns] & 15;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0) return kBadData;
+    } else if (ss > se || se > 63 || al > 13 || (ss == 0 && se != 0) || (ss > 0 && ns != 1) ||
+               (ah != 0 && ah != al + 1)) {
+      return kBadData;  // libjpeg's "invalid progressive parameters"
+    }
+    // the tables this scan reads: DC for sequential and first DC scans, AC
+    // for sequential and AC scans
+    const bool need_dc = !progressive || (ss == 0 && ah == 0);
+    const bool need_ac = !progressive || ss > 0;
     int idx[4], td[4], ta[4];
     for (int i = 0; i < ns; ++i) {
       int cid = buf[p + 1 + 2 * i];
@@ -286,7 +406,9 @@ struct Decoder {
       if (idx[i] < 0) return kBadData;
       td[i] = buf[p + 2 + 2 * i] >> 4;
       ta[i] = buf[p + 2 + 2 * i] & 15;
-      if (td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined || !ac[ta[i]].defined) return kBadHuffman;
+      if (td[i] > 3 || ta[i] > 3 || (need_dc && !dc[td[i]].defined) ||
+          (need_ac && !ac[ta[i]].defined))
+        return kBadHuffman;
       Component& c = comp[idx[i]];
       if (!c.latched) {
         if (!qt_defined[c.tq]) return kBadData;
@@ -294,8 +416,7 @@ struct Decoder {
         c.latched = true;
       }
     }
-    int ss = buf[p + 1 + 2 * ns], se = buf[p + 2 + 2 * ns], ahal = buf[p + 3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0) return kProgressive;
+    eobrun = 0;
 
     BitReader br{buf, len, p + seglen};
     int pred[4] = {0, 0, 0, 0};
@@ -314,6 +435,7 @@ struct Decoder {
         if (left == 0) {
           if (!br.restart()) return kBadData;
           for (int i = 0; i < 4; ++i) pred[i] = 0;
+          eobrun = 0;
           left = restart_interval;
         }
         --left;
@@ -322,7 +444,7 @@ struct Decoder {
         Component& c = comp[idx[0]];
         int bx = (int)(m % ux), by = (int)(m / ux);
         int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
-        int rc = decode_block(br, c, pred[0], td[0], ta[0], blk);
+        int rc = decode_unit(br, pred[0], td[0], ta[0], blk);
         if (rc) return rc;
       } else {
         int mx = (int)(m % mcux), my = (int)(m / mcux);
@@ -332,7 +454,7 @@ struct Decoder {
             for (int xx = 0; xx < c.h; ++xx) {
               int bx = mx * c.h + xx, by = my * c.v + yy;
               int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
-              int rc = decode_block(br, c, pred[i], td[i], ta[i], blk);
+              int rc = decode_unit(br, pred[i], td[i], ta[i], blk);
               if (rc) return rc;
             }
         }
@@ -364,17 +486,17 @@ struct Decoder {
       int body = seglen - 2;
       switch (marker) {
         case 0xC0:
-        case 0xC1: {
+        case 0xC1:
+        case 0xC2: {
+          progressive = marker == 0xC2;
           int rc = parse_sof(p, body);
           if (rc) return rc;
           break;
         }
-        case 0xC2: case 0xC6: case 0xCA: case 0xCE:
-          return kProgressive;
-        case 0xC9: case 0xCB: case 0xCD: case 0xCF: case 0xCC:
+        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: case 0xCC:
           return kArithmetic;
-        case 0xC3: case 0xC5: case 0xC7:
-          return kUnsupported;
+        case 0xC3: case 0xC5: case 0xC6: case 0xC7:
+          return kUnsupported;  // lossless and hierarchical
         case 0xC4: {  // DHT
           int64_t q = p, end = p + body;
           while (q < end) {
@@ -863,31 +985,73 @@ int png_unfilter(const uint8_t* src, int64_t height, int64_t rowbytes, int bpp, 
   return kOk;
 }
 
-// JPEG header: info = [width, height, components]
+// The Exif Orientation (tag 0x0112) of a TIFF structure ("II" or "MM",
+// 42, the offset of IFD0, its entries), read as OpenCV's ExifReader reads
+// it: a 16-bit value 8 bytes into IFD0's entry, whatever the entry's type.
+// Returns 1 (no transform) where the structure is cut short or malformed
+// or has no such tag.
+int exif_orientation(const uint8_t* tiff, int64_t len) {
+  if (len < 8) return 1;
+  const bool le = tiff[0] == 'I' && tiff[1] == 'I';
+  if (!le && !(tiff[0] == 'M' && tiff[1] == 'M')) return 1;
+  auto u16 = [&](int64_t o) -> int64_t {
+    if (o < 0 || o + 1 >= len) return -1;
+    return le ? tiff[o] | tiff[o + 1] << 8 : tiff[o] << 8 | tiff[o + 1];
+  };
+  auto u32 = [&](int64_t o) -> int64_t {
+    if (o < 0 || o + 3 >= len) return -1;
+    const int64_t a = u16(o), b = u16(o + 2);
+    return le ? a | b << 16 : a << 16 | b;
+  };
+  if (u16(2) != 42) return 1;
+  const int64_t ifd = u32(4), n = u16(ifd);
+  if (ifd < 0 || n < 0) return 1;
+  int64_t orientation = 0;  // the first entry of the tag counts
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t e = ifd + 2 + 12 * i, tag = u16(e);
+    if (tag < 0) return 1;  // a cut entry fails the whole parse, as OpenCV's does
+    if (tag == 0x0112 && orientation == 0) {
+      orientation = u16(e + 8);
+      if (orientation < 0) return 1;
+    }
+  }
+  return orientation ? (int)orientation : 1;
+}
+
+// JPEG header: info = [width, height, components, orientation]. The
+// markers are read up to the first scan, as libjpeg's jpeg_read_header
+// does; orientation is the Exif Orientation of the first APP1 segment
+// (exif_orientation), 1 where it has none.
 int jpeg_info(const uint8_t* buf, int64_t len, int32_t* info) {
   if (len < 4 || buf[0] != 0xFF || buf[1] != 0xD8) return kNotJpeg;
   int64_t pos = 2;
+  bool frame = false, app1 = false;
+  info[3] = 1;
   while (pos + 4 <= len) {
     while (pos < len && buf[pos] != 0xFF) ++pos;
     while (pos < len && buf[pos] == 0xFF) ++pos;
     if (pos + 3 > len) break;
     int marker = buf[pos++];
     if (marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;
-    if (marker == 0xD9) break;
+    if (marker == 0xD9 || marker == 0xDA) break;  // EOI, SOS
     int seglen = (buf[pos] << 8) | buf[pos + 1];
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE) return kProgressive;
+    if (seglen < 2 || pos + seglen > len) return kTruncated;
     if (marker >= 0xC9 && marker <= 0xCF && marker != 0xCC) return kArithmetic;
-    if (marker == 0xC0 || marker == 0xC1) {
-      if (pos + 8 > len) return kTruncated;
+    if (marker == 0xC3 || (marker >= 0xC5 && marker <= 0xC7)) return kUnsupported;
+    if (marker >= 0xC0 && marker <= 0xC2 && !frame) {
+      if (seglen < 8) return kTruncated;
       info[0] = (buf[pos + 5] << 8) | buf[pos + 6];
       info[1] = (buf[pos + 3] << 8) | buf[pos + 4];
       info[2] = buf[pos + 7];
-      return kOk;
+      frame = true;
     }
-    if (marker == 0xC3 || marker == 0xC5 || marker == 0xC7) return kUnsupported;
+    if (marker == 0xE1 && !app1) {  // OpenCV reads the first APP1 past 6 bytes
+      app1 = true;
+      if (seglen - 2 > 6) info[3] = exif_orientation(buf + pos + 8, seglen - 8);
+    }
     pos += seglen;
   }
-  return kNoFrame;
+  return frame ? kOk : kNoFrame;
 }
 
 // JPEG decode into out: [height, width, 3] RGB, or [height, width] when

@@ -20,6 +20,7 @@ cores, in float32 on the CUDA cores. K3 has two bfloat16 kernels, and
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +30,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128  # the kernels keep a query's share of D in registers
 _ERRORS = {
     -1: f"head dim exceeds {MAX_HEAD_DIM}",
-    -2: "the keys and values one block needs exceed an SM's shared memory",
+    -2: "the keys and values one block needs exceed an SM's shared memory",  # K3 only
     -3: "unsupported dtype",
     -4: "TMA cannot describe the tensors",
     -5: "libcuda has no cuTensorMapEncodeTiled",
@@ -220,6 +221,48 @@ def _check_window(q, height, width, window):
         raise ValueError(f"neighborhood_attention: window must be odd, got {window}")
 
 
+class NatPlan(NamedTuple):
+    """How a K2 block walks its tile's halo: chunks of `rows` x `cols`
+    key positions through `stages` shared-memory buffers, `smem` bytes."""
+    rows: int
+    cols: int
+    stages: int
+    smem: int
+
+
+_NAT_TILE = 8  # queries per tile side
+_NAT_BUDGET = 57344  # bytes of K and V a block stages: four blocks an SM
+
+
+def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
+    """The chunking `csrc/neighborhood_attention.cu` (`nat_plan`) picks for
+    an odd `window`, head dim D <= 128, q's dtype and the image's width. The
+    tile's halo, 8 + window - 1 positions a side, is clamped to the width.
+    Where all of it fits `_NAT_BUDGET` it is one chunk staged once; else the
+    block streams it through two buffers of half the budget each, in bands
+    of whole rows, or of pieces of a row (a multiple of 8 positions) where
+    one row does not fit. The bfloat16 kernel also stores its 64 output rows
+    through shared memory."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"neighborhood_attention: {_ERRORS[-1]} (D={D})")
+    if dtype == torch.bfloat16:
+        # D padded to 32 n, and 8 more against bank conflicts
+        ld = 32 * next(n for n in (1, 2, 3, 4) if D <= 32 * n) + 8
+        elem, out = 2, _NAT_TILE * _NAT_TILE * ld * 2
+    else:
+        ld = 4 * next(n for n in (2, 4, 8, 16, 32) if D <= 4 * n)  # four lanes, a share each
+        elem, out = 4, 0
+    halo = _NAT_TILE + 2 * (window // 2)
+    pos = 2 * ld * elem  # one position of K and one of V
+    wide = min(halo, width)
+    if halo * wide * pos <= _NAT_BUDGET:
+        return NatPlan(halo, wide, 1, max(halo * wide * pos, out))
+    per = _NAT_BUDGET // 2
+    cols = wide if wide * pos <= per else per // pos // 8 * 8
+    rows = min(halo, per // (cols * pos))
+    return NatPlan(rows, cols, 2, max(2 * rows * cols * pos, out))
+
+
 def neighborhood_attention_reference(q, k, v, height: int, width: int, window: int):
     """Plain PyTorch version of `neighborhood_attention` (gathers every
     query's window; differentiable, and the route of the kernel's backward).
@@ -273,11 +316,12 @@ class _NeighborhoodAttention(torch.autograd.Function):
 def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
     """Fused sliding-window attention: q, k, v [B, N = height*width, H, D];
     returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D) happens here.
-    Any height and width, odd `window`, D <= 128; the (8 + window - 1)^2
-    keys and values around an 8 x 8 tile of queries must fit an SM's shared
-    memory (window 13 at D = 128 in bfloat16 does), else it raises. Head dims
-    and strides that are multiples of 16 bytes are staged 16 bytes a copy,
-    others an element at a time.
+    Any height and width, any odd `window`, D <= 128, B * H <= 65535 (the
+    JAX kernel's domain: its window is bounded by VMEM alone). The kernel
+    streams the keys and values around an 8 x 8 tile of queries through
+    shared memory in chunks (`_nat_plan`), so no window is too wide for it.
+    Head dims and strides that are multiples of 16 bytes are staged 16 bytes
+    a copy, others an element at a time.
 
     A CUDA tensor launches the kernel (and adds one to
     `neighborhood_attention.launches`), with its gradient taken through

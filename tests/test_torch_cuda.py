@@ -287,6 +287,13 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     (1, 9, 9, 3, 7, 3, torch.bfloat16),  # and 4-byte accesses
     (1, 9, 9, 3, 7, 3, torch.float32),
     (1, 6, 6, 1, 8, 1, torch.bfloat16),  # a window of the query alone
+    # windows whose halo the kernel streams in chunks of rows
+    (1, 16, 16, 1, 64, 15, torch.float32), (2, 17, 19, 1, 64, 15, torch.bfloat16),
+    (1, 21, 18, 2, 128, 15, torch.bfloat16), (1, 21, 18, 2, 128, 15, torch.float32),
+    (2, 64, 64, 1, 64, 23, torch.bfloat16), (2, 40, 37, 1, 64, 23, torch.float32),
+    (1, 30, 27, 1, 128, 23, torch.bfloat16), (1, 30, 27, 1, 128, 23, torch.float32),
+    (1, 12, 100, 1, 128, 63, torch.bfloat16),  # rows cut into column pieces
+    (1, 9, 10, 1, 64, 63, torch.float32),  # the halo clamped far inside the window
 ])
 def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D, window, dtype):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -319,9 +326,12 @@ def test_neighborhood_attention_kernel_reads_strides_and_refuses(cuda_device, dt
                                                  v.contiguous(), h, w, window)
     bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
     assert (got.float() - want.float()).abs().max().item() <= bar
-    big = torch.zeros((1, 64, 1, 128), device=cuda_device, dtype=dtype)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        attn.neighborhood_attention(big, big, big, 8, 8, 41)
+    # window 41 at D = 128, whose halo once exceeded a block's shared memory
+    # (the launch was refused), streams it now and agrees
+    big = _qkv((1, 64, 1, 128), (1, 64, 1, 128), dtype, cuda_device)
+    got = attn.neighborhood_attention(*big, 8, 8, 41)
+    want = attn.neighborhood_attention_reference(*big, 8, 8, 41)
+    assert (got.float() - want.float()).abs().max().item() <= bar
 
 
 @pytest.mark.cuda
@@ -638,6 +648,76 @@ def test_b2_nat_train_step_through_k2(cuda_device):
     g = torch.Generator().manual_seed(0)
     images = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8)
     labels = torch.randint(0, 5, (2, 16, 16), generator=g).repeat_interleave(8, 1) \
+        .repeat_interleave(8, 2)
+    out = []
+    for use in (True, False):
+        net = SegFormer(cfg, torch.Generator().manual_seed(1), use_cuda_attention=use,
+                        param_dtype=torch.float32).to(cuda_device)
+        before = attn.neighborhood_attention.launches
+        loss = sharding.segmenter_loss(net, images.to(cuda_device), labels.to(cuda_device), 2.0)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert attn.neighborhood_attention.launches - before == (3 if use else 0)
+        out.append((loss.item(), torch.cat([p.grad.reshape(-1) for p in net.parameters()])))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 2e-2 * abs(lp)
+    assert ((gk - gp).norm() / gp.norm()).item() <= 2e-2
+
+
+def _b2_nat(window, dtype):
+    """SegFormer-B2 with a neighbourhood-attention first stage of `window`,
+    and the shipped B2 weights less that stage's reduction (decisive logits,
+    so that masks can be compared)."""
+    import dataclasses
+
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
+
+    cfg = dataclasses.replace(SegFormerConfig.b2(), nat_windows=(window, 0, 0, 0), dtype=dtype)
+    flat = {k: v for k, v in convert.flatten_params(convert.load_params_npz(
+        convert.shipped_checkpoint("b2"))).items()
+        if not (k.startswith("stage0_") and ("/sr/" in k or
+                                             "EfficientAttention_0/LayerNorm_0" in k))}
+    return cfg, convert.from_flax_params(flat, cfg)
+
+
+@pytest.mark.cuda
+def test_b2_nat_window_15_segmenter_cuda_matches_cpu(cuda_device):
+    # float32 B2 at 256x256 with window 15 on stage 0 (64 x 64 tokens, D =
+    # 64: the kernel streams the halo) against the port on the CPU
+    from fusion3dseg_tpu_torch.io.synthetic import make_session
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    cfg, state = _b2_nat(15, torch.float32)
+    frames = make_session(nframes=2, depth_hw=(48, 36), appearance="textured").colors
+    segs = []
+    for dev in ("cuda", "cpu"):
+        seg = Segmenter2D(cfg, input_hw=(256, 256), batch_size=2, device=dev)
+        seg.model.load_state_dict(state)
+        segs.append(seg)
+    before = attn.neighborhood_attention.launches
+    got = segs[0].predict_batch(frames, 0.0)
+    assert attn.neighborhood_attention.launches == before + 3  # B2's three stage-0 blocks
+    agree = (got == segs[1].predict_batch(frames, 0.0)).mean()
+    assert agree >= 0.999, agree
+
+
+@pytest.mark.cuda
+def test_b2_nat_window_23_train_step_through_k2(cuda_device):
+    # the train step of test_b2_nat_train_step_through_k2 at window 23 (a
+    # streamed halo) on 256x256 inputs: K2's launches counted, loss and
+    # gradients against the step through the plain versions
+    import dataclasses
+
+    from fusion3dseg_tpu_torch.models import SegFormerConfig
+    from fusion3dseg_tpu_torch.models.segformer import SegFormer
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.parallel import sharding
+
+    cfg = dataclasses.replace(SegFormerConfig.b2(), nat_windows=(23, 0, 0, 0))
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 256, 256, 3), generator=g, dtype=torch.uint8)
+    labels = torch.randint(0, 5, (2, 32, 32), generator=g).repeat_interleave(8, 1) \
         .repeat_interleave(8, 2)
     out = []
     for use in (True, False):

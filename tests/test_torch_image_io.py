@@ -122,9 +122,14 @@ def test_format_from_magic_not_name(rng, tmp_path):
     np.testing.assert_array_equal(image.read(png_named_jpg), img)
     with pytest.raises(image.ImageError):
         image.decode(b"GIF89a....")
+    # a progressive JPEG, once refused, reads as cv2 reads it; an
+    # arithmetic-coded one (SOF9) is still refused with its reason
     ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(image.ImageError, match="progressive"):
-        image.decode(buf.tobytes())
+    np.testing.assert_array_equal(image.decode(buf.tobytes()), cv2.imdecode(buf, 1)[:, :, ::-1])
+    data = bytearray(buf.tobytes())
+    data[data.index(b"\xff\xc2") + 1] = 0xC9
+    with pytest.raises(image.ImageError, match="arithmetic"):
+        image.decode(bytes(data))
     with pytest.raises(FileNotFoundError):
         image.read(tmp_path / "missing.png")
 
