@@ -24,20 +24,24 @@ Phases (each prints its own lines; any failure exits non-zero):
             kernel's backward; the spatial-reduction kernel (K3) at every
             SegFormer-B2 call of 256x256, 512x512 and 1024x1024 inputs
             (batch 8; 64, 256 and 1024 keys) and at its edges (1 to 4096
-            keys, D = 32 to 128, float32 with 1024 keys, a layout TMA cannot
-            describe at 1024 keys), its bfloat16 cases through wgmma and,
+            keys, D = 32 to 512 in both dtypes, float32 with 1024 keys, a
+            layout TMA cannot describe at 1024 keys and at D = 160, B x H =
+            65,537 on each kernel), its bfloat16 cases through wgmma and,
             where its shared memory holds the keys, mma.sync; timed (in CUDA
             graphs, between CUDA events) beside the plain version, a bound
             (bytes and products; the exponentials' floor printed beside it)
             and `scaled_dot_product_attention` (timed here, used nowhere
             else). Every counted K3 launch of phases 7-12 must take the
             wgmma kernel; their counts by kernel print before the kernels
-            line. The neighbourhood kernel (K2): its launcher's chunk plan
-            against `_nat_plan` (every odd window to 255, widths to 256),
-            windows 1 to 63 in both dtypes at D = 7 to 128 (windows 15-63
-            streaming the halo, column pieces, a halo clamped inside the
-            window), timed at window 7 ([8, 64*64] and [2, 128*128]) and 23
-            beside its bound and the masked `scaled_dot_product_attention`.
+            line. Timed past D = 128: [8,4096,1,256]x64 keys, [8,1024,2,160]x256
+            and [8,1024,1,320]x256. The neighbourhood kernel (K2): its
+            launcher's chunk plan against `_nat_plan` (every odd window to
+            255, widths to 256, D to 512), windows 1 to 63 in both dtypes at
+            D = 7 to 512 (windows 15-63 streaming the halo, column pieces, a
+            halo clamped inside the window; D > 128 in chunks), B x H =
+            65,537, timed at window 7 ([8, 64*64] and [2, 128*128], and
+            [8, 16*16] at D = 320) and 23 beside its bound and the masked
+            `scaled_dot_product_attention`.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
             the fused spatial-reduction kernel (launches counted, pixel
@@ -47,10 +51,26 @@ Phases (each prints its own lines; any failure exits non-zero):
             logits against the plain versions, frames/s, peak memory); then
             B2 width with a neighbourhood-attention first stage (the shipped
             weights less that stage's reduction conv) at windows 7 and 23
-            (K2 launches counted, masks against the plain versions), and
-            `predict`'s contract.
+            (K2 launches counted, masks against the plain versions); B2 with
+            num_heads=(1, 1, 1, 2) (head dims 64, 128, 320, 256; the shipped
+            weights) at 256x256, 512x512 and 1024x1024 (K3 at D = 320 and
+            256), and at 256x256 with stage 2 a window-7 neighbourhood stage
+            (K2 at D = 320, 16 x 16 tokens), masks >= 0.995 equal to the
+            plain-version forward, launches counted; and `predict`'s
+            contract.
 8. stream   `stream_segment` on that session: votes' contract, run twice
             bit-identical, classes against predict_batch + vote_and_classify.
+8a. soak    `tools/soak.py`, the long-session soak: 2048 frames at 128x96,
+            four turns, `fuse_session_checkpointed` at capacity 2^20 with the
+            auto window, interrupted after half its chunks and resumed, then
+            run uninterrupted: the resumed state and uv2pt equal the
+            uninterrupted run's and a plain `fuse_session`'s bit for bit,
+            int32 counters, n <= capacity.
+8b. loop    `tools/model_in_the_loop.py`: the shipped B2 through
+            `stream_segment` over the unseen 24-frame textured session
+            (bench.py's config 4): 3D agreement against the ground-truth-mask
+            pipeline >= 0.98, classes >= 0.999 equal to the same run with
+            use_pallas_attention=False, K3 launches counted.
 9. fusion   the main path `segment_session_fast`. Masks branch on the
             48-frame 256x192 session (capacity 2^17, auto window, split
             policy): timed by stage, two runs bit-identical, held to the
@@ -167,8 +187,10 @@ FUSION_KW = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 17, windo
 NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
-ALL_PHASES = ["label", "attention", "segmenter", "stream", "fusion", "files", "hf", "train",
-              "post", "parallel"]
+ALL_PHASES = ["label", "attention", "segmenter", "stream", "soak", "loop", "fusion", "files",
+              "hf", "train", "post", "parallel"]
+SOAK_FRAMES = 2048  # examples/soak_long_session.py's session
+LOOP_AGREE_BAR, LOOP_SAME_BAR = 0.98, 0.999  # loop: vs the gt masks, vs use_pallas_attention=False
 JPEG_PSNR_BAR = 35.0  # the port's q95 JPEG of the textured frames against their colours
 FILES_CAPACITY = 1 << 20  # process3DSeg's default
 # port state-dict name -> HF SegformerForSemanticSegmentation name, in order
@@ -570,7 +592,17 @@ def attention_phase(card):
             (1, 2048, 2, 128, 256, "bf16", False), (2, 700, 2, 64, 257, "bf16", False),
             (1, 1000, 3, 64, 849, "bf16", False), (1, 777, 2, 64, 2048, "bf16", False),
             (1, 512, 1, 64, 4096, "bf16", False), (2, 1000, 1, 128, 1024, "bf16", False),
-            (1, 1000, 2, 64, 1024, "f32", False)):
+            (1, 1000, 2, 64, 1024, "f32", False),
+            # head dims past 128 (timed: a head of 256 against B2's stage-0
+            # keys, of 160 against 256 keys, and B2 with num_heads=(1,1,1,2)
+            # at stage 2 of 512x512, D = 320); in both dtypes a D that is not a
+            # multiple of 8 (129: copied for wgmma), ragged N and M, 128 < D <=
+            # 256 (wgmma's third width) and D > 256 (D in chunks, column blocks)
+            (8, 4096, 1, 256, 64, "bf16", True), (8, 1024, 2, 160, 256, "bf16", True),
+            (8, 1024, 1, 320, 256, "bf16", True),
+            *((B, N, H, D, M, dtype, False) for dtype in ("f32", "bf16") for B, N, H, D, M in (
+                (1, 1000, 2, 129, 37), (1, 777, 2, 160, 64), (2, 500, 1, 200, 257),
+                (1, 1000, 1, 256, 300), (2, 700, 1, 320, 256), (1, 600, 1, 512, 100)))):
         q, k, v = qkv((B, N, H, D), (B, M, H, D), dtype)
         shape = f"[{B},{N},{H},{D}]x[{B},{M},{H},{D}]"
         route = attn._sr_route(q, k, v)
@@ -614,6 +646,88 @@ def attention_phase(card):
     sra["max_abs_err"] = max(sra["max_abs_err"], err)
     log(f"attention: sr_attention [2,700,1,64]x[2,1024,1,64] bf16, k and v 8 bytes off 16 "
         f"(copied for wgmma): max abs err {err:.3e} vs plain version")
+    # a layout the mma.sync kernel would take at D <= 128 (a base 8 bytes off
+    # 16, 40 keys), at D = 160: copied for wgmma; the mma route refuses it
+    flat = torch.randn(4 + 2 * 300 * 160, device=dev, generator=gen).bfloat16()
+    q = flat[4:].view(2, 300, 1, 160)
+    k, v = (torch.randn((2, 40, 1, 160), device=dev, generator=gen).bfloat16() for _ in "kv")
+    if attn._tma_layout(q) or attn._sr_route(q, k, v) != "wgmma":
+        fail("sr_attention: the offset layout at D = 160 is not routed through the copy")
+    err = held("sr_attention", attn.sr_attention(q, k, v),
+               attn.sr_attention_reference(q.contiguous(), k, v), "bf16",
+               "a base 8 bytes off 16 at D = 160")
+    sra["max_abs_err"] = max(sra["max_abs_err"], err)
+    try:
+        attn.launch_sr_attention(k, k, k, "mma")
+        fail("sr_attention: the mma route took D = 160")
+    except ValueError as e:
+        refusal = str(e)
+    log(f"attention: sr_attention [2,300,1,160]x[2,40,1,160] bf16, q 8 bytes off 16 (copied "
+        f"for wgmma): max abs err {err:.3e} vs plain version; the mma route: {refusal!r}")
+    # batch x heads past the 65,535 a grid axis holds: every kernel. A
+    # pair's output must not depend on how many pairs share the call (the
+    # grid kernels take them in runs of 65,535, wgmma walks a flat list), so
+    # each 65,537-pair result is held bit for bit against the same pairs
+    # launched as 65,535 and as 2, beside its plain version
+    def by_pairs(fn, q, k, v, what):
+        whole = fn(q, k, v)
+        parts = torch.cat([fn(q[s], k[s], v[s]) for s in (slice(0, 65535), slice(65535, None))])
+        torch.cuda.synchronize()
+        if not torch.equal(whole, parts):
+            fail(f"{what}: the 65,537-pair result differs from the same pairs as 65,535 + 2")
+        return whole
+
+    for dtype, route in (("f32", "f32"), ("bf16", "wgmma"), ("bf16", "mma")):
+        q, k, v = qkv((65537, 16, 1, 16), (65537, 64, 1, 16), dtype)
+        got = by_pairs(lambda *t: attn.launch_sr_attention(*t, route), q, k, v,
+                       f"sr_attention on {route}")
+        err = held("sr_attention", got, attn.sr_attention_reference(q, k, v), dtype,
+                   f"B x H = 65537 on {route}")
+        sra["max_abs_err"] = max(sra["max_abs_err"], err)
+        log(f"attention: sr_attention [65537,16,1,16]x[65537,64,1,16] {dtype} on {route}: "
+            f"max abs err {err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
+    # bfloat16 at 65,537 pairs and other (N, M, D). The plain version (and
+    # mma.sync) rounds normalised p, the one-pass wgmma kernel rounds p
+    # before dividing by the row sum, and each rounds its output once: the
+    # two may land on neighbouring bfloat16 values, a step apart, and a step
+    # is 2^-5, past BF16_BAR, at |o| >= 4. So each is held within BF16_BAR
+    # of the exact attention of the same inputs (float64, p unrounded), and
+    # the two agree on each output within BF16_BAR or two steps of its
+    # magnitude. The first six draw as tests/test_torch_cuda.py's `_qkv`
+    # (host, seed 0); the last (cuda, seed 13) has an output where the two
+    # land a step apart at |o| >= 4
+    def bf16_steps(x):
+        return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+    for N, M, D, where, seed in ((16, 16, 8, "cpu", 0), (16, 64, 16, "cpu", 0),
+                                 (16, 16, 16, "cpu", 0), (16, 8, 8, "cpu", 0),
+                                 (16, 16, 32, "cpu", 0), (64, 64, 64, "cpu", 0),
+                                 (16, 8, 8, "cuda", 13)):
+        g = torch.Generator(device=where).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=g, device=where).bfloat16().to(dev)
+                   for s in ((65537, N, 1, D), (65537, M, 1, D), (65537, M, 1, D)))
+        scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
+        exact = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
+        del scores
+        plain = attn.sr_attention_reference(q, k, v).double()
+        plain_err = float((plain - exact).abs().max())
+        for route in ("wgmma", "mma"):
+            got = by_pairs(lambda *t: attn.launch_sr_attention(*t, route), q, k, v,
+                           f"sr_attention on {route}").double()
+            err = float((got - exact).abs().max())
+            apart, big = (got - plain).abs(), torch.maximum(got.abs(), plain.abs())
+            i, over = int(apart.argmax()), apart > BF16_BAR
+            steps = float((apart[over] / bf16_steps(big[over])).max()) if over.any() else 0.0
+            log(f"attention: sr_attention [65537,{N},1,{D}]x[65537,{M},1,{D}] bf16 ({where} "
+                f"seed {seed}) on {route}: max abs err {err:.3e} vs exact (plain version "
+                f"{plain_err:.3e}); {float(apart.max()):.3e} from the plain version, at o = "
+                f"{float(got.flatten()[i]):.6f} (plain {float(plain.flatten()[i]):.6f}, exact "
+                f"{float(exact.flatten()[i]):.6f}); {int(over.sum())} outputs past BF16_BAR, "
+                f"those at most {steps:g} bf16 steps apart; equal bit for bit to 65,535 + 2 pairs")
+            if not (err <= BF16_BAR and plain_err <= BF16_BAR and steps <= 2):
+                fail(f"sr_attention [65537,{N},1,{D}]x{M} on {route}: {err} vs exact, plain "
+                     f"{plain_err} vs exact (bar {BF16_BAR}), {steps} steps from the plain version")
+        del q, k, v, exact, plain, got, apart, big, over
 
     # ---- K2, neighbourhood attention
     nat = {"name": "neighborhood_attention", "route": "cuda",
@@ -626,7 +740,7 @@ def attention_phase(card):
     plan_fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int64)]
     got_plan, cases = (ctypes.c_int64 * 4)(), 0
     for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
-        for D in (8, 24, 32, 64, 128):
+        for D in (8, 24, 32, 64, 128, 129, 512):
             for window in range(1, 256, 2):
                 for w in range(1, 257):
                     want_plan = tuple(attn._nat_plan(window, D, dtype, w))
@@ -636,7 +750,7 @@ def attention_phase(card):
                              f"{want_plan}")
                     cases += 1
     log(f"attention: neighborhood_attention: the launcher's chunk plan equals _nat_plan in "
-        f"{cases} cases (odd windows 1-255, D 8-128, widths 1-256, both dtypes)")
+        f"{cases} cases (odd windows 1-255, D 8-512, widths 1-256, both dtypes)")
     for B, h, w, H, D, window, dtype, time_it in (
             (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", True),
             (1, 9, 11, 2, 8, 5, "f32", False),
@@ -659,7 +773,16 @@ def attention_phase(card):
             (1, 24, 30, 2, 128, 41, "bf16", False), (1, 24, 30, 2, 64, 41, "f32", False),
             (1, 12, 100, 1, 128, 63, "bf16", False), (1, 20, 24, 1, 128, 63, "f32", False),
             (1, 33, 100, 1, 64, 63, "bf16", False), (1, 9, 10, 1, 128, 63, "bf16", False),
-            (1, 9, 10, 1, 64, 63, "f32", False)):
+            (1, 9, 10, 1, 64, 63, "f32", False),
+            # head dims past 128 (the wide kernel, both dtypes): timed at B2
+            # num_heads=(1,1,1,2)'s stage 2 (16 x 16, D = 320, window 7); ragged
+            # grids, a D that is not a multiple of 8, windows 7 to 41
+            (8, 16, 16, 1, 320, 7, "bf16", True),
+            *((B, h, w, H, D, window, dtype, False) for dtype in ("f32", "bf16")
+              for B, h, w, H, D, window in (
+                  (1, 16, 16, 1, 129, 7), (1, 13, 19, 2, 160, 7), (1, 16, 16, 1, 200, 9),
+                  (2, 16, 16, 1, 256, 7), (1, 17, 16, 1, 320, 7), (1, 12, 30, 1, 512, 15),
+                  (1, 9, 70, 1, 160, 41)))):
         N = h * w
         q, k, v = qkv((B, N, H, D), (B, N, H, D), dtype)
         shape = f"[{B},{h}*{w},{H},{D}] window {window}"
@@ -685,6 +808,19 @@ def attention_phase(card):
                   nbytes=4 * q.numel() * q.element_size(),
                   ops=4 * B * H * D * _window_pairs(h, r) * _window_pairs(w, r))
             del mask, near, lib
+
+    # batch x heads past the 65,535 a grid axis holds
+    for dtype in ("f32", "bf16"):
+        q, k, v = qkv((65537, 16, 1, 8), (65537, 16, 1, 8), dtype)
+        got = by_pairs(lambda *t: attn.neighborhood_attention(*t, 4, 4, 3), q, k, v,
+                       "neighborhood_attention")
+        err = held("neighborhood_attention", got,
+                   attn.neighborhood_attention_reference(q, k, v, 4, 4, 3), dtype,
+                   "B x H = 65537")
+        nat["max_abs_err"] = max(nat["max_abs_err"], err)
+        log(f"attention: neighborhood_attention [65537,4*4,1,8] window 3 {dtype}: max abs err "
+            f"{err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
+    del q, k, v
 
     # q, k, v as slices of one fused projection [B, N, 3, H, D]: token and
     # head strides differ from the shapes', bases are offset
@@ -777,28 +913,29 @@ def segmenter_phase(card):
             f"{nframes / min(times):.1f} frames/s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    def compare(name, seg, plain, per_forward, counter, bar):
-        """Masks and logits of the kernel path against the plain versions."""
-        k3 = counter is attn.sr_attention
-        if k3:
-            attn.reset_sr_counts()
-        else:
-            counter.launches = 0
+    def compare(name, seg, plain, per_forward, bar):
+        """Masks and logits of the kernel path against the plain versions.
+        per_forward: launches a forward of each kernel, {"sr": K3, "nat": K2};
+        returns the masks and the launches of each in the masks' run."""
+        attn.reset_sr_counts()
+        attn.neighborhood_attention.launches = 0
         got = masks_of(seg)
         torch.cuda.synchronize()
-        launches = k3_counted(name) if k3 else counter.launches
+        launches = {"sr": k3_counted(name), "nat": attn.neighborhood_attention.launches}
         forwards = nframes // batch
-        if launches != per_forward * forwards:
-            fail(f"{name}: {counter.__name__} launched {launches} times in {forwards} "
-                 f"forwards (want {per_forward} each)")
+        for kernel, n in launches.items():
+            if n != per_forward.get(kernel, 0) * forwards:
+                fail(f"{name}: {kernel} launched {n} times in {forwards} forwards (want "
+                     f"{per_forward.get(kernel, 0)} each)")
         want = masks_of(plain)
-        if counter.launches != launches:
-            fail(f"{name}: use_cuda_attention=False launched the kernel")
+        if (attn.sr_attention.launches, attn.neighborhood_attention.launches) != \
+                (launches["sr"], launches["nat"]):
+            fail(f"{name}: use_cuda_attention=False launched a kernel")
         agree = float((got == want).mean())
         diff = float((logits_of(seg) - logits_of(plain)).abs().max())
-        log(f"segmenter: {name}: {counter.__name__} launches {launches} in {forwards} "
-            f"forwards; masks agree with the plain-version forward on {agree:.6f} of "
-            f"pixels (bar {bar}); max logit difference {diff:.4f} (bar {LOGIT_DIFF_BAR})")
+        log(f"segmenter: {name}: launches {launches} in {forwards} forwards; masks agree "
+            f"with the plain-version forward on {agree:.6f} of pixels (bar {bar}); max "
+            f"logit difference {diff:.4f} (bar {LOGIT_DIFF_BAR})")
         if got.shape != gts.shape or got.dtype != np.uint8 or agree < bar \
                 or not diff <= LOGIT_DIFF_BAR:
             fail(f"{name}: mask agreement {agree}, max logit difference {diff} against "
@@ -815,8 +952,8 @@ def segmenter_phase(card):
     if seg.input_hw != (256, 256):
         fail(f"the checkpoint's input size resolved to {seg.input_hw}")
     masks_of(seg)  # warm-up: cuDNN/cuBLAS plans
-    got, sra_launches = compare("shipped B2, use_pallas_attention", seg, plain, 7,
-                                attn.sr_attention, MASK_AGREE_BAR)
+    got, n = compare("shipped B2, use_pallas_attention", seg, plain, {"sr": 7}, MASK_AGREE_BAR)
+    sra_launches = n["sr"]
     acc = float((got == gts).mean())
     log(f"segmenter: pixel accuracy against ground truth {acc:.4f} (bar {PIXEL_ACC_BAR})")
     if acc < PIXEL_ACC_BAR:
@@ -832,8 +969,8 @@ def segmenter_phase(card):
                                       use_cuda_attention=use) for use in (True, False))
         masks_of(big)  # warm-up: cuDNN/cuBLAS plans at this size
         _, n = compare(f"shipped B2 at {hw[0]}x{hw[1]}, use_pallas_attention", big, big_plain,
-                       per_forward, attn.sr_attention, MASK_AGREE_BAR)
-        sra_launches += n
+                       {"sr": per_forward}, MASK_AGREE_BAR)
+        sra_launches += n["sr"]
         del big_plain
         throughput(big)
         del big
@@ -843,9 +980,15 @@ def segmenter_phase(card):
     # norm, which a neighbourhood stage does not have: not trained for this
     # attention, but decisive logits, so that masks can be compared (seeded
     # random weights give near-flat logits whose argmax flips on rounding)
-    flat = {k: v for k, v in convert.flatten_params(convert.load_params_npz(ckpt)).items()
-            if not (k.startswith("stage0_") and ("/sr/" in k or
-                                                 "EfficientAttention_0/LayerNorm_0" in k))}
+    shipped = convert.flatten_params(convert.load_params_npz(ckpt))
+
+    def less_reduction(stage):
+        """The shipped weights without stage `stage`'s reduction conv and norm."""
+        return {k: v for k, v in shipped.items()
+                if not (k.startswith(f"stage{stage}_") and (
+                    "/sr/" in k or "EfficientAttention_0/LayerNorm_0" in k))}
+
+    flat = less_reduction(0)
     nat_launches = 0
     # window 7, whose halo the kernel stages once, and window 23 (stage 0's
     # 64 x 64 tokens, D = 64), whose halo it streams in bands of rows
@@ -858,10 +1001,42 @@ def segmenter_phase(card):
         for s in (seg_nat, plain_nat):
             s.model.load_state_dict(state)
         _, n = compare(f"B2 width, nat_windows=({window},0,0,0), shipped weights less the "
-                       "first stage's reduction", seg_nat, plain_nat, 3,
-                       attn.neighborhood_attention, NAT_MASK_AGREE_BAR)
-        nat_launches += n
+                       "first stage's reduction", seg_nat, plain_nat, {"nat": 3},
+                       NAT_MASK_AGREE_BAR)
+        nat_launches += n["nat"]
         del seg_nat, plain_nat
+
+    # B2 with one head in stages 0-2 and two in stage 3 (head dims 64, 128,
+    # 320, 256): the attention weights do not depend on the heads, so the
+    # shipped checkpoint loads. K3 runs where N % 512 == 0: D = 64 and 128 at
+    # 256x256 (M = 64), also 320 at 512x512 (M = 256), also 256 at
+    # 1024x1024 (stage 3, M = 1024). Then stage 2 as a window-7
+    # neighbourhood stage (the shipped weights less its reduction): K2 at
+    # D = 320 on the 16 x 16 grid, beside K3 in stages 0 and 1
+    cfg_wide = dataclasses.replace(cfg, num_heads=(1, 1, 1, 2))
+    for hw, per_forward in (((256, 256), 7), ((512, 512), 13), ((1024, 1024), 16)):
+        wide, wide_plain = (Segmenter2D(cfg_wide, ckpt, input_hw=hw, batch_size=batch,
+                                        device="cuda", use_cuda_attention=use)
+                            for use in (True, False))
+        masks_of(wide)  # warm-up
+        _, n = compare(f"B2 num_heads=(1,1,1,2) at {hw[0]}x{hw[1]}, use_pallas_attention",
+                       wide, wide_plain, {"sr": per_forward}, NAT_MASK_AGREE_BAR)
+        sra_launches += n["sr"]
+        del wide, wide_plain
+    cfg_wide_nat = dataclasses.replace(cfg_wide, nat_windows=(0, 0, 7, 0))
+    state = convert.from_flax_params(less_reduction(2), cfg_wide_nat)
+    seg_nat, plain_nat = (Segmenter2D(cfg_wide_nat, input_hw=(256, 256), batch_size=batch,
+                                      device="cuda", use_cuda_attention=use)
+                          for use in (True, False))
+    for s in (seg_nat, plain_nat):
+        s.model.load_state_dict(state)
+    masks_of(seg_nat)  # warm-up
+    _, n = compare("B2 num_heads=(1,1,1,2), nat_windows=(0,0,7,0), shipped weights less "
+                   "stage 2's reduction", seg_nat, plain_nat, {"sr": 7, "nat": 6},
+                   NAT_MASK_AGREE_BAR)
+    sra_launches += n["sr"]
+    nat_launches += n["nat"]
+    del seg_nat, plain_nat
 
     # predict: the reference predictor's output contract
     out = seg.predict(frames[0][:, :, ::-1])
@@ -939,6 +1114,69 @@ def stream_phase(card, session, seg):
         f"{float((classes != 133).mean()):.4f}")
     if agree <= STREAM_AGREE_BAR:
         fail(f"stream agreement {agree} not above {STREAM_AGREE_BAR}")
+
+
+def soak_phase(card):
+    """The long-session soak (`tools/soak.py`) on the card: resumed equals
+    uninterrupted equals a plain `fuse_session` over the same frames."""
+    import torch
+
+    from fusion3dseg_tpu_torch.fusion import fusion as fusion_engine
+    from fusion3dseg_tpu_torch.tools import soak
+
+    t0 = time.perf_counter()
+    run = soak.soak(SOAK_FRAMES, device="cuda")
+    wall = time.perf_counter() - t0
+    res = run.result
+    log(f"soak: {json.dumps(res)}")
+    t0 = time.perf_counter()
+    state, uv2pt = fusion_engine.fuse_session(*run.args, **run.kw)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(run.state, state)) and \
+        bool((uv2pt.cpu().numpy() == run.uv2pt).all())
+    log(f"soak {card}: {SOAK_FRAMES} frames at 128x96, window {res['window']}: three "
+        f"checkpointed runs and the session in {wall:.1f} s; resumed == uninterrupted "
+        f"(state {res['resume_equals_oneshot_state']}, uv2pt "
+        f"{res['resume_equals_oneshot_uv2pt']}); resumed == fuse_session ({t_plain:.1f} s) "
+        f"bit for bit: {same}; n {res['points']} of {res['capacity']}, max nmerges "
+        f"{res['max_nmerges']}")
+    if not (res["resume_equals_oneshot_state"] and res["resume_equals_oneshot_uv2pt"] and same):
+        fail("soak: the resumed run differs from the uninterrupted one or from fuse_session")
+    if run.state.nmerges.dtype != torch.int32 or run.state.occurences.dtype != torch.int32 \
+            or not res["points"] <= res["capacity"]:
+        fail(f"soak: counters {run.state.nmerges.dtype}, {run.state.occurences.dtype}, "
+             f"n {res['points']} of {res['capacity']}")
+
+
+def loop_phase(card):
+    """The model in the loop (`tools/model_in_the_loop.py`) with the shipped
+    B2 and K3; its classes against the same run through the model's own
+    attention (`use_pallas_attention=False`). Returns K3's launches in the
+    kernel run."""
+    import numpy as np
+
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.tools import model_in_the_loop as mitl
+
+    attn.reset_sr_counts()
+    res, classes, _ = mitl.in_the_loop(mitl.shipped_segmenter("cuda"))
+    launches = k3_counted("loop")
+    if launches != 7 * -(-res["frames"] // 8):
+        fail(f"loop: K3 launched {launches} times for {res['frames']} frames")
+    _, plain_classes, _ = mitl.in_the_loop(
+        mitl.shipped_segmenter("cuda", use_pallas_attention=False))
+    same = float(np.mean(classes == plain_classes))
+    log(f"loop {card}: {json.dumps(res)}")
+    log(f"loop: 3D agreement {res['model_in_loop_3d_agreement']:.4f} (bar {LOOP_AGREE_BAR}; "
+        f"the JAX package recorded 0.9889 on a TPU v5e, BENCH_r05.json); unclassified "
+        f"{res['model_in_loop_unclassified']:.4f}; stream {res['model_in_loop_stream_seconds']:.3f}"
+        f" s; K3 launches {launches}; classes equal to the run with use_pallas_attention=False "
+        f"on {same:.6f} of {res['points']} points (bar {LOOP_SAME_BAR})")
+    if res["model_in_loop_3d_agreement"] < LOOP_AGREE_BAR or same < LOOP_SAME_BAR:
+        fail(f"loop: 3D agreement {res['model_in_loop_3d_agreement']}, agreement with "
+             f"use_pallas_attention=False {same}")
+    return launches
 
 
 def _pixel_agreement(a, b):
@@ -2527,6 +2765,13 @@ def main():
             entry["launches"] = n
         if "stream" in phases:
             stream_phase(card, session, seg)
+    if "soak" in phases:
+        soak_phase(card)
+    if "loop" in phases:
+        n = loop_phase(card)
+        for entry in kernels:
+            if entry["name"] == "sr_attention":
+                entry["launches"] += n
     vga = None
     if "fusion" in phases:
         n, vga = fusion_phase(card, session, seg)

@@ -64,9 +64,36 @@ __device__ __forceinline__ void load_chunk(const T* p, float (&out)[DPL]) {
   }
 }
 
+// The dot product of a query's DPL-element share of a chunk of D with a
+// key's, summed over the four lanes of the query (every lane gets the sum):
+// four partial sums, so the FMA chain is DPL / 4 deep.
+template <int DPL>
+__device__ __forceinline__ float dot_quad(const float (&a)[DPL], const float (&b)[DPL]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) part[i % 4] = fmaf(a[i], b[i], part[i % 4]);
+  float s = (part[0] + part[1]) + (part[2] + part[3]);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
 struct Strides {
   int64_t b, n, h;  // elements; the last axis is contiguous
 };
+
+// The grids put (batch, head) on gridDim.y, at most 65535 of them a launch:
+// `launch(bh0, count)` runs for each run of them in turn (any B * H).
+constexpr int kMaxGridY = 65535;
+template <typename F>
+int over_batch_heads(int64_t batch_heads, F launch) {
+  for (int64_t bh0 = 0; bh0 < batch_heads; bh0 += kMaxGridY) {
+    const int64_t count = batch_heads - bh0 < kMaxGridY ? batch_heads - bh0 : kMaxGridY;
+    const int err = launch(static_cast<int>(bh0), static_cast<int>(count));
+    if (err != 0) return err;
+  }
+  return 0;
+}
 
 // ---- bfloat16 on the tensor cores
 

@@ -77,6 +77,11 @@
 //   product plus two shuffles, softmax online per key. A warp is one tile
 //   row; it visits the chunk's columns that any of its queries' windows
 //   holds, each lane masking the keys outside its own.
+// * any D past 128 (`nat_mma_wide_kernel` in bfloat16 on the tensor cores,
+//   `nat_f32_wide_kernel` in float32 on the CUDA cores): the scores over D
+//   in chunks of 128 and the output in column blocks of 128, the halo in
+//   chunks of at most 8 slots of 8 keys a warp (`wide_plan`; see their
+//   notes). Any B * H: launches take (batch, head) in runs of 65,535.
 
 #include "attention_common.cuh"
 
@@ -208,7 +213,7 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
                const BF* __restrict__ v, BF* __restrict__ o,
                int height, int width, int window, int H, int D, int tiles_x,
                Strides sq, Strides sk, Strides sv, Strides so, float scale,
-               int band_rows, int band_cols, bool vec, bool pairs, bool vec_out) {
+               int band_rows, int band_cols, int bh0, bool vec, bool pairs, bool vec_out) {
   constexpr int Dp = 32 * NK2;
   constexpr int NK = 2 * NK2;   // 16-wide chunks of the head dim
   constexpr int ND = Dp / 8;    // 8-wide chunks of the head dim
@@ -220,8 +225,8 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   BF* base = reinterpret_cast<BF*>(smem);
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
   const int ty0 = (blockIdx.x / tiles_x) * kTile;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
   const BF* kb = k + b * sk.b + h * sk.h;
@@ -463,7 +468,7 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                int height, int width, int window, int H, int D, int tiles_x,
                Strides sq, Strides sk, Strides sv, Strides so, float scale,
-               int band_rows, int band_cols, bool vec) {
+               int band_rows, int band_cols, int bh0, bool vec) {
   constexpr int Dp = DPL * kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = window / 2;
@@ -471,8 +476,8 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* base = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
   const int ty0 = (blockIdx.x / tiles_x) * kTile;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -561,6 +566,355 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- any D past 128: D in chunks of kWideCols, the output in column blocks
+//
+// The grid's z axis cuts the output into column blocks of kWideCols, each
+// block taking the scores over the whole D again. The clamped halo goes in
+// chunks (`wide_plan`) of at most kWideSlots slots of 8 columns for each
+// warp's pair of query rows (64 positions); for each chunk the scores add
+// up over D in chunks of kWideCols columns of K staged in one buffer, then
+// the chunk's V columns (the block's) go through the same buffer and the
+// online softmax takes the chunk's keys.
+constexpr int kWideCols = 128;
+constexpr int kWideDPL = kWideCols / kLanes;
+constexpr int kWideSlots = 8;
+constexpr int kWideLd = kWideCols + 8;  // a staged bfloat16 row: 4 mod 8 words, as LD above
+
+// float32 on the CUDA cores: four lanes a query, as in the float32 kernel,
+// each lane a quarter of q's chunk in registers, the partial sums in the
+// block's score rows. Each warp is one tile row and scores only the chunk's
+// rows its window holds, every column of them, masking the keys outside each
+// query's window; the softmax takes the chunk's maximum first, then each
+// key's exponential once.
+__global__ void __launch_bounds__(kF32Threads)
+nat_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int height, int width,
+                    int window, int H, int D, int tiles_x, Strides sq, Strides sk, Strides sv,
+                    Strides so, float scale, int band_rows, int band_cols, int bh0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = window / 2;
+  const int npos = band_rows * band_cols;  // at most 64
+  float* buf = reinterpret_cast<float*>(smem);  // [npos][kWideCols]
+  float* sc = buf + npos * kWideCols;           // [64 queries][npos + 1]
+
+  const int tid = threadIdx.x;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
+  const int c0 = blockIdx.z * kWideCols;  // this block's output columns
+  const int ty0 = (blockIdx.x / tiles_x) * kTile;
+  const int tx0 = (blockIdx.x % tiles_x) * kTile;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
+  // columns d0 .. d0 + kWideCols - 1 of the chunk's positions, as float32
+  auto stage = [&](const float* src, int64_t stride, const Chunk& ch, int d0) {
+    const int cols = ch.x1 - ch.x0;
+#pragma unroll 4
+    for (int idx = tid; idx < (ch.y1 - ch.y0) * cols * kWideCols; idx += kF32Threads) {
+      const int pos = idx / kWideCols, d = idx % kWideCols;
+      const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
+      buf[idx] = d0 + d < D ? src[tok * stride + d0 + d] : 0.f;
+    }
+  };
+
+  const int lane = tid % kLanes;
+  const int qi = tid / kLanes;
+  const int qy = ty0 + qi / kTile, qx = tx0 + qi % kTile;  // a warp holds one tile row
+  const bool live = qy < height && qx < width;
+  const int64_t tok = live ? static_cast<int64_t>(qy) * width + qx : 0;
+  const float* qp = q + b * sq.b + tok * sq.n + h * sq.h;
+  float* srow = sc + qi * (npos + 1);
+
+  float m = -CUDART_INF_F, l = 0.f;
+  float acc[kWideDPL];
+#pragma unroll
+  for (int i = 0; i < kWideDPL; ++i) acc[i] = 0.f;
+  for (int c = 0; c < walk.count; ++c) {
+    const Chunk ch = walk[c];
+    const int cols = ch.x1 - ch.x0;
+    const int y0 = max(ch.y0, qy - r), y1 = min(ch.y1, qy + r + 1);  // the same over the warp
+    for (int d0 = 0; d0 < D; d0 += kWideCols) {
+      __syncthreads();  // buf is free
+      stage(kb, sk.n, ch, d0);
+      __syncthreads();
+      float qr[kWideDPL];
+#pragma unroll
+      for (int i = 0; i < kWideDPL; ++i) {
+        const int d = d0 + lane * kWideDPL + i;
+        qr[i] = (live && d < D) ? qp[d] * scale : 0.f;
+      }
+      for (int pos = (y0 - ch.y0) * cols; pos < (y1 - ch.y0) * cols; ++pos) {
+        float kr[kWideDPL];
+        load_chunk<float, kWideDPL>(buf + pos * kWideCols + lane * kWideDPL, kr);
+        const float s = dot_quad<kWideDPL>(qr, kr);
+        if ((pos % kLanes) == lane) srow[pos] = d0 == 0 ? s : srow[pos] + s;
+      }
+    }
+    __syncthreads();  // buf is free; the scores are written
+    stage(vb, sv.n, ch, c0);
+    __syncthreads();
+    const int p0 = (y0 - ch.y0) * cols, p1 = (y1 - ch.y0) * cols;
+    auto in_window = [&](int pos) { return abs(ch.x0 + pos % cols - qx) <= r; };
+    float m_new = m;
+    for (int pos = p0; pos < p1; ++pos)
+      if (in_window(pos)) m_new = fmaxf(m_new, srow[pos]);
+    if (m_new != -CUDART_INF_F) {  // else no key of the chunk is in the window
+      // exp(-inf - m) = 0: nothing accumulated yet
+      const float cf = expf(m - m_new);
+      l *= cf;
+#pragma unroll
+      for (int i = 0; i < kWideDPL; ++i) acc[i] *= cf;
+      m = m_new;
+      for (int pos = p0; pos < p1; ++pos) {
+        if (!in_window(pos)) continue;
+        const float p = expf(srow[pos] - m);
+        l += p;
+        float vr[kWideDPL];
+        load_chunk<float, kWideDPL>(buf + pos * kWideCols + lane * kWideDPL, vr);
+#pragma unroll
+        for (int i = 0; i < kWideDPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+      }
+    }
+  }
+
+  if (live) {
+    const float den = fmaxf(l, 1e-30f);
+    float* op = o + b * so.b + tok * so.n + h * so.h;
+#pragma unroll
+    for (int i = 0; i < kWideDPL; ++i) {
+      const int d = c0 + lane * kWideDPL + i;
+      if (d < D) op[d] = acc[i] / den;
+    }
+  }
+}
+
+// bfloat16 on the tensor cores: as nat_mma_kernel, a warp owns 16 queries
+// (two tile rows) and multiplies them against every key of the chunk on the
+// rows they see, in slots of 8 columns, at most kWideSlots of them a warp, so
+// the slots' scores stay in registers while they add up over D: for each
+// chunk of kWideCols columns, K's columns staged (16-byte cp.async where D,
+// the strides and the bases allow, else an element at a time) and q's as A
+// fragments straight from device memory (q * scale rounded to bfloat16, as
+// above). Then the block's columns of V through the same buffer, the online
+// softmax over the chunk's slots in one step and P V, p as a bfloat16 high
+// part and remainder, as in nat_mma_kernel.
+__global__ void __launch_bounds__(kMmaThreads)
+nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
+                    const BF* __restrict__ v, BF* __restrict__ o, int height, int width,
+                    int window, int H, int D, int tiles_x, Strides sq, Strides sk, Strides sv,
+                    Strides so, float scale, int band_rows, int band_cols, int bh0, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BF* buf = reinterpret_cast<BF*>(smem);  // [band_rows * band_cols][kWideLd]
+  const int r = window / 2;
+  const int tid = threadIdx.x;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
+  const int c0 = blockIdx.z * kWideCols;  // this block's output columns
+  const int ty0 = (blockIdx.x / tiles_x) * kTile;
+  const int tx0 = (blockIdx.x % tiles_x) * kTile;
+  const BF* kb = k + b * sk.b + h * sk.h;
+  const BF* vb = v + b * sv.b + h * sv.h;
+  const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
+  // columns d0 .. d0 + kWideCols - 1 of the chunk's positions into buf
+  auto stage = [&](const BF* src, int64_t stride, const Chunk& ch, int d0) {
+    const int cols = ch.x1 - ch.x0, npos = (ch.y1 - ch.y0) * cols;
+    if (vec) {
+      for (int it = tid; it < npos * (kWideCols / 8); it += kMmaThreads) {
+        const int pos = it / (kWideCols / 8), d = it % (kWideCols / 8) * 8;
+        const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
+        const bool in = d0 + d < D;
+        cp_async16(buf + pos * kWideLd + d, in ? src + tok * stride + d0 + d : src, in ? 16 : 0);
+      }
+    } else {
+      const BF zero = __float2bfloat16_rn(0.f);
+#pragma unroll 4
+      for (int idx = tid; idx < npos * kWideCols; idx += kMmaThreads) {
+        const int pos = idx / kWideCols, d = idx % kWideCols;
+        const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
+        buf[pos * kWideLd + d] = d0 + d < D ? src[tok * stride + d0 + d] : zero;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  };
+
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wy = (tid / 32) * 2;  // this warp's two rows of the tile
+  const int qx = tx0 + g, qy0 = ty0 + wy;
+  const bool live0 = qx < width && qy0 < height, live1 = qx < width && qy0 + 1 < height;
+  const int64_t tok0 = static_cast<int64_t>(qy0) * width + qx;
+  const BF* q0 = q + b * sq.b + h * sq.h + tok0 * sq.n;
+  const BF* q1 = q0 + width * sq.n;
+  auto ld2 = [&](const BF* row, bool live, int d) -> uint32_t {
+    const float x = live && d < D ? to_f32<BF>(row[d]) : 0.f;
+    const float y = live && d + 1 < D ? to_f32<BF>(row[d + 1]) : 0.f;
+    return pack_bf16(x * scale, y * scale);
+  };
+
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;  // maxima in base-2 units
+  float acc[kWideCols / 8][4];
+#pragma unroll
+  for (int dc = 0; dc < kWideCols / 8; ++dc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dc][i] = 0.f;
+  const uint32_t buf_s = smem_addr(buf);
+  for (int c = 0; c < walk.count; ++c) {
+    // this warp's keys in the chunk: rows [y0, y1) that a query of rows
+    // qy0, qy0 + 1 sees, every row in nsx slots of 8 columns from ch.x0
+    const Chunk ch = walk[c];
+    const int cols = ch.x1 - ch.x0;
+    const int y0 = max(ch.y0, qy0 - r), y1 = min(ch.y1, qy0 + 2 + r);
+    const int nsx = (cols + 7) / 8;
+    const int nslots = y1 <= y0 ? 0 : (y1 - y0) * nsx;  // at most kWideSlots
+    int pos[kWideSlots];  // this lane's ldmatrix row: key lane % 8 of slot j
+#pragma unroll
+    for (int j = 0; j < kWideSlots; ++j) {
+      const int cx = min(8 * (j % nsx) + lane % 8, cols - 1);  // past the chunk: its edge
+      pos[j] = j < nslots ? (y0 + j / nsx - ch.y0) * cols + cx : 0;
+    }
+    float s[kWideSlots][4];
+#pragma unroll
+    for (int j = 0; j < kWideSlots; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideCols) {
+      __syncthreads();  // buf is free
+      stage(kb, sk.n, ch, d0);
+      __syncthreads();
+      uint32_t qa[kWideCols / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kWideCols / 16; ++kc) {
+        const int d = d0 + kc * 16 + 2 * t;
+        qa[kc][0] = ld2(q0, live0, d);
+        qa[kc][1] = ld2(q1, live1, d);
+        qa[kc][2] = ld2(q0, live0, d + 8);
+        qa[kc][3] = ld2(q1, live1, d + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kWideSlots; ++j) {
+        if (j >= nslots) break;
+        const uint32_t ka = buf_s + (pos[j] * kWideLd + (lane / 8) * 8) * 2;
+#pragma unroll
+        for (int kc2 = 0; kc2 < kWideCols / 32; ++kc2) {
+          uint32_t kb4[4];
+          ldmatrix_x4(kb4, ka + kc2 * 64);
+          mma_bf16(s[j], qa[2 * kc2], kb4[0], kb4[1]);
+          mma_bf16(s[j], qa[2 * kc2 + 1], kb4[2], kb4[3]);
+        }
+      }
+    }
+    __syncthreads();  // buf is free
+    stage(vb, sv.n, ch, c0);
+    __syncthreads();
+
+    // to base 2, -inf where the key is not in the query's window
+    float n0 = m0, n1 = m1;
+#pragma unroll
+    for (int j = 0; j < kWideSlots; ++j) {
+      const int y = y0 + j / nsx;
+      const bool y0ok = j < nslots && y <= qy0 + r, y1ok = j < nslots && y >= qy0 + 1 - r;
+      const int x = ch.x0 + 8 * (j % nsx) + 2 * t;
+      const bool x0ok = x < ch.x1 && abs(x - qx) <= r;
+      const bool x1ok = x + 1 < ch.x1 && abs(x + 1 - qx) <= r;
+      s[j][0] = y0ok && x0ok ? s[j][0] * kLog2e : -CUDART_INF_F;
+      s[j][1] = y0ok && x1ok ? s[j][1] * kLog2e : -CUDART_INF_F;
+      s[j][2] = y1ok && x0ok ? s[j][2] * kLog2e : -CUDART_INF_F;
+      s[j][3] = y1ok && x1ok ? s[j][3] * kLog2e : -CUDART_INF_F;
+      n0 = fmaxf(n0, fmaxf(s[j][0], s[j][1]));
+      n1 = fmaxf(n1, fmaxf(s[j][2], s[j][3]));
+    }
+    // online softmax: the four lanes of a row agree on its maximum; m stays
+    // finite, so 2^(-inf - m) is 0 and nothing needs a guard
+    n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, 1));
+    n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, 1));
+    n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, 2));
+    n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, 2));
+    const float cr0 = ex2(m0 - n0), cr1 = ex2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    l0 *= cr0;
+    l1 *= cr1;
+#pragma unroll
+    for (int j = 0; j < kWideSlots; ++j) {
+      s[j][0] = ex2(s[j][0] - n0);
+      s[j][1] = ex2(s[j][1] - n0);
+      s[j][2] = ex2(s[j][2] - n1);
+      s[j][3] = ex2(s[j][3] - n1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int dc = 0; dc < kWideCols / 8; ++dc) {
+      acc[dc][0] *= cr0;
+      acc[dc][1] *= cr0;
+      acc[dc][2] *= cr1;
+      acc[dc][3] *= cr1;
+    }
+#pragma unroll
+    for (int jp = 0; jp < kWideSlots; jp += 2) {  // 16 keys a product
+      if (jp >= nslots) break;
+      uint32_t ph[4], pl[4];  // p = high + low, both bfloat16
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float a = s[jp + j][2 * i], cc = s[jp + j][2 * i + 1];
+          const float ah = round_to<BF>(a), ch_ = round_to<BF>(cc);
+          ph[2 * j + i] = pack_bf16(ah, ch_);
+          pl[2 * j + i] = pack_bf16(a - ah, cc - ch_);
+        }
+      const uint32_t va =
+          buf_s + (((lane / 8) & 1 ? pos[jp + 1] : pos[jp]) * kWideLd + (lane / 16) * 8) * 2;
+#pragma unroll
+      for (int dc2 = 0; dc2 < kWideCols / 16; ++dc2) {
+        uint32_t vb4[4];
+        ldmatrix_x4_trans(vb4, va + dc2 * 32);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mma_bf16(acc[2 * dc2 + e], ph, vb4[2 * e], vb4[2 * e + 1]);
+          mma_bf16(acc[2 * dc2 + e], pl, vb4[2 * e], vb4[2 * e + 1]);
+        }
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
+  BF* o0 = o + b * so.b + h * so.h + tok0 * so.n;
+  BF* o1 = o0 + width * so.n;
+#pragma unroll
+  for (int dc = 0; dc < kWideCols / 8; ++dc) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = c0 + dc * 8 + 2 * t + e;
+      if (d >= D) continue;
+      if (live0) o0[d] = __float2bfloat16_rn(acc[dc][e] * r0);
+      if (live1) o1[d] = __float2bfloat16_rn(acc[dc][2 + e] * r1);
+    }
+  }
+}
+
+// The wide kernels' chunks: rows of the clamped halo cut into pieces of at
+// most 64 columns (a multiple of 8, or the whole clamped width), as many rows
+// a chunk as keep a warp at kWideSlots slots of 8 columns or fewer; one
+// buffer of kWideCols columns a position (float32 beside the score rows, or
+// bfloat16 rows of kWideLd).
+Plan wide_plan(int window, int width, bool bf16) {
+  const int halo = kTile + 2 * (window / 2);
+  const int wide = halo < width ? halo : width;
+  const int cols = wide < 64 ? wide : 64;
+  const int by_slots = kWideSlots / ((cols + 7) / 8);
+  const int rows = by_slots < halo ? by_slots : halo;
+  const int64_t npos = static_cast<int64_t>(rows) * cols;
+  return {rows, cols, 1,
+          bf16 ? npos * kWideLd * 2
+               : (npos * kWideCols + kTile * kTile * (npos + 1)) * static_cast<int64_t>(4)};
+}
+
 struct Geometry {
   int B, height, width, window, H, D;
 };
@@ -575,10 +929,11 @@ bool can_vectorise(const void* k, const void* v, const int64_t* st, int D, int e
          reinterpret_cast<uintptr_t>(v) % 16 == 0;
 }
 
+// `col_blocks`: the grid's z axis (the wide kernel's column blocks of D)
 template <typename Kernel, typename T, typename... Flags>
-int launch(Kernel kern, int threads, const Plan& plan, const T* q, const T* k, const T* v,
-           T* o, const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream,
-           Flags... flags) {
+int launch(Kernel kern, int threads, const Plan& plan, int col_blocks, const T* q, const T* k,
+           const T* v, T* o, const Geometry& gm, const int64_t* st, float scale,
+           cudaStream_t stream, Flags... flags) {
   const int smem = static_cast<int>(plan.smem);  // at most kBudget or 64 rows of the output
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -587,13 +942,15 @@ int launch(Kernel kern, int threads, const Plan& plan, const T* q, const T* k, c
   }
   const int tiles_x = (gm.width + kTile - 1) / kTile;
   const int tiles_y = (gm.height + kTile - 1) / kTile;
-  const dim3 grid(tiles_x * tiles_y, gm.B * gm.H);
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  kern<<<grid, threads, smem, stream>>>(q, k, v, o, gm.height, gm.width, gm.window, gm.H,
-                                        gm.D, tiles_x, sq, sk, sv, so, scale, plan.rows,
-                                        plan.cols, flags...);
-  return static_cast<int>(cudaGetLastError());
+  return over_batch_heads(static_cast<int64_t>(gm.B) * gm.H, [&](int bh0, int count) {
+    const dim3 grid(tiles_x * tiles_y, count, col_blocks);
+    kern<<<grid, threads, smem, stream>>>(q, k, v, o, gm.height, gm.width, gm.window, gm.H,
+                                          gm.D, tiles_x, sq, sk, sv, so, scale, plan.rows,
+                                          plan.cols, bh0, flags...);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <int NK2>
@@ -617,7 +974,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const Geome
   // 16-byte stores of o: D and o's strides whole groups of 8, its base aligned
   bool vec_out = gm.D % 8 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
   for (int i = 9; i < 12; ++i) vec_out = vec_out && st[i] % 8 == 0;
-  return launch(nat_mma_kernel<NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width),
+  return launch(nat_mma_kernel<NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width), 1,
                 static_cast<const BF*>(q), static_cast<const BF*>(k),
                 static_cast<const BF*>(v), static_cast<BF*>(o), gm, st, scale, stream,
                 can_vectorise(k, v, st, gm.D, sizeof(BF)), pairs, vec_out);
@@ -626,10 +983,23 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const Geome
 template <int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
                const int64_t* st, float scale, cudaStream_t stream) {
-  return launch(nat_f32_kernel<DPL>, kF32Threads, f32_plan<DPL>(gm.window, gm.width),
+  return launch(nat_f32_kernel<DPL>, kF32Threads, f32_plan<DPL>(gm.window, gm.width), 1,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(o), gm, st, scale, stream,
                 can_vectorise(k, v, st, gm.D, sizeof(float)));
+}
+
+int launch_wide(int dtype, const void* q, const void* k, const void* v, void* o,
+                const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream) {
+  const int blocks = (gm.D + kWideCols - 1) / kWideCols;
+  const Plan plan = wide_plan(gm.window, gm.width, dtype == 1);
+  if (dtype == 0)
+    return launch(nat_f32_wide_kernel, kF32Threads, plan, blocks, static_cast<const float*>(q),
+                  static_cast<const float*>(k), static_cast<const float*>(v),
+                  static_cast<float*>(o), gm, st, scale, stream);
+  return launch(nat_mma_wide_kernel, kMmaThreads, plan, blocks, static_cast<const BF*>(q),
+                static_cast<const BF*>(k), static_cast<const BF*>(v), static_cast<BF*>(o), gm,
+                st, scale, stream, can_vectorise(k, v, st, gm.D, sizeof(BF)));
 }
 
 }  // namespace
@@ -637,10 +1007,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Geome
 // Launches on `stream`. q, k, v, o: [B, height * width, H, D]; `strides`
 // holds the (batch, token, head) strides in elements of q, k, v, o in that
 // order (12 values); the last axis of each is contiguous. dtype: 0 float32,
-// 1 bfloat16. `window` is odd, of any size. `scale` is 1/sqrt(D) already
-// rounded to the dtype. Returns 0 on success, cudaGetLastError() otherwise,
-// -1 when D > 128, -3 for an unknown dtype. Requires B * H <= 65535; the
-// caller checks.
+// 1 bfloat16. `window` is odd, of any size; any D, any B * H. `scale` is
+// 1/sqrt(D) already rounded to the dtype. Returns 0 on success,
+// cudaGetLastError() otherwise, -3 for an unknown dtype.
 extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
                                           const void* v, void* o, int dtype,
                                           int B, int height, int width,
@@ -650,7 +1019,8 @@ extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
   if (B <= 0 || height <= 0 || width <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry gm{B, height, width, window, H, D};
-  if (D > 128) return -1;
+  if (D > kWideCols && (dtype == 0 || dtype == 1))
+    return launch_wide(dtype, q, k, v, o, gm, strides, scale, s);
   if (dtype == 0) {
     if (D <= 8) return launch_f32<2>(q, k, v, o, gm, strides, scale, s);
     if (D <= 16) return launch_f32<4>(q, k, v, o, gm, strides, scale, s);
@@ -669,11 +1039,12 @@ extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
 
 // The plan a launch of `f3s_neighborhood_attention` takes, for checking
 // ops/attention.py `_nat_plan`: plan = [rows, cols, stages, shared bytes].
-// Returns 0, or -1 / -3 as the launcher would.
+// Returns 0, or -3 as the launcher would.
 extern "C" int f3s_nat_plan(int dtype, int window, int D, int width, int64_t* plan) {
-  if (D > 128) return -1;
   Plan p;
-  if (dtype == 0) {
+  if (D > kWideCols && (dtype == 0 || dtype == 1)) {
+    p = wide_plan(window, width, dtype == 1);
+  } else if (dtype == 0) {
     p = D <= 8 ? f32_plan<2>(window, width) : D <= 16 ? f32_plan<4>(window, width)
         : D <= 32 ? f32_plan<8>(window, width) : D <= 64 ? f32_plan<16>(window, width)
         : f32_plan<32>(window, width);

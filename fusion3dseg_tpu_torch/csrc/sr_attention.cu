@@ -10,7 +10,9 @@
 //   o_d = T(sum_m p_m * v_md)            float32 accumulation
 // The roundings to T are the TPU kernel's: q scaled in its own type, the
 // probabilities normalised over the full row and cast to v's type before
-// the second product, the output in q's type. Any M; D <= 128.
+// the second product, the output in q's type. Any N, any M, any D, any
+// B * H (launches take (batch, head) in runs of 65,535 where a grid axis
+// holds them).
 //
 // Bound on an H100 (SXM; 3.35 TB/s, 989 Tflop/s in bfloat16, exponentials
 // 16 a clock on each of 132 SMs, 1.98 GHz), bfloat16, D = 64:
@@ -31,16 +33,18 @@
 //
 // Three kernels; the caller (ops/attention._sr_route) names which.
 //
-// * bfloat16, `sr_attention_wgmma_kernel` (any M, tensors TMA can
+// * bfloat16, `sr_attention_wgmma_kernel` (any M, D <= 256, tensors TMA can
 //   describe): persistent blocks, at most one per SM, walk the 64-row query
 //   tiles in (batch, head)-major order, each block a contiguous run of them
 //   (the number of blocks chosen so that the busiest one has the fewest
 //   item rounds). A run goes in items: up to C consecutive tiles of one
 //   (batch, head), one for each of C consumer warpgroups (C = 3 at D <= 64,
-//   2 at D <= 128). One producer thread keeps TMA loads in flight: the
-//   item's q tiles on a ring of two stages, and K, V in tiles of KT keys
+//   2 at D <= 128 and at D <= 256). One producer thread keeps TMA loads in
+//   flight: the item's q tiles on a ring of two stages (one at D <= 256,
+//   where O leaves through the q tiles), and K, V in tiles of KT keys
 //   (128 at D <= 64 and M > 64, else 64) on a ring of as many stages as
-//   shared memory holds (4 at D <= 64 and KT = 128, 3 at D <= 128). When all
+//   shared memory holds (4 at D <= 64 and KT = 128, 3 at D <= 128, 2 at
+//   D <= 256). When all
 //   of a (batch, head)'s key tiles fit the ring they stay resident across
 //   its items (the producer passes each stage on without a load); else they
 //   stream again for every item, out of L2. Every consumer takes every key
@@ -70,10 +74,13 @@
 //   T(q * scale) . k = scale * (q . k) bit for bit (barring subnormals) and
 //   the scale goes onto the float32 scores, q straight from TMA to wgmma;
 //   at other D the consumer rounds q * scale to bfloat16 in shared memory
-//   first, as the TPU kernel does.
+//   first, as the TPU kernel does. Past D = 256, `sr_attention_wide_kernel`
+//   (one warpgroup, S summed over D in chunks of 64, the output in column
+//   blocks of 256; see its note) takes the wgmma route.
 // * bfloat16, `sr_attention_mma_kernel` (layouts TMA cannot describe, M up
 //   to what shared memory holds: 848 keys at D = 64, 432 at D = 128; the
-//   caller copies larger ones into a TMA layout for the wgmma kernel):
+//   caller copies larger ones into a TMA layout for the wgmma kernel; D <=
+//   128, the route's domain):
 //   mma.sync m16n8k16, eight warps of 16 query rows a block, K and V of one
 //   (batch, head) staged per block, two passes over the keys (max and sum,
 //   then the normalised product).
@@ -85,7 +92,8 @@
 //   the row's max and sum (the sum rescaled to each new max), the second
 //   recomputes the scores, normalises them and accumulates p * v. A tile's
 //   scores live in shared memory ([32][68] float32, rows of 4 mod 8 words
-//   against bank conflicts).
+//   against bank conflicts). Past D = 128, `sr_attention_f32_wide_kernel`:
+//   the scores over D in chunks of 128, the output in column blocks of 128.
 //
 // The two bfloat16 kernels read F3S_PARTS: 1 leaves the loads out, 2 the
 // arithmetic (tools/kernel_parts.py times both; the results are wrong).
@@ -117,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
 sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
                         int N, int M, int H, int D,
-                        Strides sq, Strides sk, Strides sv, Strides so, float scale) {
+                        Strides sq, Strides sk, Strides sv, Strides so, float scale, int bh0) {
   constexpr int Dp = DPL * kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);                                  // [kF32Keys][Dp]
@@ -125,8 +133,8 @@ sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sc = reinterpret_cast<float*>(vs + kF32Keys * Dp);            // [kQueries][kF32Row]
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   // rows key0 .. key0 + count - 1 of K or V into a tile: kThreads / Dp rows a step
@@ -235,13 +243,145 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((N + kQueries - 1) / kQueries, B * H);
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale);
-  return static_cast<int>(cudaGetLastError());
+  return over_batch_heads(static_cast<int64_t>(B) * H, [&](int bh0, int count) {
+    const dim3 grid((N + kQueries - 1) / kQueries, count);
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale, bh0);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Any D (D > 128 here): the same two passes, with the scores taken over D
+// in chunks of kWideCols (each lane a quarter of a chunk of q in registers,
+// the partial scores summed in the block's score rows) and the output in
+// column blocks of kWideCols, one block of the grid's z axis each, every
+// block computing the scores over the whole D again. A key tile of K (a
+// chunk of its columns) and then of V (the block's columns) share one
+// buffer.
+constexpr int kWideCols = 128;
+constexpr int kWideDPL = kWideCols / kLanes;
+
+__global__ void __launch_bounds__(kThreads)
+sr_attention_f32_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             int N, int M, int H, int D,
+                             Strides sq, Strides sk, Strides sv, Strides so, float scale,
+                             int bh0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);                                    // [kF32Keys][kWideCols]
+  float* sc = reinterpret_cast<float*>(ks + kF32Keys * kWideCols);       // [kQueries][kF32Row]
+
+  const int tid = threadIdx.x;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
+  const int c0 = blockIdx.z * kWideCols;  // this block's output columns
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  // columns d0 .. d0 + kWideCols - 1 of rows key0 .. key0 + count - 1 into ks
+  auto stage = [&](const T* src, int64_t stride, int key0, int count, int d0) {
+    const int d = tid % kWideCols;
+#pragma unroll 4
+    for (int m = tid / kWideCols; m < count; m += kThreads / kWideCols)
+      ks[m * kWideCols + d] =
+          d0 + d < D ? src[static_cast<int64_t>(key0 + m) * stride + d0 + d] : 0.f;
+  };
+
+  const int lane = tid % kLanes;
+  const int qi = tid / kLanes;
+  const int n = blockIdx.x * kQueries + qi;
+  const bool live = n < N;
+  const T* qp = q + b * sq.b + static_cast<int64_t>(live ? n : 0) * sq.n + h * sq.h;
+  float* srow = sc + qi * kF32Row;
+  // the scores of keys key0 .. key0 + count - 1 into srow; lane j keeps m = j mod 4
+  auto scores = [&](int key0, int count) {
+    for (int d0 = 0; d0 < D; d0 += kWideCols) {
+      __syncthreads();  // ks is free
+      stage(kb, sk.n, key0, count, d0);
+      __syncthreads();
+      float qr[kWideDPL];
+#pragma unroll
+      for (int i = 0; i < kWideDPL; ++i) {
+        const int d = d0 + lane * kWideDPL + i;
+        qr[i] = (live && d < D) ? round_to<T>(to_f32<T>(qp[d]) * scale) : 0.f;
+      }
+      for (int m = 0; m < count; ++m) {
+        float kr[kWideDPL];
+        load_chunk<T, kWideDPL>(ks + m * kWideCols + lane * kWideDPL, kr);
+        const float s = dot_quad<kWideDPL>(qr, kr);
+        if ((m % kLanes) == lane) srow[m] = d0 == 0 ? s : srow[m] + s;
+      }
+    }
+  };
+
+  // pass 1: the row's max and sum over the lane's entries, then the quad's
+  float mx = -CUDART_INF_F, l = 0.f;
+  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
+    const int count = min(kF32Keys, M - key0);
+    scores(key0, count);
+    float tile_mx = -CUDART_INF_F;
+    for (int m = lane; m < count; m += kLanes) tile_mx = fmaxf(tile_mx, srow[m]);
+    tile_mx = fmaxf(tile_mx, __shfl_xor_sync(0xffffffffu, tile_mx, 1));
+    tile_mx = fmaxf(tile_mx, __shfl_xor_sync(0xffffffffu, tile_mx, 2));
+    const float new_mx = fmaxf(mx, tile_mx);
+    float e = 0.f;
+    for (int m = lane; m < count; m += kLanes) e += expf(srow[m] - new_mx);
+    l = l * expf(mx - new_mx) + e;
+    mx = new_mx;
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  // pass 2: the normalised probabilities, rounded to T, times V's columns
+  float acc[kWideDPL];
+#pragma unroll
+  for (int i = 0; i < kWideDPL; ++i) acc[i] = 0.f;
+  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
+    const int count = min(kF32Keys, M - key0);
+    scores(key0, count);
+    for (int m = lane; m < count; m += kLanes) srow[m] = round_to<T>(expf(srow[m] - mx) / l);
+    __syncthreads();  // ks is free; srow is written
+    stage(vb, sv.n, key0, count, c0);
+    __syncthreads();
+    for (int m = 0; m < count; ++m) {
+      const float p = srow[m];
+      float vr[kWideDPL];
+      load_chunk<T, kWideDPL>(ks + m * kWideCols + lane * kWideDPL, vr);
+#pragma unroll
+      for (int i = 0; i < kWideDPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+    }
+  }
+
+  if (live) {
+    T* op = o + b * so.b + static_cast<int64_t>(n) * so.n + h * so.h;
+#pragma unroll
+    for (int i = 0; i < kWideDPL; ++i) {
+      const int d = c0 + lane * kWideDPL + i;
+      if (d < D) op[d] = from_f32<T>(acc[i]);
+    }
+  }
+}
+
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, int B, int N,
+                    int M, int H, int D, const int64_t* st, float scale,
+                    cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kF32Keys) * kWideCols * sizeof(T) +
+                      static_cast<size_t>(kQueries) * kF32Row * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sr_attention_f32_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
+  const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
+  return over_batch_heads(static_cast<int64_t>(B) * H, [&](int bh0, int count) {
+    const dim3 grid((N + kQueries - 1) / kQueries, count, (D + kWideCols - 1) / kWideCols);
+    sr_attention_f32_wide_kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale, bh0);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int N,
@@ -252,7 +392,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, in
   if (D <= 32) return launch_f32<8>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 64) return launch_f32<16>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 128) return launch_f32<32>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  return -1;
+  return launch_f32_wide(q, k, v, o, B, N, M, H, D, st, scale, stream);
 }
 
 // ---- bfloat16 on the tensor cores: mma.sync m16n8k16 (any layout)
@@ -302,7 +442,7 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v,
                         __nv_bfloat16* __restrict__ o, int N, int M, int H, int D,
                         Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                        bool vec) {
+                        bool vec, int bh0) {
   constexpr int Dp = 16 * NK;
   const int Mp = (M + 15) & ~15;
   const int ldk = Dp + 8;  // row strides of 4 mod 8 words: fragment loads
@@ -312,8 +452,8 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   BF* vt = ks + Mp * ldk;               // [Dp][ldv], V transposed
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
   if (F3S_PARTS != 1) {
     const BF* kb = k + b * sk.b + h * sk.h;
     const BF* vb = v + b * sv.b + h * sv.h;
@@ -445,17 +585,19 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((N + kMmaQueries - 1) / kMmaQueries, B * H);
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   // 16-byte staging loads need whole 8-element groups at 16-byte addresses
   bool vec = D % 8 == 0;
   for (int i = 3; i < 9; ++i) vec = vec && st[i] % 8 == 0;
   vec = vec && reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  kern<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const BF*>(q), static_cast<const BF*>(k), static_cast<const BF*>(v),
-      static_cast<BF*>(o), N, M, H, D, sq, sk, sv, so, scale, vec);
-  return static_cast<int>(cudaGetLastError());
+  return over_batch_heads(static_cast<int64_t>(B) * H, [&](int bh0, int count) {
+    const dim3 grid((N + kMmaQueries - 1) / kMmaQueries, count);
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const BF*>(q), static_cast<const BF*>(k), static_cast<const BF*>(v),
+        static_cast<BF*>(o), N, M, H, D, sq, sk, sv, so, scale, vec, bh0);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B, int N,
@@ -465,14 +607,13 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B, in
   if (D <= 32) return launch_mma<2>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 64) return launch_mma<4>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 128) return launch_mma<8>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  return -1;
+  return -1;  // the route's domain: D <= 128
 }
 
 
 // ---- bfloat16 on the tensor cores: wgmma fed by TMA, keys in tiles (any M)
 
 constexpr int kTileRows = 64;  // query rows of a consumer's tile: one wgmma's M
-constexpr int kQStages = 2;    // q ring: a stage holds one item's tiles
 constexpr int kMaxKvStages = 16;
 constexpr int kSwizzleTile = kTileRows * 128;  // bytes of [64 rows][64] bfloat16
 
@@ -480,13 +621,29 @@ constexpr int kSwizzleTile = kTileRows * 128;  // bytes of [64 rows][64] bfloat1
 // pool is the block's launch allocation, threads x the registers ptxas
 // reports (the launch bound's most: 128 at 512 threads, 168 at 384);
 // `launch_wgmma` checks it before a launch, since an `.inc` past the pool
-// blocks forever.
+// blocks forever. kQStages: the q ring's stages, each one item's tiles.
+// kOInQ: O goes out through the consumer's own q tile (its last S is done),
+// which then returns to the producer only once the store has read it; else
+// through two output tiles of each consumer's own.
 template <int DP> struct WgShape;
 template <> struct WgShape<64> {   // 128 x 24 + 3 x 128 x 160 <= 512 x 128
   static constexpr int kConsumers = 3, kProducerRegs = 24, kConsumerRegs = 160;
+  static constexpr int kQStages = 2;
+  static constexpr bool kOInQ = false;
 };
 template <> struct WgShape<128> {  // 128 x 40 + 2 x 128 x 232 <= 384 x 168
   static constexpr int kConsumers = 2, kProducerRegs = 40, kConsumerRegs = 232;
+  static constexpr int kQStages = 2;
+  static constexpr bool kOInQ = false;
+};
+// D <= 256, FlashAttention-3's Hopper shape for that width: two consumers of
+// 64 rows, O [64 x 256] in 128 float32 registers a thread, key tiles of 64.
+// A q tile is 32 KB and a stage of K and V 64 KB: one q stage (64 KB), O
+// through the q tiles, two K, V stages.
+template <> struct WgShape<256> {  // 128 x 24 + 2 x 128 x 240 <= 384 x 168
+  static constexpr int kConsumers = 2, kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kQStages = 1;
+  static constexpr bool kOInQ = true;
 };
 
 struct WgParams {
@@ -497,7 +654,7 @@ struct WgParams {
 
 // Shared memory, from a 1024-byte boundary: `kv_stages` x [K | V] tiles of
 // KT keys, each [KT keys][DP] as DP / 64 swizzled column blocks; kQStages x
-// C q tiles [64][DP]; two output tiles for each consumer.
+// C q tiles [64][DP]; two output tiles for each consumer (none with kOInQ).
 template <int DP, int KT>
 __global__ void __launch_bounds__(128 * (WgShape<DP>::kConsumers + 1), 1)
 sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -505,6 +662,8 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap to, WgParams p) {
   constexpr int kConsumers = WgShape<DP>::kConsumers;
+  constexpr int kQStages = WgShape<DP>::kQStages;
+  constexpr bool kOInQ = WgShape<DP>::kOInQ;
   constexpr int kKeyTile = KT;  // keys of a K or V tile
   constexpr int kBlocks = DP / 64;                  // 64-column blocks of a row
   constexpr uint32_t kQBytes = kTileRows * DP * 2;  // a q or o tile
@@ -746,7 +905,7 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         turn_wait();
         turn_pass();
-        release(&q_empty[s]);
+        if (!(kOInQ && rows)) release(&q_empty[s]);
       } else {
         int prev = stage_of(0);
         float corr0, corr1;
@@ -784,7 +943,7 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           pack_p();
           prev = ks;
         }
-        release(&q_empty[s]);  // every S is done
+        if (!kOInQ) release(&q_empty[s]);  // every S is done
         turn_wait();
         wgmma_fence();
         accumulate(prev);
@@ -805,8 +964,8 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         // O / l to a swizzled tile, then one TMA store (rows past N,
         // columns past D clipped); the store of two tiles ago must have
         // read this buffer
-        uint8_t* ot = o_mine + (stored & 1) * kQBytes;
-        if (tid == 0) tma_store_wait_read<1>();
+        uint8_t* ot = kOInQ ? qt : o_mine + (stored & 1) * kQBytes;
+        if (!kOInQ && tid == 0) tma_store_wait_read<1>();
         named_bar_sync(1 + wg, 128);
         const int row = 16 * warp + g;
 #pragma unroll
@@ -826,6 +985,11 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           tma_store_commit();
         }
         ++stored;
+        if (kOInQ) {  // the q tile goes back to the producer once the store has read it
+          if (tid == 0) tma_store_wait_read<0>();
+          named_bar_sync(1 + wg, 128);
+          release(&q_empty[s]);
+        }
       }
     }
     if (wg == 0) turn_wait();  // the last turn
@@ -934,7 +1098,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
     return -6;
   // as many K, V stages as fit beside the q ring and the output tiles
   const size_t tile = kTileRows * DP * 2, kv = 2 * static_cast<size_t>(KT) * DP * 2;
-  const size_t fixed = 1024 + (kQStages + 2) * Shape::kConsumers * tile;
+  const size_t fixed =
+      1024 + (Shape::kQStages + (Shape::kOInQ ? 0 : 2)) * Shape::kConsumers * tile;
   const size_t room = static_cast<size_t>(kMaxSmem) - attr.sharedSizeBytes - fixed;
   int stages = static_cast<int>(room / kv);
   if (stages > kMaxKvStages) stages = kMaxKvStages;
@@ -967,6 +1132,263 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bfloat16 at D > 256: wgmma over D in chunks, the output in column blocks
+//
+// One warpgroup a block, one block for every (64-row query tile, column
+// block of kWideOut outputs) of every (batch, head). S = Q K^T of a key tile
+// of 64 keys adds up over D in chunks of 64 columns, each a unit of the
+// ring: the q tile's chunk and the key tile's chunk, 8 KB each, loaded
+// together (the q tile again for every key tile, from L2), so that no D is
+// too wide for shared memory. Then the running softmax as in the kernel
+// above, and O += P V over the block's columns of the key tile's V, 128 a
+// unit. Thread 0 keeps kWideStages units in flight; the warpgroup meets at
+// a barrier once it is done with a unit, and thread 0 then loads the unit
+// kWideStages on into its stage. No producer warp, no overlap of a unit's
+// products with the next: simple first.
+constexpr int kWideOut = 256;  // output columns of a block: O in 128 registers a thread
+constexpr int kWideStages = 4;
+constexpr uint32_t kUnitBytes = 2 * kSwizzleTile;
+
+struct WideParams {
+  int N, M, H, D, tiles_per_bh, col_blocks, d_chunks, key_tiles;
+  int64_t item0;      // the first item of this launch
+  float q_scale;      // > 0: q is rounded to bfloat16(q * q_scale) before the product
+  float score_scale;  // raw score -> log2 units of the softmax
+  Strides so;
+};
+
+__global__ void __launch_bounds__(128, 1)
+sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, BF* __restrict__ o,
+                         WideParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kWideStages];
+  uint8_t* ring = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+
+  const int64_t item = p.item0 + blockIdx.x;  // (batch, head), column block, query tile
+  const int tile = static_cast<int>(item % p.tiles_per_bh);
+  const int cb = static_cast<int>(item / p.tiles_per_bh % p.col_blocks);
+  const int bh = static_cast<int>(item / p.tiles_per_bh / p.col_blocks);
+  const int b = bh / p.H, h = bh % p.H;
+  const int n0 = tile * kTileRows, c0 = cb * kWideOut;
+  const int vblocks = min(kWideOut / 64, (p.D - c0 + 63) / 64);  // V's 64-column blocks here
+  const int vunits = (vblocks + 1) / 2;
+  const int per_tile = p.d_chunks + vunits;  // units of a key tile
+  const int units = p.key_tiles * per_tile;
+  const int tid = threadIdx.x;
+
+  // unit u into its stage: a chunk of q and of K, or up to two blocks of V
+  // (a block wholly past D is not loaded; the product reads the stage's
+  // stale bytes there, into columns that are never stored)
+  auto issue = [&](int u) {
+    const int t = u / per_tile, r = u % per_tile;
+    uint8_t* dst = ring + (u % kWideStages) * kUnitBytes;
+    uint64_t* bar = &full[u % kWideStages];
+    if (r < p.d_chunks) {
+      mbar_arrive_tx(bar, kUnitBytes);
+      tma_load_4d(dst, &tq, bar, 64 * r, h, n0, b);
+      tma_load_4d(dst + kSwizzleTile, &tk, bar, 64 * r, h, t * 64, b);
+    } else {
+      const int first = 2 * (r - p.d_chunks), count = min(2, vblocks - first);
+      mbar_arrive_tx(bar, count * kSwizzleTile);
+      for (int i = 0; i < count; ++i)
+        tma_load_4d(dst + i * kSwizzleTile, &tv, bar, c0 + 64 * (first + i), h, t * 64, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kWideStages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int u = 0; u < min(kWideStages, units); ++u) issue(u);
+
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c4 = lane % 4;
+  int u = 0;  // the next unit
+  auto wait_unit = [&]() {
+    mbar_wait(&full[u % kWideStages], (u / kWideStages) & 1);
+    return ring + (u % kWideStages) * kUnitBytes;
+  };
+  auto done_unit = [&]() {  // every thread is done with unit u: its stage takes u + kWideStages
+    __syncthreads();
+    if (tid == 0 && u + kWideStages < units) issue(u + kWideStages);
+    ++u;
+  };
+
+  float oc[2][64];  // columns c0 + 128 i + ...: the accumulator layout of m64n128
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) oc[i][x] = 0.f;
+  float sc[32];
+  uint32_t pa[16];
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  for (int t = 0; t < p.key_tiles; ++t) {
+    for (int c = 0; c < p.d_chunks; ++c) {
+      uint8_t* st = wait_unit();
+      if (p.q_scale > 0.f) {  // round q * scale to bfloat16 in place
+        for (int x = tid; x < static_cast<int>(kSwizzleTile / 16); x += 128) {
+          uint4 w = reinterpret_cast<const uint4*>(st)[x];
+          uint32_t* e = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            e[y] = pack_bf16(__uint_as_float(e[y] << 16) * p.q_scale,
+                             __uint_as_float(e[y] & 0xffff0000u) * p.q_scale);
+          reinterpret_cast<uint4*>(st)[x] = w;
+        }
+        fence_async_shared();
+        __syncthreads();
+      }
+      const uint32_t qa = smem_addr(st), ka = qa + kSwizzleTile;
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+        Wgmma<64>::ss(sc, sw128_desc(qa + kd * 32, 16, 1024), sw128_desc(ka + kd * 32, 16, 1024),
+                      c > 0 || kd > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      done_unit();
+    }
+    // the running softmax over this key tile (keys past M score -inf)
+    if ((t + 1) * 64 > p.M) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = t * 64 + 8 * j + 2 * c4;
+        if (key >= p.M) sc[4 * j] = sc[4 * j + 2] = -CUDART_INF_F;
+        if (key + 1 >= p.M) sc[4 * j + 1] = sc[4 * j + 3] = -CUDART_INF_F;
+      }
+    }
+    float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      t0 = fmaxf(t0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      t1 = fmaxf(t1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {  // the four lanes of a row
+      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
+    }
+    t0 = fmaxf(m0, t0);  // finite: every key tile has a key below M
+    t1 = fmaxf(m1, t1);
+    const float corr0 = ex2((m0 - t0) * p.score_scale), corr1 = ex2((m1 - t1) * p.score_scale);
+    m0 = t0;
+    m1 = t1;
+    const float k0 = t0 * p.score_scale, k1 = t1 * p.score_scale;
+    float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j] = ex2(fmaf(sc[4 * j], p.score_scale, -k0));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], p.score_scale, -k0));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], p.score_scale, -k1));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], p.score_scale, -k1));
+      e0 += sc[4 * j] + sc[4 * j + 1];
+      e1 += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = fmaf(l0, corr0, e0);
+    l1 = fmaf(l1, corr1, e1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        oc[i][4 * j] *= corr0;
+        oc[i][4 * j + 1] *= corr0;
+        oc[i][4 * j + 2] *= corr1;
+        oc[i][4 * j + 3] *= corr1;
+      }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      pa[4 * kc] = pack_bf16(sc[8 * kc], sc[8 * kc + 1]);
+      pa[4 * kc + 1] = pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]);
+      pa[4 * kc + 2] = pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]);
+      pa[4 * kc + 3] = pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7]);
+    }
+    // O += P V, 128 of the block's columns a unit: V [64 keys][128] is
+    // MN-major, two 64-column blocks 8 KB apart, 16 keys (2048 bytes) a k step
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i < vunits) {
+        const uint32_t va = smem_addr(wait_unit());
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          Wgmma<128>::rs(oc[i], pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                         sw128_desc(va + kc * 2048, kSwizzleTile, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(oc[i]);
+        done_unit();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float r0 = 1.f / l0, r1 = 1.f / l1;
+  BF* ob = o + b * p.so.b + h * p.so.h;
+  const int row0 = n0 + 16 * warp + g, row1 = row0 + 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = c0 + 128 * i + 8 * j + 2 * c4;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col + e >= p.D) continue;
+        if (row0 < p.N)
+          ob[static_cast<int64_t>(row0) * p.so.n + col + e] =
+              __float2bfloat16_rn(oc[i][4 * j + e] * r0);
+        if (row1 < p.N)
+          ob[static_cast<int64_t>(row1) * p.so.n + col + e] =
+              __float2bfloat16_rn(oc[i][4 * j + 2 + e] * r1);
+      }
+    }
+}
+
+int launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
+                      int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -5;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(encode, &tq, q, B, N, H, D, st, kTileRows) ||
+      !tensor_map(encode, &tk, k, B, M, H, D, st + 3, 64) ||
+      !tensor_map(encode, &tv, v, B, M, H, D, st + 6, 64))
+    return -4;
+  const size_t smem = 1024 + kWideStages * static_cast<size_t>(kUnitBytes);
+  cudaError_t err = cudaFuncSetAttribute(sr_attention_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  WideParams prm{};
+  prm.N = N;
+  prm.M = M;
+  prm.H = H;
+  prm.D = D;
+  prm.tiles_per_bh = (N + kTileRows - 1) / kTileRows;
+  prm.col_blocks = (D + kWideOut - 1) / kWideOut;
+  prm.d_chunks = (D + 63) / 64;
+  prm.key_tiles = (M + 63) / 64;
+  prm.so = Strides{st[9], st[10], st[11]};
+  int e = 0;
+  const bool pow2 = std::frexp(scale, &e) == 0.5f;
+  prm.q_scale = pow2 ? 0.f : scale;
+  prm.score_scale = pow2 ? scale * kLog2e : kLog2e;
+  const int64_t total = static_cast<int64_t>(B) * H * prm.col_blocks * prm.tiles_per_bh;
+  for (int64_t i0 = 0; i0 < total; i0 += 0x7fffffff) {  // gridDim.x's limit
+    prm.item0 = i0;
+    const unsigned grid = static_cast<unsigned>(std::min<int64_t>(total - i0, 0x7fffffff));
+    sr_attention_wide_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, static_cast<BF*>(o), prm);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                    int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
   // at D <= 64 key tiles of 128 (the per-tile costs spread over more
@@ -975,7 +1397,8 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
   if (D <= 64 && M <= 64) return launch_wgmma<64, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 64) return launch_wgmma<64, 128>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 128) return launch_wgmma<128, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  return -1;
+  if (D <= 256) return launch_wgmma<256, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  return launch_wgmma_wide(q, k, v, o, B, N, M, H, D, st, scale, stream);
 }
 
 }  // namespace
@@ -986,13 +1409,13 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
 // 1 bfloat16 on mma.sync, 2 bfloat16 on wgmma (16-byte aligned bases,
 // strides of whole 16-byte pieces). `scale` is 1/sqrt(D) already rounded to
 // the dtype.
-// Returns 0 on success, cudaGetLastError() otherwise, -1 when D > 128, -2
-// when what a block stages exceeds the shared memory of an SM (mma.sync
-// only), -3 for an unknown kernel, -4 when TMA cannot describe a tensor, -5
-// when libcuda has no cuTensorMapEncodeTiled, -6 when the wgmma kernel's
-// register allocation is smaller than its warpgroups ask for, -7 when the
-// wgmma kernel's work items overflow an int. Requires B * H <= 65535; the
-// caller checks.
+// Any B * H, any D. Returns 0 on success, cudaGetLastError() otherwise, -1
+// when D > 128 on mma.sync (that route's domain), -2 when what a block
+// stages exceeds the shared memory of an SM (mma.sync only), -3 for an
+// unknown kernel, -4 when TMA cannot describe a tensor, -5 when libcuda has
+// no cuTensorMapEncodeTiled, -6 when the wgmma kernel's register allocation
+// is smaller than its warpgroups ask for, -7 when the wgmma kernel's work
+// items overflow an int.
 extern "C" int f3s_sr_attention(const void* q, const void* k, const void* v,
                                 void* o, int kernel, int B, int N, int M, int H,
                                 int D, const int64_t* strides, float scale,

@@ -12,9 +12,10 @@ Each wrapper launches its hand-written CUDA kernel (`csrc/sr_attention.cu`,
 version (`*_reference`) on CPU tensors. Nothing else selects between them: a
 CUDA tensor either launches a kernel or raises. Both take q pre-scaling on
 themselves (callers must not scale) and read `[B, tokens, H, D]` tensors
-through their strides. In bfloat16 both run their products on the tensor
-cores, in float32 on the CUDA cores. K3 has two bfloat16 kernels, and
-`_sr_route` alone decides which one a call takes.
+through their strides. Their domain is the JAX kernels': any D, any number
+of queries and keys, any odd window, any B * H. In float32 both run on the
+CUDA cores, in bfloat16 on the tensor cores. K3 has two bfloat16 kernels,
+and `_sr_route` alone decides which one a call takes.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ import torch
 from fusion3dseg_tpu_torch import cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128  # the kernels keep a query's share of D in registers
+_MMA_MAX_HEAD_DIM = 128  # the mma.sync kernel keeps a query's q in registers
 _ERRORS = {
-    -1: f"head dim exceeds {MAX_HEAD_DIM}",
+    -1: f"the mma route takes D <= {_MMA_MAX_HEAD_DIM}",
     -2: "the keys and values one block needs exceed an SM's shared memory",  # K3 only
     -3: "unsupported dtype",
     -4: "TMA cannot describe the tensors",
@@ -71,11 +72,6 @@ def _launch(fn_name, lib_name, tensors, out, ints, kernel=None):
     """One launch of a `csrc` attention kernel on the current stream;
     `kernel` (default: the dtype's code) selects among a source's kernels."""
     q = tensors[0]
-    B, _, H, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{fn_name}: {_ERRORS[-1]} (D={D})")
-    if B * H > 65535:
-        raise ValueError(f"{fn_name}: batch x heads = {B * H} exceeds the grid's 65535")
     strides = []
     for t in (*tensors, out):
         if t.shape[-1] > 1 and t.stride(-1) != 1:
@@ -127,9 +123,11 @@ def _wgmma_direct(q, k, v) -> bool:
 
 
 def _mma_fits(M: int, D: int) -> bool:
-    """The mma.sync kernel stages K and V of one (batch, head), [Mp, 16 NK + 8]
-    and V transposed [16 NK, Mp + 8] in bfloat16, in an SM's shared memory:
-    848 keys at D = 64, 432 at D = 128."""
+    """The mma.sync kernel takes D <= 128 and stages K and V of one (batch,
+    head), [Mp, 16 NK + 8] and V transposed [16 NK, Mp + 8] in bfloat16, in
+    an SM's shared memory: 848 keys at D = 64, 432 at D = 128."""
+    if D > _MMA_MAX_HEAD_DIM:
+        return False
     nk = -(-D // 16)
     nk = 1 << (nk - 1).bit_length()  # the kernel's head-dim padding: 1, 2, 4 or 8
     mp = -(-M // 16) * 16
@@ -138,10 +136,11 @@ def _mma_fits(M: int, D: int) -> bool:
 
 def _sr_route(q, k, v) -> str:
     """The kernel a CUDA call of `sr_attention` launches: "f32" for float32;
-    for bfloat16 "wgmma" (TMA-fed, keys streamed in tiles, any M) when TMA
-    can describe q, k and v, else "mma" (`mma.sync`, any strides) while K
-    and V of one (batch, head) fit its shared memory, else "wgmma" again on
-    copies of q, k and v in a TMA layout (`_tma_copy`)."""
+    for bfloat16 "wgmma" (TMA-fed, keys streamed in tiles, any M, any D)
+    when TMA can describe q, k and v, else "mma" (`mma.sync`, any strides)
+    while D <= 128 and K and V of one (batch, head) fit its shared memory,
+    else "wgmma" again on copies of q, k and v in a TMA layout
+    (`_tma_copy`)."""
     if q.dtype != torch.bfloat16:
         return "f32"
     if _wgmma_direct(q, k, v) or not _mma_fits(k.shape[1], q.shape[-1]):
@@ -162,12 +161,15 @@ def launch_sr_attention(q, k, v, route: str) -> torch.Tensor:
     it with `_sr_route`'s choice; measurement tools name a route to time a
     kernel on a layout the other one would take. "wgmma" on tensors TMA
     cannot describe copies them into a TMA layout first; the result is then
-    a view of storage whose rows are D rounded up to 8."""
+    a view of storage whose rows are D rounded up to 8. "mma" takes D <= 128
+    and raises above it."""
     if (route == "f32") != (q.dtype == torch.float32):
         raise ValueError(f"sr_attention: route {route!r} does not take {q.dtype}")
     B, N, H, D = q.shape
+    if route == "mma" and D > _MMA_MAX_HEAD_DIM:
+        raise ValueError(f"sr_attention: {_ERRORS[-1]}, got D={D}")
     width = D
-    if route == "wgmma" and D <= MAX_HEAD_DIM and not _wgmma_direct(q, k, v):
+    if route == "wgmma" and not _wgmma_direct(q, k, v):
         width = -(-D // 8) * 8
         q, k, v = (_tma_copy(t, width) for t in (q, k, v))
     out = torch.empty((B, N, H, width), dtype=q.dtype, device=q.device)[..., :D]
@@ -181,10 +183,12 @@ def launch_sr_attention(q, k, v, route: str) -> torch.Tensor:
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Fused spatial-reduction attention: q [B, N, H, D] against k, v
     [B, M, H, D]; returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D)
-    happens here. Any N, any M, D <= 128 (the JAX kernel's domain: M up to
-    what VMEM holds). bfloat16 runs on the tensor cores (`_sr_route` picks
-    the kernel), float32 on the CUDA cores; the wgmma and float32 kernels
-    stream the keys through shared memory in tiles.
+    happens here. Any N, any M, any D, any B * H (the JAX kernel's domain:
+    M and D up to what VMEM holds). bfloat16 runs on the tensor cores
+    (`_sr_route` picks the kernel), float32 on the CUDA cores; the wgmma and
+    float32 kernels stream the keys through shared memory in tiles, and
+    above D = 256 (wgmma) or 128 (float32) take D in chunks, the output in
+    column blocks.
 
     Forward only, like the JAX package's kernel: raises when an input
     requires grad while grad is enabled. A CUDA tensor launches a kernel
@@ -232,19 +236,31 @@ class NatPlan(NamedTuple):
 
 _NAT_TILE = 8  # queries per tile side
 _NAT_BUDGET = 57344  # bytes of K and V a block stages: four blocks an SM
+_NAT_WIDE_COLS, _NAT_WIDE_SLOTS = 128, 8  # the wide kernels' D chunk, slots of 8 keys a warp
 
 
 def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
-    """The chunking `csrc/neighborhood_attention.cu` (`nat_plan`) picks for
-    an odd `window`, head dim D <= 128, q's dtype and the image's width. The
-    tile's halo, 8 + window - 1 positions a side, is clamped to the width.
-    Where all of it fits `_NAT_BUDGET` it is one chunk staged once; else the
-    block streams it through two buffers of half the budget each, in bands
-    of whole rows, or of pieces of a row (a multiple of 8 positions) where
-    one row does not fit. The bfloat16 kernel also stores its 64 output rows
-    through shared memory."""
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"neighborhood_attention: {_ERRORS[-1]} (D={D})")
+    """The chunking `csrc/neighborhood_attention.cu` (`nat_plan`, `wide_plan`)
+    picks for an odd `window`, head dim D, q's dtype and the image's width.
+    The tile's halo, 8 + window - 1 positions a side, is clamped to the
+    width. Up to D = 128: where all of it fits `_NAT_BUDGET` it is one chunk
+    staged once; else the block streams it through two buffers of half the
+    budget each, in bands of whole rows, or of pieces of a row (a multiple
+    of 8 positions) where one row does not fit. The bfloat16 kernel also
+    stores its 64 output rows through shared memory. Above D = 128 (the wide
+    kernels): pieces of at most 64 columns, as many rows a chunk as keep a
+    warp's two query rows at 8 slots of 8 columns, one buffer of 128
+    columns a position (bfloat16 rows of 136, or float32 beside the 64
+    queries' score rows)."""
+    halo = _NAT_TILE + 2 * (window // 2)
+    wide = min(halo, width)
+    if D > _NAT_WIDE_COLS:
+        cols = min(wide, 64)
+        rows = min(halo, _NAT_WIDE_SLOTS // -(-cols // 8))
+        npos = rows * cols
+        smem = (npos * (_NAT_WIDE_COLS + 8) * 2 if dtype == torch.bfloat16
+                else (npos * _NAT_WIDE_COLS + _NAT_TILE ** 2 * (npos + 1)) * 4)
+        return NatPlan(rows, cols, 1, smem)
     if dtype == torch.bfloat16:
         # D padded to 32 n, and 8 more against bank conflicts
         ld = 32 * next(n for n in (1, 2, 3, 4) if D <= 32 * n) + 8
@@ -252,9 +268,7 @@ def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
     else:
         ld = 4 * next(n for n in (2, 4, 8, 16, 32) if D <= 4 * n)  # four lanes, a share each
         elem, out = 4, 0
-    halo = _NAT_TILE + 2 * (window // 2)
     pos = 2 * ld * elem  # one position of K and one of V
-    wide = min(halo, width)
     if halo * wide * pos <= _NAT_BUDGET:
         return NatPlan(halo, wide, 1, max(halo * wide * pos, out))
     per = _NAT_BUDGET // 2
@@ -316,12 +330,13 @@ class _NeighborhoodAttention(torch.autograd.Function):
 def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
     """Fused sliding-window attention: q, k, v [B, N = height*width, H, D];
     returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D) happens here.
-    Any height and width, any odd `window`, D <= 128, B * H <= 65535 (the
-    JAX kernel's domain: its window is bounded by VMEM alone). The kernel
+    Any height and width, any odd `window`, any D, any B * H (the JAX
+    kernel's domain: its window and D are bounded by VMEM alone). The kernel
     streams the keys and values around an 8 x 8 tile of queries through
-    shared memory in chunks (`_nat_plan`), so no window is too wide for it.
-    Head dims and strides that are multiples of 16 bytes are staged 16 bytes
-    a copy, others an element at a time.
+    shared memory in chunks (`_nat_plan`), so no window is too wide for it;
+    above D = 128 it takes D in chunks and the output in column blocks.
+    Head dims and strides that are multiples of 16 bytes (bfloat16) are
+    staged 16 bytes a copy, others an element at a time.
 
     A CUDA tensor launches the kernel (and adds one to
     `neighborhood_attention.launches`), with its gradient taken through

@@ -17,6 +17,11 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def device_line(dev) -> str:
+    """`card_line()` for a CUDA device, else the device's name ("cpu")."""
+    return card_line() if torch.device(dev).type == "cuda" else str(dev)
+
+
 def _device_us(e):
     # renamed from self_cuda_time_total in newer torch releases
     t = getattr(e, "self_device_time_total", None)

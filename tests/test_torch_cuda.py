@@ -179,6 +179,10 @@ def _qkv(shape_q, shape_kv, dtype, device, seed=0):
     (2, 300, 2, 64, 363, torch.float32, "f32"),  # float32 K, V tiles: past the old limits
     (1, 1000, 2, 64, 1024, torch.float32, "f32"),
     (1, 200, 1, 128, 5000, torch.float32, "f32"),
+    # head dims past 128: wgmma's third width (D <= 256), and D in chunks
+    # with the output in column blocks (wgmma past 256, float32 past 128)
+    (1, 777, 2, 160, 64, torch.bfloat16, "wgmma"), (1, 777, 2, 160, 64, torch.float32, "f32"),
+    (2, 700, 1, 320, 256, torch.bfloat16, "wgmma"), (2, 700, 1, 320, 256, torch.float32, "f32"),
 ])
 def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype, route):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -243,9 +247,15 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     assert (got.float() - want.float()).abs().max().item() <= BF16_BAR
     with pytest.raises(RuntimeError, match="forward only"):
         attn.sr_attention(q.clone().requires_grad_(True), k, v)
-    big = torch.zeros((1, 8, 1, 256), device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        attn.sr_attention(big, big, big)
+    # D = 256, which the kernels once refused, in both dtypes
+    for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
+        big = _qkv((1, 8, 1, 256), (1, 8, 1, 256), dtype, cuda_device)
+        got = attn.sr_attention(*big)
+        assert (got.float() - attn.sr_attention_reference(*big).float()).abs().max().item() <= bar
+    # the mma.sync kernel's own domain is D <= 128: named above it, it refuses
+    wide = torch.zeros((1, 8, 1, 160), device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="mma route takes D <= 128"):
+        attn.launch_sr_attention(wide, wide, wide, "mma")
     # 5000 keys at D = 128 in float32: the key tiles stream (this raised
     # before K3 took any M)
     many = torch.randn((1, 5000, 1, 128), device=cuda_device)
@@ -294,6 +304,9 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     (1, 30, 27, 1, 128, 23, torch.bfloat16), (1, 30, 27, 1, 128, 23, torch.float32),
     (1, 12, 100, 1, 128, 63, torch.bfloat16),  # rows cut into column pieces
     (1, 9, 10, 1, 64, 63, torch.float32),  # the halo clamped far inside the window
+    # head dims past 128: D in chunks, the output in column blocks
+    (1, 13, 19, 2, 160, 7, torch.bfloat16), (1, 13, 19, 2, 160, 7, torch.float32),
+    (1, 17, 16, 1, 320, 7, torch.bfloat16), (1, 17, 16, 1, 320, 7, torch.float32),
 ])
 def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D, window, dtype):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -332,6 +345,66 @@ def test_neighborhood_attention_kernel_reads_strides_and_refuses(cuda_device, dt
     got = attn.neighborhood_attention(*big, 8, 8, 41)
     want = attn.neighborhood_attention_reference(*big, 8, 8, 41)
     assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    ("sr f32", torch.float32), ("sr wgmma", torch.bfloat16), ("sr mma", torch.bfloat16),
+    ("nat", torch.float32), ("nat", torch.bfloat16)])
+def test_attention_kernels_take_any_batch_heads(cuda_device, kernel, dtype):
+    # batch x heads past the 65,535 a grid axis holds
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    def fn(*t):
+        if kernel == "nat":
+            return attn.neighborhood_attention(*t, 4, 4, 3)
+        return attn.launch_sr_attention(*t, kernel.split()[1])
+
+    if kernel == "nat":
+        q, k, v = _qkv((65537, 16, 1, 8), (65537, 16, 1, 8), dtype, cuda_device)
+        want = attn.neighborhood_attention_reference(q, k, v, 4, 4, 3)
+    else:
+        q, k, v = _qkv((65537, 16, 1, 16), (65537, 64, 1, 16), dtype, cuda_device)
+        want = attn.sr_attention_reference(q, k, v)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    bar = BF16_BAR if dtype == torch.bfloat16 else F32_BAR
+    assert (got.float() - want.float()).abs().max().item() <= bar
+    # a pair's output does not depend on how many pairs share the call
+    parts = [fn(q[s], k[s], v[s]) for s in (slice(0, 65535), slice(65535, None))]
+    assert torch.equal(got, torch.cat(parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("N,M,D,seed", [(16, 16, 8, 0), (16, 8, 8, 0), (64, 64, 64, 0),
+                                        (16, 8, 8, 13)])
+def test_sr_attention_batch_heads_against_exact(cuda_device, route, N, M, D, seed):
+    # 65,537 pairs in bfloat16, held to the exact attention of the same
+    # inputs (float64, p unrounded) within BF16_BAR, as the plain version is.
+    # The plain version rounds normalised p, the one-pass wgmma kernel p
+    # before the division by the row sum, and each rounds its output once:
+    # the two may land on neighbouring bfloat16 values, and a step is 2^-5,
+    # past BF16_BAR, at |o| >= 4 (seed 13, drawn on the card, has such an
+    # output). So the two are held within BF16_BAR or two steps of the
+    # output's magnitude
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    if seed:
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=g, device=cuda_device).bfloat16()
+                   for s in ((65537, N, 1, D), (65537, M, 1, D), (65537, M, 1, D)))
+    else:
+        q, k, v = _qkv((65537, N, 1, D), (65537, M, 1, D), torch.bfloat16, cuda_device)
+    got = attn.launch_sr_attention(q, k, v, route).double()
+    plain = attn.sr_attention_reference(q, k, v).double()
+    scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
+    exact = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
+    assert (plain - exact).abs().max().item() <= BF16_BAR
+    assert (got - exact).abs().max().item() <= BF16_BAR
+    big = torch.maximum(got.abs(), plain.abs()).clamp_min(2.0 ** -126)
+    steps = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert ((got - plain).abs() <= torch.maximum(2 * steps, torch.tensor(BF16_BAR))).all()
 
 
 @pytest.mark.cuda
