@@ -33,14 +33,21 @@ Phases (each prints its own lines; any failure exits non-zero):
             and `scaled_dot_product_attention` (timed here, used nowhere
             else). Every counted K3 launch of phases 7-12 must take the
             wgmma kernel; their counts by kernel print before the kernels
-            line. Timed past D = 128: [8,4096,1,256]x64 keys, [8,1024,2,160]x256
-            and [8,1024,1,320]x256. The neighbourhood kernel (K2): its
+            line. The wgmma launcher's instance for every D to 512 against
+            `_sr_shape`, and each instance's registers and spilled bytes
+            (none allowed in the wide instances). Timed past D = 128 (each
+            line says "faster" or "slower" than the call): [8,4096,1,256]x64
+            keys, [8,1024,2,160]x256 and [8,1024,2,192]x256 (DP = 192),
+            [8,1024,1,320]x256 and [8,4096,1,320]x64 (DP = 320), and
+            [8,1024,1,320]x256 in float32. The neighbourhood kernel (K2): its
             launcher's chunk plan against `_nat_plan` (every odd window to
-            255, widths to 256, D to 512), windows 1 to 63 in both dtypes at
-            D = 7 to 512 (windows 15-63 streaming the halo, column pieces, a
-            halo clamped inside the window; D > 128 in chunks), B x H =
-            65,537, timed at window 7 ([8, 64*64] and [2, 128*128], and
-            [8, 16*16] at D = 320) and 23 beside its bound and the masked
+            255, widths to 256, D to 512), the registers and spilled bytes of
+            its kernels (none in the bfloat16 wide kernel), windows 1 to 63
+            in both dtypes at D = 7 to 512 (windows 15-63 streaming the halo,
+            column pieces, a halo clamped inside the window; D > 128 in
+            chunks), B x H = 65,537, timed at window 7 ([8, 64*64] and
+            [2, 128*128], and [8, 16*16] at D = 320 in both dtypes and at
+            D = 256) and 23 beside its bound and the masked
             `scaled_dot_product_attention`.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
@@ -54,7 +61,8 @@ Phases (each prints its own lines; any failure exits non-zero):
             (K2 launches counted, masks against the plain versions); B2 with
             num_heads=(1, 1, 1, 2) (head dims 64, 128, 320, 256; the shipped
             weights) at 256x256, 512x512 and 1024x1024 (K3 at D = 320 and
-            256), and at 256x256 with stage 2 a window-7 neighbourhood stage
+            256; frames/s at 512x512), and at 256x256 with stage 2 a
+            window-7 neighbourhood stage
             (K2 at D = 320, 16 x 16 tokens), masks >= 0.995 equal to the
             plain-version forward, launches counted; and `predict`'s
             contract.
@@ -558,7 +566,8 @@ def attention_phase(card):
             + "".join(f"{label} {ms:.4f} ms, " for label, ms in o_ms.items())
             + f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), "
             f"{100 * b_ms / k_ms:.1f}% of bound; plain version {p_ms:.4f} ms; "
-            f"scaled_dot_product_attention {l_ms:.4f} ms")
+            f"scaled_dot_product_attention {l_ms:.4f} ms: the kernel "
+            + (f"{l_ms / k_ms:.2f}x faster" if k_ms < l_ms else f"{k_ms / l_ms:.2f}x slower"))
         row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                "bound_by": by, "library_ms": l_ms,
                **{f"{label.split()[0]}_ms": ms for label, ms in o_ms.items()}}
@@ -566,6 +575,20 @@ def attention_phase(card):
             entry.update(row)
         else:
             entry.setdefault("other_shapes", []).append(row)
+
+    def resources(fn, lib, names, new):
+        """Each instance's registers and spilled bytes (cudaFuncGetAttributes);
+        fails where one of the `new` (wide) kernels spills."""
+        fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+        for name in names:
+            out = (ctypes.c_int * 4)()
+            err = fn(name.encode(), out)
+            if err != 0:
+                fail(f"{lib}: no attributes for {name} (error {err})")
+            log(f"attention: {lib} {name}: {out[0]} registers a thread, {out[1]} bytes local "
+                f"(spilled) a thread, {out[2]} bytes static shared, up to {out[3]} threads")
+            if name in new and out[1] != 0:
+                fail(f"{lib} {name}: {out[1]} bytes of local memory a thread (a spill)")
 
     # ---- K3, spatial-reduction attention: each bfloat16 case through
     # `sr_attention` (the wgmma kernel on every layout here) and, where its
@@ -577,6 +600,21 @@ def attention_phase(card):
            "source": "fusion3dseg_tpu_torch/csrc/sr_attention.cu",
            "replaces": "fusion3dseg_tpu/ops/attention.py:30", "launches": 0,
            "max_abs_err": 0.0}
+    # the wgmma launcher's instance choice against its mirror in
+    # ops/attention.py, and the resources of each instance (no spills)
+    shape_fn = cuda.load("sr_attention").f3s_sr_shape
+    shape_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
+    got_shape = (ctypes.c_int64 * 5)()
+    for D in range(1, 513):
+        for M in (1, 64, 65, 1024):
+            if shape_fn(D, M, got_shape) != 0 or tuple(got_shape) != tuple(attn._sr_shape(D, M)):
+                fail(f"sr_attention: the launcher takes {tuple(got_shape)} at D {D}, M {M}; "
+                     f"_sr_shape {attn._sr_shape(D, M)}")
+    log("attention: sr_attention: the launcher's instance equals _sr_shape for D 1-512 "
+        "(DP 64, 128, 192, 256, 320; column blocks past 320)")
+    resources(cuda.load("sr_attention").f3s_sr_resources, "sr_attention",
+              ("wgmma_64_64", "wgmma_64_128", "wgmma_128_64", "wgmma_192_64", "wgmma_256_64",
+               "wgmma_320_32", "wide"), new=("wgmma_192_64", "wgmma_320_32"))
     b2_calls = [(8, N, H, 64, M, "bf16", True) for N, H, M in (
         (4096, 1, 64), (1024, 2, 64), (16384, 1, 256), (4096, 2, 256), (1024, 5, 256),
         (65536, 1, 1024), (16384, 2, 1024), (4096, 5, 1024), (1024, 8, 1024))]
@@ -594,12 +632,16 @@ def attention_phase(card):
             (1, 512, 1, 64, 4096, "bf16", False), (2, 1000, 1, 128, 1024, "bf16", False),
             (1, 1000, 2, 64, 1024, "f32", False),
             # head dims past 128 (timed: a head of 256 against B2's stage-0
-            # keys, of 160 against 256 keys, and B2 with num_heads=(1,1,1,2)
-            # at stage 2 of 512x512, D = 320); in both dtypes a D that is not a
-            # multiple of 8 (129: copied for wgmma), ragged N and M, 128 < D <=
-            # 256 (wgmma's third width) and D > 256 (D in chunks, column blocks)
+            # keys, of 160 and 192 against 256 keys (DP = 192), and B2 with
+            # num_heads=(1,1,1,2) at stage 2 of 512x512 and 256x256, D = 320
+            # (DP = 320, key tiles of 32), in bfloat16; D = 320 in float32); in
+            # both dtypes a D that is not a multiple of 8 (129: copied for
+            # wgmma, DP = 192), ragged N and M, DP = 256, 320, and D > 320 (D
+            # in chunks, column blocks)
             (8, 4096, 1, 256, 64, "bf16", True), (8, 1024, 2, 160, 256, "bf16", True),
-            (8, 1024, 1, 320, 256, "bf16", True),
+            (8, 1024, 2, 192, 256, "bf16", True), (8, 1024, 1, 320, 256, "bf16", True),
+            (8, 4096, 1, 320, 64, "bf16", True), (8, 1024, 1, 320, 256, "f32", True),
+            (1, 999, 3, 288, 1000, "bf16", False), (3, 300, 2, 176, 129, "bf16", False),
             *((B, N, H, D, M, dtype, False) for dtype in ("f32", "bf16") for B, N, H, D, M in (
                 (1, 1000, 2, 129, 37), (1, 777, 2, 160, 64), (2, 500, 1, 200, 257),
                 (1, 1000, 1, 256, 300), (2, 700, 1, 320, 256), (1, 600, 1, 512, 100)))):
@@ -611,6 +653,8 @@ def attention_phase(card):
         want = attn.sr_attention_reference(q, k, v)
         err = held("sr_attention", attn.sr_attention(q, k, v), want, dtype, shape)
         line = f"attention: sr_attention {shape} {dtype}: {route} max abs err {err:.3e}"
+        if route == "wgmma" and D > 128:
+            line += f" ({attn._sr_shape(D, M)})"
         mma = dtype == "bf16" and attn._mma_fits(M, D)
         if mma:
             err_mma = held("sr_attention (mma)", attn.launch_sr_attention(q, k, v, "mma"),
@@ -751,6 +795,9 @@ def attention_phase(card):
                     cases += 1
     log(f"attention: neighborhood_attention: the launcher's chunk plan equals _nat_plan in "
         f"{cases} cases (odd windows 1-255, D 8-512, widths 1-256, both dtypes)")
+    resources(cuda.load("neighborhood_attention").f3s_nat_resources, "neighborhood_attention",
+              ("mma_wide", "mma_wide_online", "f32_wide", "mma_2", "mma_4", "f32_16"),
+              new=("mma_wide", "mma_wide_online"))
     for B, h, w, H, D, window, dtype, time_it in (
             (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", True),
             (1, 9, 11, 2, 8, 5, "f32", False),
@@ -774,10 +821,14 @@ def attention_phase(card):
             (1, 12, 100, 1, 128, 63, "bf16", False), (1, 20, 24, 1, 128, 63, "f32", False),
             (1, 33, 100, 1, 64, 63, "bf16", False), (1, 9, 10, 1, 128, 63, "bf16", False),
             (1, 9, 10, 1, 64, 63, "f32", False),
-            # head dims past 128 (the wide kernel, both dtypes): timed at B2
-            # num_heads=(1,1,1,2)'s stage 2 (16 x 16, D = 320, window 7); ragged
-            # grids, a D that is not a multiple of 8, windows 7 to 41
-            (8, 16, 16, 1, 320, 7, "bf16", True),
+            # head dims past 128 (the wide kernels, both dtypes): timed at B2
+            # num_heads=(1,1,1,2)'s stage 2 (16 x 16, D = 320, window 7) in both
+            # dtypes and at D = 256 in bfloat16; ragged grids, a D that is not a
+            # multiple of 8, windows 7 to 41, window 23 (the chunk's scores,
+            # online over the chunks), two column blocks (D = 384)
+            (8, 16, 16, 1, 320, 7, "bf16", True), (8, 16, 16, 1, 256, 7, "bf16", True),
+            (8, 16, 16, 1, 320, 7, "f32", True), (2, 13, 21, 1, 320, 9, "bf16", False),
+            (1, 30, 27, 1, 320, 23, "bf16", False), (1, 33, 40, 2, 384, 11, "bf16", False),
             *((B, h, w, H, D, window, dtype, False) for dtype in ("f32", "bf16")
               for B, h, w, H, D, window in (
                   (1, 16, 16, 1, 129, 7), (1, 13, 19, 2, 160, 7), (1, 16, 16, 1, 200, 9),
@@ -1022,7 +1073,12 @@ def segmenter_phase(card):
         _, n = compare(f"B2 num_heads=(1,1,1,2) at {hw[0]}x{hw[1]}, use_pallas_attention",
                        wide, wide_plain, {"sr": per_forward}, NAT_MASK_AGREE_BAR)
         sra_launches += n["sr"]
-        del wide, wide_plain
+        del wide_plain
+        if hw == (512, 512):  # K3 at D = 320 (stage 2) on the main path's kernel
+            log("segmenter: B2 num_heads=(1,1,1,2) at 512x512, before the wide kernels' "
+                "redesign: no frames/s was taken (PERF.md has none); now:")
+            throughput(wide)
+        del wide
     cfg_wide_nat = dataclasses.replace(cfg_wide, nat_windows=(0, 0, 7, 0))
     state = convert.from_flax_params(less_reduction(2), cfg_wide_nat)
     seg_nat, plain_nat = (Segmenter2D(cfg_wide_nat, input_hw=(256, 256), batch_size=batch,

@@ -77,11 +77,16 @@
 //   product plus two shuffles, softmax online per key. A warp is one tile
 //   row; it visits the chunk's columns that any of its queries' windows
 //   holds, each lane masking the keys outside its own.
-// * any D past 128 (`nat_mma_wide_kernel` in bfloat16 on the tensor cores,
-//   `nat_f32_wide_kernel` in float32 on the CUDA cores): the scores over D
-//   in chunks of 128 and the output in column blocks of 128, the halo in
-//   chunks of at most 8 slots of 8 keys a warp (`wide_plan`; see their
-//   notes). Any B * H: launches take (batch, head) in runs of 65,535.
+// * any D past 128: in bfloat16 `nat_mma_wide_kernel` on the tensor cores,
+//   eight warps a strip of 2 x 8 queries owning all of D up to 320 (the
+//   output in column blocks of 320 past it): q staged once, K, then V, in
+//   units of 64 columns through a cp.async ring, each score taken once and
+//   the softmax in shared memory (`mma_wide_plan`); in float32
+//   `nat_f32_wide_kernel` on the CUDA cores, the scores over D in chunks of
+//   128 and the output in column blocks of 128 (`f32_wide_plan`). See their
+//   notes. Any B * H: launches take (batch, head) in runs of 65,535.
+
+#include <cstring>
 
 #include "attention_common.cuh"
 
@@ -135,13 +140,14 @@ struct Chunk {
   int y0, y1, x0, x1;
 };
 
-// The halo of the tile at (ty0, tx0) clamped to the image, cut into chunks
-// of at most rows x cols, rows outer.
+// The halo of the tile at (ty0, tx0) (`tile_rows` x 8 queries) clamped to
+// the image, cut into chunks of at most rows x cols, rows outer.
 struct Walk {
   int Y0, Y1, X0, X1, rows, cols, ncx, count;
 
-  __device__ Walk(int ty0, int tx0, int r, int height, int width, int rows_, int cols_)
-      : Y0(max(ty0 - r, 0)), Y1(min(ty0 + kTile + r, height)), X0(max(tx0 - r, 0)),
+  __device__ Walk(int ty0, int tx0, int r, int height, int width, int rows_, int cols_,
+                  int tile_rows = kTile)
+      : Y0(max(ty0 - r, 0)), Y1(min(ty0 + tile_rows + r, height)), X0(max(tx0 - r, 0)),
         X1(min(tx0 + kTile + r, width)), rows(rows_), cols(cols_) {
     ncx = (X1 - X0 + cols - 1) / cols;
     count = (Y1 - Y0 + rows - 1) / rows * ncx;
@@ -566,19 +572,20 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- any D past 128: D in chunks of kWideCols, the output in column blocks
+constexpr int kMaxNarrowD = 128;  // past it, the wide kernels below
+
+// ---- float32 past D = 128: D in chunks of kWideCols, the output in column blocks
 //
 // The grid's z axis cuts the output into column blocks of kWideCols, each
 // block taking the scores over the whole D again. The clamped halo goes in
-// chunks (`wide_plan`) of at most kWideSlots slots of 8 columns for each
-// warp's pair of query rows (64 positions); for each chunk the scores add
-// up over D in chunks of kWideCols columns of K staged in one buffer, then
-// the chunk's V columns (the block's) go through the same buffer and the
-// online softmax takes the chunk's keys.
+// chunks (`f32_wide_plan`) of at most kWideSlots slots of 8 columns for
+// each warp's pair of query rows (64 positions); for each chunk the scores
+// add up over D in chunks of kWideCols columns of K staged in one buffer,
+// then the chunk's V columns (the block's) go through the same buffer and
+// the online softmax takes the chunk's keys.
 constexpr int kWideCols = 128;
 constexpr int kWideDPL = kWideCols / kLanes;
 constexpr int kWideSlots = 8;
-constexpr int kWideLd = kWideCols + 8;  // a staged bfloat16 row: 4 mod 8 words, as LD above
 
 // float32 on the CUDA cores: four lanes a query, as in the float32 kernel,
 // each lane a quarter of q's chunk in registers, the partial sums in the
@@ -688,115 +695,285 @@ nat_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// bfloat16 on the tensor cores: as nat_mma_kernel, a warp owns 16 queries
-// (two tile rows) and multiplies them against every key of the chunk on the
-// rows they see, in slots of 8 columns, at most kWideSlots of them a warp, so
-// the slots' scores stay in registers while they add up over D: for each
-// chunk of kWideCols columns, K's columns staged (16-byte cp.async where D,
-// the strides and the bases allow, else an element at a time) and q's as A
-// fragments straight from device memory (q * scale rounded to bfloat16, as
-// above). Then the block's columns of V through the same buffer, the online
-// softmax over the chunk's slots in one step and P V, p as a bfloat16 high
-// part and remainder, as in nat_mma_kernel.
-__global__ void __launch_bounds__(kMmaThreads)
+// ---- bfloat16 past D = 128: one block owns all of D for a strip of queries
+//
+// A block of eight warps owns a strip of 2 x 8 queries (two rows of a tile:
+// one mma.sync m16 tile) and kMmaWideOut columns of its output: all of D
+// up to 320 (B2 re-headed), and past that the grid's z axis cuts the
+// output into column blocks of 320, each taking the scores again (the cut:
+// O of 320 columns is 40 float32 registers a thread, within the 128 that
+// let two blocks share an SM). So [8, 16*16, 1, 320] runs 128 blocks. The
+// strip's q (all of D) is staged once. Its halo, clamped to the image, goes in chunks
+// (`mma_wide_plan`), and a stream of units goes through a cp.async ring of
+// `stages` buffers (the next stages - 1 units' copies fly while the block
+// works on one; one barrier a unit): K in units of kMmaWideCols columns
+// over the whole D, V in units of kMmaWideCols of the block's columns. Each
+// score is taken once for the block's columns, and K and V are each read
+// once a block.
+//
+// The eight warps share the chunk's slots of 8 keys on the strip's rows,
+// two each: mma.sync with q * scale rounded to bfloat16 as A fragments and
+// K's, both by ldmatrix, the sums held in registers over the chunk's K
+// units, then written to the block's score rows in shared memory
+// (float32). Sixteen threads a query take the softmax there (base 2) and
+// write p of every slot of the chunk (0 outside the window) as a bfloat16
+// high part and remainder (the second product keeps p float32-grade, as in
+// nat_mma_kernel), in rows of 16 slots x 8 keys that ldmatrix reads as A
+// fragments. Each warp adds P V for each V unit to its 8 of the unit's 64
+// columns (V by ldmatrix.trans, two slot pairs an instruction, into two
+// accumulators so that the chains are half as long; p's fragments read
+// again for each unit rather than held, which keeps a thread within 128
+// registers, so that two blocks share an SM where the grid has more blocks
+// than SMs). O stays in registers
+// for the whole halo. The slot loops run over all kMmaWideSlots whether or
+// not a slot holds keys (an empty slot's p is 0), so that ptxas interleaves
+// their products.
+//
+// Two kinds of score rows (`kWin`):
+// * the window's (windows up to 11, where 16 rows of window^2 floats take
+//   at most a sixth of the budget): a row holds its query's window, every
+//   chunk writes its keys there, all K units come first, then the maximum
+//   over the window, then chunk by chunk p and its V units. Window 7's
+//   halo (8 x 14) is one chunk.
+// * the chunk's (wider windows): a row holds the chunk's positions, and the
+//   softmax runs online over the chunks (K units, maximum and p, O rescaled
+//   by the query's correction, V units, chunk by chunk), the running
+//   maximum and sum kept by the query's threads, as the TPU kernel carries
+//   them across its rows of keys.
+constexpr int kStripRows = 2;                         // query rows of a block
+constexpr int kStripQueries = kStripRows * kTile;     // 16: one m16 tile
+constexpr int kMmaWideThreads = 256;                  // eight warps
+constexpr int kMmaWideWarps = kMmaWideThreads / 32;
+constexpr int kSoftLanes = kMmaWideThreads / kStripQueries;  // 16 threads a query
+constexpr int kMmaWideCols = 64;               // columns of D a unit of K or V stages
+constexpr int kMmaWideLd = kMmaWideCols + 8;   // a staged row: 4 mod 8 words, as LD above
+constexpr int kMmaWideUnits = 5;               // V units of a block's output
+constexpr int kMmaWideOut = kMmaWideUnits * kMmaWideCols;  // 320 output columns a block
+constexpr int kMmaWideSlots = 16;              // slots of 8 keys a chunk: two a warp
+constexpr int kPLd = kMmaWideSlots * 8 + 8;    // a row of p (bfloat16): 4 mod 8 words
+constexpr int kMmaWideStages = 4;              // the most buffers of the ring
+
+// floats a score row takes for n entries: 4 mod 8 words, so that the lanes
+// of a warp writing rows g = 0..7 fall on distinct banks
+__host__ __device__ inline int score_ld(int n) { return n + (12 - n % 8) % 8; }
+
+// the elements of a staged q row: all of D in units, and 8 against bank
+// conflicts
+__host__ __device__ inline int q_ld(int D) {
+  return (D + kMmaWideCols - 1) / kMmaWideCols * kMmaWideCols + 8;
+}
+
+// bytes before the ring: the 16 score rows and corrections for n entries a
+// row, q, and p's high parts and remainders
+__host__ __device__ inline int fixed_bytes(int n, int D) {
+  return kStripQueries * ((score_ld(n) + 1) * 4 + q_ld(D) * 2 + 2 * kPLd * 2);
+}
+
+// whether the bfloat16 wide kernel keeps each query's whole window of
+// scores: its rows within a sixth of the budget
+bool window_scores(int window) {
+  return kStripQueries * (score_ld(window * window) + 1) * 4 <= kBudget / 6;
+}
+
+// The rows of a strip's chunks: the plan's `rows` of `cols` positions, or
+// more where the strip's halo, clamped to the image, is narrower than
+// `cols` (as many as the ring's buffers hold, within kMmaWideSlots slots).
+// ops/attention.py `_nat_tile_rows` mirrors it.
+__host__ __device__ inline int tile_rows(int rows, int cols, int halo_rows, int halo_cols) {
+  const int piece = cols < halo_cols ? cols : halo_cols, nsx = (piece + 7) / 8;
+  int t = rows * cols / piece;
+  if (t > halo_rows) t = halo_rows;
+  while (t > rows && t * nsx > kMmaWideSlots) --t;
+  return t < 1 ? 1 : t;
+}
+
+// until at most n of this thread's committed cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n <= 0) cp_async_wait_group<0>();
+  else if (n == 1) cp_async_wait_group<1>();
+  else if (n == 2) cp_async_wait_group<2>();
+  else cp_async_wait_group<3>();
+}
+
+template <bool kWin>
+__global__ void __launch_bounds__(kMmaWideThreads, 2)
 nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
                     const BF* __restrict__ v, BF* __restrict__ o, int height, int width,
                     int window, int H, int D, int tiles_x, Strides sq, Strides sk, Strides sv,
-                    Strides so, float scale, int band_rows, int band_cols, int bh0, bool vec) {
+                    Strides so, float scale, int band_rows, int band_cols, int bh0, int stages,
+                    bool vec, bool pairs) {
   extern __shared__ __align__(16) unsigned char smem[];
-  BF* buf = reinterpret_cast<BF*>(smem);  // [band_rows * band_cols][kWideLd]
+  const int npos_max = band_rows * band_cols;
+  const int entries = kWin ? window * window : npos_max;
+  const int sld = score_ld(entries), qld = q_ld(D);
+  float* sc = reinterpret_cast<float*>(smem);   // [16 queries][sld]: scores
+  float* qrow = sc + kStripQueries * sld;       // [16]: a chunk's corrections; at the end 1 / l
+  BF* qs = reinterpret_cast<BF*>(qrow + kStripQueries);  // [16][qld]: q as stored
+  BF* p_hi = qs + kStripQueries * qld;          // [16][kPLd]: p's high parts, by slot and key
+  BF* p_lo = p_hi + kStripQueries * kPLd;       // [16][kPLd]: and remainders
+  BF* ring = p_lo + kStripQueries * kPLd;       // stages x [npos_max][kMmaWideLd]
+  const int unit_elems = npos_max * kMmaWideLd;
+
   const int r = window / 2;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int b = (bh0 + blockIdx.y) / H;
   const int h = (bh0 + blockIdx.y) % H;
-  const int c0 = blockIdx.z * kWideCols;  // this block's output columns
-  const int ty0 = (blockIdx.x / tiles_x) * kTile;
+  const int c0 = blockIdx.z * kMmaWideOut;  // this block's output columns c0 ..
+  const int nk = (D + kMmaWideCols - 1) / kMmaWideCols;  // K units a chunk
+  const int nv = (min(kMmaWideOut, D - c0) + kMmaWideCols - 1) / kMmaWideCols;  // V units
+  const int ty0 = (blockIdx.x / tiles_x) * kStripRows;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
   const BF* kb = k + b * sk.b + h * sk.h;
   const BF* vb = v + b * sv.b + h * sv.h;
-  const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
-  // columns d0 .. d0 + kWideCols - 1 of the chunk's positions into buf
-  auto stage = [&](const BF* src, int64_t stride, const Chunk& ch, int d0) {
-    const int cols = ch.x1 - ch.x0, npos = (ch.y1 - ch.y0) * cols;
+  const int halo_rows = min(ty0 + kStripRows + r, height) - max(ty0 - r, 0);
+  const int halo_cols = min(tx0 + kTile + r, width) - max(tx0 - r, 0);
+  const Walk walk(ty0, tx0, r, height, width,
+                  tile_rows(band_rows, band_cols, halo_rows, halo_cols), band_cols, kStripRows);
+  const int units = walk.count * (nk + nv);
+
+  // 16 bytes of row `tok` of src from column d0 into dst: cp.async where
+  // `vec` (zeros past D or where !live), else element by element
+  const BF zero = __float2bfloat16_rn(0.f);
+  auto piece = [&](BF* dst, const BF* src, int64_t tok, int d0, bool live) {
     if (vec) {
-      for (int it = tid; it < npos * (kWideCols / 8); it += kMmaThreads) {
-        const int pos = it / (kWideCols / 8), d = it % (kWideCols / 8) * 8;
-        const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
-        const bool in = d0 + d < D;
-        cp_async16(buf + pos * kWideLd + d, in ? src + tok * stride + d0 + d : src, in ? 16 : 0);
-      }
+      const bool in = live && d0 < D;
+      cp_async16(dst, in ? src + tok + d0 : src, in ? 16 : 0);
     } else {
-      const BF zero = __float2bfloat16_rn(0.f);
-#pragma unroll 4
-      for (int idx = tid; idx < npos * kWideCols; idx += kMmaThreads) {
-        const int pos = idx / kWideCols, d = idx % kWideCols;
-        const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
-        buf[pos * kWideLd + d] = d0 + d < D ? src[tok * stride + d0 + d] : zero;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = live && d0 + i < D ? src[tok + d0 + i] : zero;
+    }
+  };
+  // the strip's q, all of D (zeros past D and outside the image)
+  if (!(F3S_PARTS & 1)) {
+    const BF* qb = q + b * sq.b + h * sq.h;
+    for (int i = tid; i < kStripQueries * (qld / 8); i += kMmaWideThreads) {
+      const int m = i / (qld / 8), d = i % (qld / 8) * 8;
+      const int y = ty0 + m / kTile, x = tx0 + m % kTile;
+      const bool live = y < height && x < width;
+      piece(qs + m * qld + d, qb, live ? (static_cast<int64_t>(y) * width + x) * sq.n : 0, d,
+            live);
+    }
+  }
+
+  // unit u: its chunk, K or V, its 64 columns' index. kWin: every chunk's K
+  // units, then every chunk's V units; else chunk by chunk, K then V
+  auto unit_of = [&](int u, int& c, bool& is_k, int& dc) {
+    if (kWin) {
+      is_k = u < walk.count * nk;
+      const int w = is_k ? u : u - walk.count * nk, n = is_k ? nk : nv;
+      c = w / n;
+      dc = w % n;
+    } else {
+      c = u / (nk + nv);
+      dc = u % (nk + nv);
+      is_k = dc < nk;
+      if (!is_k) dc -= nk;
+    }
+  };
+  // unit u into buffer u % stages: the chunk's positions, 64 columns of K
+  // or of the block's V, zeros past D; one cp.async group (empty past the
+  // last unit, so that every step commits one)
+  auto issue = [&](int u) {
+    if (u < units && !(F3S_PARTS & 1)) {
+      int c, dc;
+      bool is_k;
+      unit_of(u, c, is_k, dc);
+      const Chunk ch = walk[c];
+      const BF* src = is_k ? kb : vb;
+      const int64_t stride = is_k ? sk.n : sv.n;
+      const int d0 = (is_k ? 0 : c0) + dc * kMmaWideCols;
+      BF* dst = ring + (u % stages) * unit_elems;
+      const int cols = ch.x1 - ch.x0, npos = (ch.y1 - ch.y0) * cols;
+      // a thread keeps its 16 bytes of a position's columns and steps over
+      // the positions kStep at a time (row and column carried)
+      constexpr int kPieces = kMmaWideCols / 8, kStep = kMmaWideThreads / kPieces;
+      const int d = tid % kPieces * 8;
+      int pos = tid / kPieces, py = pos / cols, px = pos % cols;
+      for (; pos < npos; pos += kStep) {
+        piece(dst + pos * kMmaWideLd + d, src,
+              (static_cast<int64_t>(ch.y0 + py) * width + ch.x0 + px) * stride, d0 + d, true);
+        for (px += kStep; px >= cols; px -= cols) ++py;
       }
     }
     cp_async_commit();
-    cp_async_wait_all();
+  };
+  // into unit u: its copies have landed and the block has met (so every
+  // warp is done with unit u - 1), then unit u + stages - 1 goes into the
+  // buffer u - 1 left; returns the shared address of unit u's buffer
+  int u = 0;
+  auto begin = [&]() {
+    cp_async_wait_pending(stages - 2);
+    __syncthreads();
+    issue(u + stages - 1);
+    return smem_addr(ring + (u++ % stages) * unit_elems);
   };
 
-  const int lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wy = (tid / 32) * 2;  // this warp's two rows of the tile
-  const int qx = tx0 + g, qy0 = ty0 + wy;
+  // the lane's queries: (row ty0, column g) and (row ty0 + 1, column g),
+  // score rows g and g + 8
+  const int qx = tx0 + g, qy0 = ty0;
   const bool live0 = qx < width && qy0 < height, live1 = qx < width && qy0 + 1 < height;
-  const int64_t tok0 = static_cast<int64_t>(qy0) * width + qx;
-  const BF* q0 = q + b * sq.b + h * sq.h + tok0 * sq.n;
-  const BF* q1 = q0 + width * sq.n;
-  auto ld2 = [&](const BF* row, bool live, int d) -> uint32_t {
-    const float x = live && d < D ? to_f32<BF>(row[d]) : 0.f;
-    const float y = live && d + 1 < D ? to_f32<BF>(row[d + 1]) : 0.f;
-    return pack_bf16(x * scale, y * scale);
+  const int qi0 = g, qi1 = g + kTile;
+
+  // the strip's keys in chunk c: every row of the chunk in nsx slots of 8
+  // columns from ch.x0 (nslots at most kMmaWideSlots, by the plan)
+  struct Keys {
+    Chunk ch;
+    int cols, nsx, nslots;
+  };
+  auto keys_of = [&](int c) {
+    Keys ks;
+    ks.ch = walk[c];
+    ks.cols = ks.ch.x1 - ks.ch.x0;
+    ks.nsx = (ks.cols + 7) / 8;
+    ks.nslots = (ks.ch.y1 - ks.ch.y0) * ks.nsx;
+    return ks;
+  };
+  // this lane's ldmatrix row of slot j: key lane % 8 of it (slots past the
+  // chunk's width repeat its edge; past nslots, the chunk's first position)
+  auto slot_pos = [&](const Keys& ks, int j) {
+    const int cx = min(8 * (j % ks.nsx) + lane % 8, ks.cols - 1);
+    return j < ks.nslots ? j / ks.nsx * ks.cols + cx : 0;
+  };
+  // the score row entry of the query at (qy, qx_) for the key at (y, x) of
+  // the chunk, or -1 outside its window
+  auto entry = [&](const Chunk& ch, int qy, int qx_, int y, int x) {
+    const int dy = y - qy + r, dx = x - qx_ + r;
+    const bool in = dy >= 0 && dy < window && dx >= 0 && dx < window;
+    return !in ? -1 : kWin ? dy * window + dx : (y - ch.y0) * (ch.x1 - ch.x0) + x - ch.x0;
   };
 
-  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;  // maxima in base-2 units
-  float acc[kWideCols / 8][4];
+  // the K units of chunk c: the scores of this warp's slots (warp, warp +
+  // 8) over D, then into score rows qi0, qi1
+  const uint32_t qa_row = smem_addr(qs + ((lane / 8 % 2) * 8 + lane % 8) * qld + lane / 16 * 8);
+  auto score_chunk = [&](int c) {
+    const Keys ks = keys_of(c);
+    constexpr int kMine = kMmaWideSlots / kMmaWideWarps;
+    int pos[kMine];
+    float s[kMine][4];
 #pragma unroll
-  for (int dc = 0; dc < kWideCols / 8; ++dc)
+    for (int j = 0; j < kMine; ++j) {
+      pos[j] = slot_pos(ks, warp + kMmaWideWarps * j);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dc][i] = 0.f;
-  const uint32_t buf_s = smem_addr(buf);
-  for (int c = 0; c < walk.count; ++c) {
-    // this warp's keys in the chunk: rows [y0, y1) that a query of rows
-    // qy0, qy0 + 1 sees, every row in nsx slots of 8 columns from ch.x0
-    const Chunk ch = walk[c];
-    const int cols = ch.x1 - ch.x0;
-    const int y0 = max(ch.y0, qy0 - r), y1 = min(ch.y1, qy0 + 2 + r);
-    const int nsx = (cols + 7) / 8;
-    const int nslots = y1 <= y0 ? 0 : (y1 - y0) * nsx;  // at most kWideSlots
-    int pos[kWideSlots];  // this lane's ldmatrix row: key lane % 8 of slot j
-#pragma unroll
-    for (int j = 0; j < kWideSlots; ++j) {
-      const int cx = min(8 * (j % nsx) + lane % 8, cols - 1);  // past the chunk: its edge
-      pos[j] = j < nslots ? (y0 + j / nsx - ch.y0) * cols + cx : 0;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     }
-    float s[kWideSlots][4];
+    for (int kd = 0; kd < nk; ++kd) {
+      const uint32_t kbase = begin();
+      // q * scale, rounded to bfloat16, as A fragments of columns 64 kd ..
+      uint32_t qa[kMmaWideCols / 16][4];
 #pragma unroll
-    for (int j = 0; j < kWideSlots; ++j)
+      for (int kc = 0; kc < kMmaWideCols / 16; ++kc) {
+        ldmatrix_x4(qa[kc], qa_row + (kd * kMmaWideCols + kc * 16) * 2);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kWideCols) {
-      __syncthreads();  // buf is free
-      stage(kb, sk.n, ch, d0);
-      __syncthreads();
-      uint32_t qa[kWideCols / 16][4];
-#pragma unroll
-      for (int kc = 0; kc < kWideCols / 16; ++kc) {
-        const int d = d0 + kc * 16 + 2 * t;
-        qa[kc][0] = ld2(q0, live0, d);
-        qa[kc][1] = ld2(q1, live1, d);
-        qa[kc][2] = ld2(q0, live0, d + 8);
-        qa[kc][3] = ld2(q1, live1, d + 8);
+        for (int e = 0; e < 4; ++e)
+          qa[kc][e] = pack_bf16(__uint_as_float(qa[kc][e] << 16) * scale,
+                                __uint_as_float(qa[kc][e] & 0xffff0000u) * scale);
       }
 #pragma unroll
-      for (int j = 0; j < kWideSlots; ++j) {
-        if (j >= nslots) break;
-        const uint32_t ka = buf_s + (pos[j] * kWideLd + (lane / 8) * 8) * 2;
+      for (int j = 0; j < (F3S_PARTS & 2 ? 0 : kMine); ++j) {
+        const uint32_t ka = kbase + (pos[j] * kMmaWideLd + (lane / 8) * 8) * 2;
 #pragma unroll
-        for (int kc2 = 0; kc2 < kWideCols / 32; ++kc2) {
+        for (int kc2 = 0; kc2 < kMmaWideCols / 32; ++kc2) {
           uint32_t kb4[4];
           ldmatrix_x4(kb4, ka + kc2 * 64);
           mma_bf16(s[j], qa[2 * kc2], kb4[0], kb4[1]);
@@ -804,115 +981,209 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
         }
       }
     }
-    __syncthreads();  // buf is free
-    stage(vb, sv.n, ch, c0);
-    __syncthreads();
-
-    // to base 2, -inf where the key is not in the query's window
-    float n0 = m0, n1 = m1;
 #pragma unroll
-    for (int j = 0; j < kWideSlots; ++j) {
-      const int y = y0 + j / nsx;
-      const bool y0ok = j < nslots && y <= qy0 + r, y1ok = j < nslots && y >= qy0 + 1 - r;
-      const int x = ch.x0 + 8 * (j % nsx) + 2 * t;
-      const bool x0ok = x < ch.x1 && abs(x - qx) <= r;
-      const bool x1ok = x + 1 < ch.x1 && abs(x + 1 - qx) <= r;
-      s[j][0] = y0ok && x0ok ? s[j][0] * kLog2e : -CUDART_INF_F;
-      s[j][1] = y0ok && x1ok ? s[j][1] * kLog2e : -CUDART_INF_F;
-      s[j][2] = y1ok && x0ok ? s[j][2] * kLog2e : -CUDART_INF_F;
-      s[j][3] = y1ok && x1ok ? s[j][3] * kLog2e : -CUDART_INF_F;
-      n0 = fmaxf(n0, fmaxf(s[j][0], s[j][1]));
-      n1 = fmaxf(n1, fmaxf(s[j][2], s[j][3]));
-    }
-    // online softmax: the four lanes of a row agree on its maximum; m stays
-    // finite, so 2^(-inf - m) is 0 and nothing needs a guard
-    n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, 1));
-    n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, 1));
-    n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, 2));
-    n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, 2));
-    const float cr0 = ex2(m0 - n0), cr1 = ex2(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    l0 *= cr0;
-    l1 *= cr1;
-#pragma unroll
-    for (int j = 0; j < kWideSlots; ++j) {
-      s[j][0] = ex2(s[j][0] - n0);
-      s[j][1] = ex2(s[j][1] - n0);
-      s[j][2] = ex2(s[j][2] - n1);
-      s[j][3] = ex2(s[j][3] - n1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int dc = 0; dc < kWideCols / 8; ++dc) {
-      acc[dc][0] *= cr0;
-      acc[dc][1] *= cr0;
-      acc[dc][2] *= cr1;
-      acc[dc][3] *= cr1;
-    }
-#pragma unroll
-    for (int jp = 0; jp < kWideSlots; jp += 2) {  // 16 keys a product
-      if (jp >= nslots) break;
-      uint32_t ph[4], pl[4];  // p = high + low, both bfloat16
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float a = s[jp + j][2 * i], cc = s[jp + j][2 * i + 1];
-          const float ah = round_to<BF>(a), ch_ = round_to<BF>(cc);
-          ph[2 * j + i] = pack_bf16(ah, ch_);
-          pl[2 * j + i] = pack_bf16(a - ah, cc - ch_);
-        }
-      const uint32_t va =
-          buf_s + (((lane / 8) & 1 ? pos[jp + 1] : pos[jp]) * kWideLd + (lane / 16) * 8) * 2;
-#pragma unroll
-      for (int dc2 = 0; dc2 < kWideCols / 16; ++dc2) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, va + dc2 * 32);
+    for (int j = 0; j < kMine; ++j) {
+      const int ps = warp + kMmaWideWarps * j;
+      if (ps < ks.nslots) {
+        const int y = ks.ch.y0 + ps / ks.nsx, x = ks.ch.x0 + 8 * (ps % ks.nsx) + 2 * t;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          mma_bf16(acc[2 * dc2 + e], ph, vb4[2 * e], vb4[2 * e + 1]);
-          mma_bf16(acc[2 * dc2 + e], pl, vb4[2 * e], vb4[2 * e + 1]);
+          if (x + e >= ks.ch.x1) continue;
+          const int e0 = entry(ks.ch, qy0, qx, y, x + e), e1 = entry(ks.ch, qy0 + 1, qx, y, x + e);
+          if (e0 >= 0) sc[qi0 * sld + e0] = s[j][e];
+          if (e1 >= 0) sc[qi1 * sld + e1] = s[j][2 + e];
         }
       }
     }
-  }
+  };
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
-  BF* o0 = o + b * so.b + h * so.h + tok0 * so.n;
-  BF* o1 = o0 + width * so.n;
+  // the softmax's threads: kSoftLanes a query (mq: its score row), its
+  // running maximum (base 2) and this thread's share of the running sum
+  const int mq = tid / kSoftLanes, sub = tid % kSoftLanes;
+  const int mqy = ty0 + mq / kTile, mqx = tx0 + mq % kTile;
+  float m_run = -1e30f, l_run = 0.f;
+  // the new maximum over the query's window keys in ch (kWin: the whole
+  // clamped halo); the correction of the sum so far into qrow
+  auto new_max = [&](const Chunk& ch) {
+    const float* row = sc + mq * sld;
+    const int wy0 = max(ch.y0, mqy - r), wy1 = min(ch.y1, mqy + r + 1);
+    const int wx0 = max(ch.x0, mqx - r), ww = min(ch.x1, mqx + r + 1) - wx0;
+    float mx = m_run;
+    if (ww > 0)
+      for (int i = sub; i < (wy1 - wy0) * ww; i += kSoftLanes) {
+        const int e = entry(ch, mqy, mqx, wy0 + i / ww, wx0 + i % ww);
+        mx = fmaxf(mx, row[e] * kLog2e);
+      }
 #pragma unroll
-  for (int dc = 0; dc < kWideCols / 8; ++dc) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = c0 + dc * 8 + 2 * t + e;
-      if (d >= D) continue;
-      if (live0) o0[d] = __float2bfloat16_rn(acc[dc][e] * r0);
-      if (live1) o1[d] = __float2bfloat16_rn(acc[dc][2 + e] * r1);
+    for (int off = 1; off < kSoftLanes; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // m stays finite, so 2^(m_old - m_new) needs no guard (0 at the first key)
+    const float cr = ex2(m_run - mx);
+    m_run = mx;
+    l_run *= cr;
+    if (sub == 0) qrow[mq] = cr;
+  };
+  // p of every slot and key of chunk c for query mq, 0 outside its window,
+  // as high part and remainder; its sum
+  auto write_p = [&](int c) {
+    const Keys ks = keys_of(c);
+    const float* row = sc + mq * sld;
+    for (int i = sub; i < kMmaWideSlots * 8; i += kSoftLanes) {
+      const int ps = i / 8, x = ks.ch.x0 + 8 * (ps % ks.nsx) + i % 8;
+      const int e = ps < ks.nslots && x < ks.ch.x1
+                        ? entry(ks.ch, mqy, mqx, ks.ch.y0 + ps / ks.nsx, x) : -1;
+      const float p = e >= 0 ? ex2(row[e] * kLog2e - m_run) : 0.f;
+      l_run += p;
+      const BF ph = __float2bfloat16_rn(p);
+      p_hi[mq * kPLd + i] = ph;
+      p_lo[mq * kPLd + i] = __float2bfloat16_rn(p - __bfloat162float(ph));
     }
+  };
+
+  float acc[kMmaWideUnits][2][4];  // O: V unit, two partial sums (even, odd slot pairs), fragment
+#pragma unroll
+  for (int vi = 0; vi < kMmaWideUnits; ++vi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[vi][i][e] = 0.f;
+  // the V units of chunk c (p written, the block met): this lane's
+  // ldmatrix row of V for each two of the chunk's slot pairs (16 keys, a k
+  // step of P V); then O += P V, unit by unit (unrolled, so that O stays in
+  // registers), p's A fragments by ldmatrix where they are used
+  const uint32_t pa = smem_addr(p_hi + (lane / 8 % 2 * 8 + lane % 8) * kPLd + lane / 16 * 8);
+  const uint32_t p_lo_off = kStripQueries * kPLd * 2;  // bytes from p_hi to p_lo
+  auto pv_chunk = [&](int c) {
+    const Keys ks = keys_of(c);
+    constexpr int kGroups = kMmaWideSlots / 2;
+    int vrow[kGroups / 2];
+#pragma unroll
+    for (int jq = 0; jq < kGroups / 2; ++jq) vrow[jq] = slot_pos(ks, 4 * jq + lane / 8);
+#pragma unroll
+    for (int vi = 0; vi < kMmaWideUnits; ++vi) {
+      if (vi >= nv) break;
+      const uint32_t vcol = begin() + warp * 8 * 2;  // this warp's 8 columns
+#pragma unroll
+      for (int jq = 0; jq < (F3S_PARTS & 2 ? 0 : kGroups / 2); ++jq) {
+        // slot pairs 2 jq and 2 jq + 1: B fragments (keys 0-7, 8-15) of each
+        uint32_t vb4[4];
+        ldmatrix_x4_trans(vb4, vcol + vrow[jq] * kMmaWideLd * 2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          uint32_t ph[4], pl[4];
+          ldmatrix_x4(ph, pa + 32 * (2 * jq + e));
+          ldmatrix_x4(pl, pa + p_lo_off + 32 * (2 * jq + e));
+          mma_bf16(acc[vi][e], ph, vb4[2 * e], vb4[2 * e + 1]);
+          mma_bf16(acc[vi][e], pl, vb4[2 * e], vb4[2 * e + 1]);
+        }
+      }
+    }
+  };
+
+  for (int s = 0; s < stages - 1; ++s) issue(s);  // q rides in the first group
+  if (kWin) {
+    for (int c = 0; c < walk.count; ++c) score_chunk(c);
+    __syncthreads();  // every chunk's scores are written
+    Chunk all;  // the window's keys in the clamped halo
+    all.y0 = walk.Y0;
+    all.y1 = walk.Y1;
+    all.x0 = walk.X0;
+    all.x1 = walk.X1;
+    new_max(all);
+    for (int c = 0; c < walk.count; ++c) {
+      if (c > 0) __syncthreads();  // every warp has read the last chunk's p
+      write_p(c);
+      __syncthreads();
+      pv_chunk(c);
+    }
+  } else {
+    for (int c = 0; c < walk.count; ++c) {
+      score_chunk(c);
+      __syncthreads();  // the chunk's scores are written, the last chunk's p read
+      new_max(walk[c]);
+      write_p(c);
+      __syncthreads();
+      const float cr0 = qrow[qi0], cr1 = qrow[qi1];
+#pragma unroll
+      for (int vi = 0; vi < kMmaWideUnits; ++vi)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[vi][i][0] *= cr0;
+          acc[vi][i][1] *= cr0;
+          acc[vi][i][2] *= cr1;
+          acc[vi][i][3] *= cr1;
+        }
+      pv_chunk(c);
+    }
+  }
+  cp_async_wait_group<0>();  // the empty groups past the last unit
+
+#pragma unroll
+  for (int off = 1; off < kSoftLanes; off <<= 1)
+    l_run += __shfl_xor_sync(0xffffffffu, l_run, off);
+  __syncthreads();  // every warp has read qrow's corrections
+  if (sub == 0) qrow[mq] = 1.f / fmaxf(l_run, 1e-30f);
+  __syncthreads();
+  const float r0 = qrow[qi0], r1 = qrow[qi1];
+  BF* o0 = o + b * so.b + h * so.h + (static_cast<int64_t>(qy0) * width + qx) * so.n;
+  BF* o1 = o0 + width * so.n;
+  auto st2 = [&](BF* row, bool live, int d, float x, float y) {
+    if (live && pairs && d + 1 < D) {
+      *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(x, y);
+    } else if (live) {
+      if (d < D) row[d] = __float2bfloat16_rn(x);
+      if (d + 1 < D) row[d + 1] = __float2bfloat16_rn(y);
+    }
+  };
+#pragma unroll
+  for (int vi = 0; vi < kMmaWideUnits; ++vi) {
+    if (vi >= nv) break;
+    const int d = c0 + vi * kMmaWideCols + warp * 8 + 2 * t;
+    const float* a = acc[vi][0];
+    const float* z = acc[vi][1];
+    st2(o0, live0, d, (a[0] + z[0]) * r0, (a[1] + z[1]) * r0);
+    st2(o1, live1, d, (a[2] + z[2]) * r1, (a[3] + z[3]) * r1);
   }
 }
 
-// The wide kernels' chunks: rows of the clamped halo cut into pieces of at
-// most 64 columns (a multiple of 8, or the whole clamped width), as many rows
-// a chunk as keep a warp at kWideSlots slots of 8 columns or fewer; one
-// buffer of kWideCols columns a position (float32 beside the score rows, or
-// bfloat16 rows of kWideLd).
-Plan wide_plan(int window, int width, bool bf16) {
+// The float32 wide kernel's chunks: rows of the clamped halo cut into
+// pieces of at most 64 columns (a multiple of 8, or the whole clamped
+// width), as many rows a chunk as keep a warp at kWideSlots slots of 8
+// columns or fewer; one buffer of kWideCols columns a position beside the
+// score rows.
+Plan f32_wide_plan(int window, int width) {
   const int halo = kTile + 2 * (window / 2);
   const int wide = halo < width ? halo : width;
   const int cols = wide < 64 ? wide : 64;
   const int by_slots = kWideSlots / ((cols + 7) / 8);
   const int rows = by_slots < halo ? by_slots : halo;
   const int64_t npos = static_cast<int64_t>(rows) * cols;
-  return {rows, cols, 1,
-          bf16 ? npos * kWideLd * 2
-               : (npos * kWideCols + kTile * kTile * (npos + 1)) * static_cast<int64_t>(4)};
+  return {rows, cols, 1, (npos * kWideCols + kTile * kTile * (npos + 1)) * static_cast<int64_t>(4)};
+}
+
+// The bfloat16 wide kernel's chunks: rows of the strip's clamped halo cut
+// into pieces of at most 64 columns (a multiple of 8, or the whole clamped
+// width), as many rows a chunk as keep it at kMmaWideSlots slots of 8
+// columns and two ring buffers of kMmaWideLd bfloat16 a position within
+// kBudget beside the score rows (of the window, or of the chunk's
+// positions), q and p (`fixed_bytes`); then as many buffers as fit (at most
+// kMmaWideStages). Window 7 at D = 320: the strip's 8 x 14 halo in one
+// chunk, two buffers.
+int64_t mma_wide_smem(int window, int D, int npos, int stages) {
+  return fixed_bytes(window_scores(window) ? window * window : npos, D) +
+         static_cast<int64_t>(stages) * npos * kMmaWideLd * 2;
+}
+
+Plan mma_wide_plan(int window, int D, int width) {
+  const int halo_rows = kStripRows + 2 * (window / 2), halo = kTile + 2 * (window / 2);
+  const int wide = halo < width ? halo : width;
+  const int cols = wide < 64 ? wide : 64;
+  const int by_slots = kMmaWideSlots / ((cols + 7) / 8);
+  int rows = by_slots < halo_rows ? by_slots : halo_rows;
+  while (rows > 1 && mma_wide_smem(window, D, rows * cols, 2) > kBudget) --rows;
+  int stages = kMmaWideStages;
+  while (stages > 2 && mma_wide_smem(window, D, rows * cols, stages) > kBudget) --stages;
+  return {rows, cols, stages, mma_wide_smem(window, D, rows * cols, stages)};
 }
 
 struct Geometry {
@@ -929,11 +1200,12 @@ bool can_vectorise(const void* k, const void* v, const int64_t* st, int D, int e
          reinterpret_cast<uintptr_t>(v) % 16 == 0;
 }
 
-// `col_blocks`: the grid's z axis (the wide kernel's column blocks of D)
+// `col_blocks`: the grid's z axis (the wide kernels' column blocks of D);
+// `block_rows`: the query rows of a block (a tile's 8, or a strip's 2)
 template <typename Kernel, typename T, typename... Flags>
-int launch(Kernel kern, int threads, const Plan& plan, int col_blocks, const T* q, const T* k,
-           const T* v, T* o, const Geometry& gm, const int64_t* st, float scale,
-           cudaStream_t stream, Flags... flags) {
+int launch(Kernel kern, int threads, const Plan& plan, int col_blocks, int block_rows,
+           const T* q, const T* k, const T* v, T* o, const Geometry& gm, const int64_t* st,
+           float scale, cudaStream_t stream, Flags... flags) {
   const int smem = static_cast<int>(plan.smem);  // at most kBudget or 64 rows of the output
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -941,7 +1213,7 @@ int launch(Kernel kern, int threads, const Plan& plan, int col_blocks, const T* 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tiles_x = (gm.width + kTile - 1) / kTile;
-  const int tiles_y = (gm.height + kTile - 1) / kTile;
+  const int tiles_y = (gm.height + block_rows - 1) / block_rows;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   return over_batch_heads(static_cast<int64_t>(gm.B) * gm.H, [&](int bh0, int count) {
@@ -964,17 +1236,22 @@ Plan f32_plan(int window, int width) {
   return nat_plan(window, width, DPL * kLanes, sizeof(float), 0);
 }
 
+// 4-byte loads of q and stores of o need even D, strides and addresses
+bool can_pair(const void* q, const void* o, const int64_t* st, int D) {
+  bool pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+               reinterpret_cast<uintptr_t>(o) % 4 == 0;
+  for (int i = 0; i < 3; ++i) pairs = pairs && st[i] % 2 == 0 && st[9 + i] % 2 == 0;
+  return pairs;
+}
+
 template <int NK2>
 int launch_mma(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
                const int64_t* st, float scale, cudaStream_t stream) {
-  // 4-byte loads of q and stores of o need even D, strides and addresses
-  bool pairs = gm.D % 2 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
-               reinterpret_cast<uintptr_t>(o) % 4 == 0;
-  for (int i = 0; i < 3; ++i) pairs = pairs && st[i] % 2 == 0 && st[9 + i] % 2 == 0;
+  const bool pairs = can_pair(q, o, st, gm.D);
   // 16-byte stores of o: D and o's strides whole groups of 8, its base aligned
   bool vec_out = gm.D % 8 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
   for (int i = 9; i < 12; ++i) vec_out = vec_out && st[i] % 8 == 0;
-  return launch(nat_mma_kernel<NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width), 1,
+  return launch(nat_mma_kernel<NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width), 1, kTile,
                 static_cast<const BF*>(q), static_cast<const BF*>(k),
                 static_cast<const BF*>(v), static_cast<BF*>(o), gm, st, scale, stream,
                 can_vectorise(k, v, st, gm.D, sizeof(BF)), pairs, vec_out);
@@ -983,23 +1260,30 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const Geome
 template <int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
                const int64_t* st, float scale, cudaStream_t stream) {
-  return launch(nat_f32_kernel<DPL>, kF32Threads, f32_plan<DPL>(gm.window, gm.width), 1,
+  return launch(nat_f32_kernel<DPL>, kF32Threads, f32_plan<DPL>(gm.window, gm.width), 1, kTile,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(o), gm, st, scale, stream,
                 can_vectorise(k, v, st, gm.D, sizeof(float)));
 }
 
+// past D = 128: float32 in column blocks of kWideCols, bfloat16 in column
+// blocks of kMmaWideOut (one block at D <= 320)
 int launch_wide(int dtype, const void* q, const void* k, const void* v, void* o,
                 const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream) {
-  const int blocks = (gm.D + kWideCols - 1) / kWideCols;
-  const Plan plan = wide_plan(gm.window, gm.width, dtype == 1);
   if (dtype == 0)
-    return launch(nat_f32_wide_kernel, kF32Threads, plan, blocks, static_cast<const float*>(q),
+    return launch(nat_f32_wide_kernel, kF32Threads, f32_wide_plan(gm.window, gm.width),
+                  (gm.D + kWideCols - 1) / kWideCols, kTile, static_cast<const float*>(q),
                   static_cast<const float*>(k), static_cast<const float*>(v),
                   static_cast<float*>(o), gm, st, scale, stream);
-  return launch(nat_mma_wide_kernel, kMmaThreads, plan, blocks, static_cast<const BF*>(q),
-                static_cast<const BF*>(k), static_cast<const BF*>(v), static_cast<BF*>(o), gm,
-                st, scale, stream, can_vectorise(k, v, st, gm.D, sizeof(BF)));
+  const Plan plan = mma_wide_plan(gm.window, gm.D, gm.width);
+  // 16-byte copies of q too: its base and strides whole 16-byte pieces
+  bool vec = can_vectorise(k, v, st, gm.D, sizeof(BF)) && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  for (int i = 0; i < 3; ++i) vec = vec && st[i] % 8 == 0;
+  return launch(window_scores(gm.window) ? nat_mma_wide_kernel<true> : nat_mma_wide_kernel<false>,
+                kMmaWideThreads, plan, (gm.D + kMmaWideOut - 1) / kMmaWideOut, kStripRows,
+                static_cast<const BF*>(q), static_cast<const BF*>(k), static_cast<const BF*>(v),
+                static_cast<BF*>(o), gm, st, scale, stream, plan.stages, vec,
+                can_pair(q, o, st, gm.D));
 }
 
 }  // namespace
@@ -1019,7 +1303,7 @@ extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
   if (B <= 0 || height <= 0 || width <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry gm{B, height, width, window, H, D};
-  if (D > kWideCols && (dtype == 0 || dtype == 1))
+  if (D > kMaxNarrowD && (dtype == 0 || dtype == 1))
     return launch_wide(dtype, q, k, v, o, gm, strides, scale, s);
   if (dtype == 0) {
     if (D <= 8) return launch_f32<2>(q, k, v, o, gm, strides, scale, s);
@@ -1042,8 +1326,8 @@ extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
 // Returns 0, or -3 as the launcher would.
 extern "C" int f3s_nat_plan(int dtype, int window, int D, int width, int64_t* plan) {
   Plan p;
-  if (D > kWideCols && (dtype == 0 || dtype == 1)) {
-    p = wide_plan(window, width, dtype == 1);
+  if (D > kMaxNarrowD && (dtype == 0 || dtype == 1)) {
+    p = dtype == 1 ? mma_wide_plan(window, D, width) : f32_wide_plan(window, width);
   } else if (dtype == 0) {
     p = D <= 8 ? f32_plan<2>(window, width) : D <= 16 ? f32_plan<4>(window, width)
         : D <= 32 ? f32_plan<8>(window, width) : D <= 64 ? f32_plan<16>(window, width)
@@ -1058,5 +1342,30 @@ extern "C" int f3s_nat_plan(int dtype, int window, int D, int width, int64_t* pl
   plan[1] = p.cols;
   plan[2] = p.stages;
   plan[3] = p.smem;
+  return 0;
+}
+
+// The resources of kernel `name` ("mma_wide", "mma_wide_online": bfloat16
+// past D = 128 with the window's or the chunk's score rows; "f32_wide";
+// "mma_<NK2>", "f32_<DPL>"): out = [registers a thread, local
+// (spilled) bytes a thread, static shared bytes, most threads a block].
+// Returns 0, -3 for an unknown name, or the CUDA error.
+extern "C" int f3s_nat_resources(const char* name, int* out) {
+  const void* fn = nullptr;
+  if (!std::strcmp(name, "mma_wide")) fn = reinterpret_cast<const void*>(nat_mma_wide_kernel<true>);
+  if (!std::strcmp(name, "mma_wide_online"))
+    fn = reinterpret_cast<const void*>(nat_mma_wide_kernel<false>);
+  if (!std::strcmp(name, "f32_wide")) fn = reinterpret_cast<const void*>(nat_f32_wide_kernel);
+  if (!std::strcmp(name, "mma_2")) fn = reinterpret_cast<const void*>(nat_mma_kernel<2>);
+  if (!std::strcmp(name, "mma_4")) fn = reinterpret_cast<const void*>(nat_mma_kernel<4>);
+  if (!std::strcmp(name, "f32_16")) fn = reinterpret_cast<const void*>(nat_f32_kernel<16>);
+  if (fn == nullptr) return -3;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = attr.maxThreadsPerBlock;
   return 0;
 }

@@ -33,18 +33,19 @@
 //
 // Three kernels; the caller (ops/attention._sr_route) names which.
 //
-// * bfloat16, `sr_attention_wgmma_kernel` (any M, D <= 256, tensors TMA can
-//   describe): persistent blocks, at most one per SM, walk the 64-row query
-//   tiles in (batch, head)-major order, each block a contiguous run of them
+// * bfloat16, `sr_attention_wgmma_kernel` (any M, D <= 320, tensors TMA can
+//   describe; D padded to DP = 64, 128, 192, 256 or 320): persistent
+//   blocks, at most one per SM, walk the 64-row query tiles in
+//   (batch, head)-major order, each block a contiguous run of them
 //   (the number of blocks chosen so that the busiest one has the fewest
 //   item rounds). A run goes in items: up to C consecutive tiles of one
 //   (batch, head), one for each of C consumer warpgroups (C = 3 at D <= 64,
-//   2 at D <= 128 and at D <= 256). One producer thread keeps TMA loads in
-//   flight: the item's q tiles on a ring of two stages (one at D <= 256,
-//   where O leaves through the q tiles), and K, V in tiles of KT keys
-//   (128 at D <= 64 and M > 64, else 64) on a ring of as many stages as
-//   shared memory holds (4 at D <= 64 and KT = 128, 3 at D <= 128, 2 at
-//   D <= 256). When all
+//   2 above). One producer thread keeps TMA loads in flight: the item's q
+//   tiles on a ring of two stages (one past D = 128, where O leaves through
+//   the q tiles), and K, V in tiles of KT keys (128 at D <= 64 and M > 64,
+//   32 past D = 256, else 64) on a ring of as many stages as shared memory
+//   holds (4 at D <= 64 and KT = 128, 3 at D <= 128, 3 at DP = 192, 2 at
+//   DP = 256, 3 at DP = 320). When all
 //   of a (batch, head)'s key tiles fit the ring they stay resident across
 //   its items (the producer passes each stage on without a load); else they
 //   stream again for every item, out of L2. Every consumer takes every key
@@ -74,7 +75,8 @@
 //   T(q * scale) . k = scale * (q . k) bit for bit (barring subnormals) and
 //   the scale goes onto the float32 scores, q straight from TMA to wgmma;
 //   at other D the consumer rounds q * scale to bfloat16 in shared memory
-//   first, as the TPU kernel does. Past D = 256, `sr_attention_wide_kernel`
+//   first, as the TPU kernel does. Past D = 320, where a consumer's
+//   registers no longer hold O beside its scores, `sr_attention_wide_kernel`
 //   (one warpgroup, S summed over D in chunks of 64, the output in column
 //   blocks of 256; see its note) takes the wgmma route.
 // * bfloat16, `sr_attention_mma_kernel` (layouts TMA cannot describe, M up
@@ -100,6 +102,7 @@
 
 #include <algorithm>
 #include <cmath>
+#include <cstring>
 
 #include "attention_common.cuh"
 #include "hopper.cuh"
@@ -645,6 +648,49 @@ template <> struct WgShape<256> {  // 128 x 24 + 2 x 128 x 240 <= 384 x 168
   static constexpr int kQStages = 1;
   static constexpr bool kOInQ = true;
 };
+// 128 < D <= 192 (D = 160, or 129 copied to rows of 136): the shape of
+// WgShape<256> at three 64-column blocks, so that D = 160 no longer pays
+// for 256 columns in both products. O [64 x 192] in 96 float32 registers a
+// thread. A q tile is 24 KB and a K, V stage of 64 keys 48 KB: one q stage
+// (48 KB), O through the q tiles, three K, V stages (144 KB); 193 KB.
+template <> struct WgShape<192> {  // 128 x 24 + 2 x 128 x 240 <= 384 x 168
+  static constexpr int kConsumers = 2, kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kQStages = 1;
+  static constexpr bool kOInQ = true;
+};
+// 256 < D <= 320 (B2 re-headed: D = 320): O [64 x 320] in 160 registers a
+// thread, the scores of 32 keys in 16 and p in 8: 184 of the 240. A q tile
+// is 40 KB and a K, V stage of 64 keys 80 KB, so two consumers take key
+// tiles of 32 (a stage 40 KB): one q stage (80 KB), O through the q tiles,
+// three K, V stages (120 KB); 201 KB. Where the cut lies: at D = 384 O
+// alone would take 192 of the 240 registers, and the scores, p, the
+// softmax's state and the addresses do not fit beside it; past 320
+// `sr_attention_wide_kernel` takes D in column blocks.
+template <> struct WgShape<320> {  // 128 x 24 + 2 x 128 x 240 <= 384 x 168
+  static constexpr int kConsumers = 2, kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kQStages = 1;
+  static constexpr bool kOInQ = true;
+};
+
+// O += P V for one k step of 16 keys (p in a0..a3): DP columns in one
+// product where a wgmma's N holds them (64, 128, 256), else in two: 192 =
+// 128 + 64, 320 = 256 + 64. The pieces' accumulators are consecutive runs
+// of oc, so oc keeps the layout of one m64nDP accumulator (columns 8j +
+// 2c, + 1 in oc[4j], oc[4j + 1]). `va`: V's first 64-column block at this
+// k step; `lbo`: the step between V's column blocks.
+template <int DP>
+__device__ __forceinline__ void pv_step(float (&oc)[DP / 2], uint32_t a0, uint32_t a1,
+                                        uint32_t a2, uint32_t a3, uint32_t va, uint32_t lbo) {
+  if constexpr (DP == 64 || DP == 128 || DP == 256) {
+    Wgmma<DP>::rs(oc, a0, a1, a2, a3, sw128_desc(va, lbo, 1024), 1);
+  } else {
+    constexpr int kFirst = DP > 256 ? 256 : 128, kRest = DP - kFirst;
+    Wgmma<kFirst>::rs(reinterpret_cast<float(&)[kFirst / 2]>(oc[0]), a0, a1, a2, a3,
+                      sw128_desc(va, lbo, 1024), 1);
+    Wgmma<kRest>::rs(reinterpret_cast<float(&)[kRest / 2]>(oc[kFirst / 2]), a0, a1, a2, a3,
+                     sw128_desc(va + kFirst / 64 * lbo, lbo, 1024), 1);
+  }
+}
 
 struct WgParams {
   int N, M, H, tiles_per_bh, total_tiles, key_tiles, kv_stages;
@@ -830,8 +876,8 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t va = smem_addr(kv_s + ks * 2 * kKvBytes + kKvBytes);
 #pragma unroll
         for (int kc = 0; kc < kKeyTile / 16; ++kc)
-          Wgmma<DP>::rs(oc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
-                        sw128_desc(va + kc * 2048, kKeyTile * 128, 1024), 1);
+          pv_step<DP>(oc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                      va + kc * 2048, kKeyTile * 128);
         wgmma_commit();
       };
       // the running softmax over key tile t's scores: the new row maxima,
@@ -1075,6 +1121,43 @@ int choose_grid(int sms, int total, int tiles_per_bh, int consumers) {
   return best;
 }
 
+// What a wgmma instance takes: its padded width DP, key tile KT, consumer
+// warpgroups, K, V stages and dynamic shared bytes (ops/attention.py
+// `_sr_shape` mirrors it). `err` is 0, or what the launcher returns.
+struct WgPlan {
+  int dp, kt, consumers, stages;
+  int64_t smem;
+  int err;
+};
+
+template <int DP, int KT>
+WgPlan wgmma_plan() {
+  using Shape = WgShape<DP>;
+  constexpr int kThreadsWg = 128 * (Shape::kConsumers + 1);
+  WgPlan plan{DP, KT, Shape::kConsumers, 0, 0, 0};
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, sr_attention_wgmma_kernel<DP, KT>);
+  if (err != cudaSuccess) {
+    plan.err = static_cast<int>(err);
+    return plan;
+  }
+  // the registers setmaxnreg hands out must lie within the launch's pool
+  if (attr.numRegs * kThreadsWg <
+      128 * (Shape::kProducerRegs + Shape::kConsumers * Shape::kConsumerRegs)) {
+    plan.err = -6;
+    return plan;
+  }
+  // as many K, V stages as fit beside the q ring and the output tiles
+  const size_t tile = kTileRows * DP * 2, kv = 2 * static_cast<size_t>(KT) * DP * 2;
+  const size_t fixed =
+      1024 + (Shape::kQStages + (Shape::kOInQ ? 0 : 2)) * Shape::kConsumers * tile;
+  const size_t room = static_cast<size_t>(kMaxSmem) - attr.sharedSizeBytes - fixed;
+  plan.stages = std::min(static_cast<int>(room / kv), kMaxKvStages);
+  plan.smem = static_cast<int64_t>(fixed + plan.stages * kv);
+  if (plan.stages < 2) plan.err = -2;
+  return plan;
+}
+
 template <int DP, int KT>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                  int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
@@ -1089,24 +1172,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
       !tensor_map(encode, &to, o, B, N, H, D, st + 9, kTileRows))
     return -4;
   auto kern = sr_attention_wgmma_kernel<DP, KT>;
-  // the registers setmaxnreg hands out must lie within the launch's pool
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (attr.numRegs * kThreadsWg <
-      128 * (Shape::kProducerRegs + Shape::kConsumers * Shape::kConsumerRegs))
-    return -6;
-  // as many K, V stages as fit beside the q ring and the output tiles
-  const size_t tile = kTileRows * DP * 2, kv = 2 * static_cast<size_t>(KT) * DP * 2;
-  const size_t fixed =
-      1024 + (Shape::kQStages + (Shape::kOInQ ? 0 : 2)) * Shape::kConsumers * tile;
-  const size_t room = static_cast<size_t>(kMaxSmem) - attr.sharedSizeBytes - fixed;
-  int stages = static_cast<int>(room / kv);
-  if (stages > kMaxKvStages) stages = kMaxKvStages;
-  if (stages < 2) return -2;
-  const size_t smem = fixed + stages * kv;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const WgPlan plan = wgmma_plan<DP, KT>();
+  if (plan.err != 0) return plan.err;
+  const int stages = plan.stages;
+  const size_t smem = static_cast<size_t>(plan.smem);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -1132,10 +1203,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bfloat16 at D > 256: wgmma over D in chunks, the output in column blocks
+// ---- bfloat16 at D > 320: wgmma over D in chunks, the output in column blocks
 //
-// One warpgroup a block, one block for every (64-row query tile, column
-// block of kWideOut outputs) of every (batch, head). S = Q K^T of a key tile
+// Past D = 320 a consumer of the kernel above cannot hold O beside its
+// scores (see WgShape<320>), so this kernel cuts the output into column
+// blocks and takes S again for each. One warpgroup a block, one block for
+// every (64-row query tile, column block of kWideOut outputs) of every
+// (batch, head). S = Q K^T of a key tile
 // of 64 keys adds up over D in chunks of 64 columns, each a unit of the
 // ring: the q tile's chunk and the key tile's chunk, 8 KB each, loaded
 // together (the q tile again for every key tile, from L2), so that no D is
@@ -1397,8 +1471,45 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
   if (D <= 64 && M <= 64) return launch_wgmma<64, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 64) return launch_wgmma<64, 128>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 128) return launch_wgmma<128, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 192) return launch_wgmma<192, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   if (D <= 256) return launch_wgmma<256, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 320) return launch_wgmma<320, 32>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   return launch_wgmma_wide(q, k, v, o, B, N, M, H, D, st, scale, stream);
+}
+
+// The instance `dispatch_wgmma` takes at head dim D and its plan; past D =
+// 320 the column-block kernel: its block's columns, key tile, one
+// warpgroup, its unit ring and shared bytes.
+WgPlan wgmma_shape(int D, int M) {
+  if (D <= 64 && M <= 64) return wgmma_plan<64, 64>();
+  if (D <= 64) return wgmma_plan<64, 128>();
+  if (D <= 128) return wgmma_plan<128, 64>();
+  if (D <= 192) return wgmma_plan<192, 64>();
+  if (D <= 256) return wgmma_plan<256, 64>();
+  if (D <= 320) return wgmma_plan<320, 32>();
+  return {kWideOut, 64, 1, kWideStages, 1024 + kWideStages * static_cast<int64_t>(kUnitBytes), 0};
+}
+
+// cudaFuncAttributes of one kernel instance, by name
+bool kernel_attributes(const char* name, cudaFuncAttributes* attr, cudaError_t* err) {
+  static const struct {
+    const char* name;
+    const void* fn;
+  } kKernels[] = {
+      {"wgmma_64_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<64, 64>)},
+      {"wgmma_64_128", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<64, 128>)},
+      {"wgmma_128_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<128, 64>)},
+      {"wgmma_192_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<192, 64>)},
+      {"wgmma_256_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<256, 64>)},
+      {"wgmma_320_32", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<320, 32>)},
+      {"wide", reinterpret_cast<const void*>(sr_attention_wide_kernel)},
+  };
+  for (const auto& kernel : kKernels)
+    if (!std::strcmp(name, kernel.name)) {
+      *err = cudaFuncGetAttributes(attr, kernel.fn);
+      return true;
+    }
+  return false;
 }
 
 }  // namespace
@@ -1426,4 +1537,33 @@ extern "C" int f3s_sr_attention(const void* q, const void* k, const void* v,
   if (kernel == 1) return dispatch_mma(q, k, v, o, B, N, M, H, D, strides, scale, s);
   if (kernel == 2) return dispatch_wgmma(q, k, v, o, B, N, M, H, D, strides, scale, s);
   return -3;
+}
+
+// The wgmma route's choice at head dim D and M keys, for checking
+// ops/attention.py `_sr_shape`: shape = [DP, KT, consumers, stages, shared
+// bytes]. Returns 0, or what the launcher would return instead of launching.
+extern "C" int f3s_sr_shape(int D, int M, int64_t* shape) {
+  const WgPlan p = wgmma_shape(D, M);
+  shape[0] = p.dp;
+  shape[1] = p.kt;
+  shape[2] = p.consumers;
+  shape[3] = p.stages;
+  shape[4] = p.smem;
+  return p.err;
+}
+
+// The resources of kernel instance `name` ("wgmma_<DP>_<KT>", "wide"):
+// out = [registers a thread, local (spilled) bytes a thread, static shared
+// bytes, most threads a block]. Returns 0, -3 for an unknown name, or the
+// CUDA error.
+extern "C" int f3s_sr_resources(const char* name, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaSuccess;
+  if (!kernel_attributes(name, &attr, &err)) return -3;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = attr.maxThreadsPerBlock;
+  return 0;
 }

@@ -148,6 +148,46 @@ def _sr_route(q, k, v) -> str:
     return "mma"
 
 
+class SrShape(NamedTuple):
+    """The wgmma route's kernel instance at a head dim: D padded to `dp`
+    columns (past D = 320, the column-block kernel: `dp` output columns a
+    block), key tiles of `kt`, `consumers` warpgroups, `stages` K, V stages
+    (the column-block kernel: units of its ring), `smem` dynamic shared
+    bytes."""
+    dp: int
+    kt: int
+    consumers: int
+    stages: int
+    smem: int
+
+
+# csrc/sr_attention.cu `WgShape<DP>`: consumer warpgroups, the producer's and
+# each consumer's registers under setmaxnreg, q stages, O out through q
+WG_SHAPES = {64: (3, 24, 160, 2, False), 128: (2, 40, 232, 2, False),
+             192: (2, 24, 240, 1, True), 256: (2, 24, 240, 1, True),
+             320: (2, 24, 240, 1, True)}
+_SR_WIDE_OUT, _SR_WIDE_STAGES = 256, 4  # past D = 320: columns a block, units of 16 KB
+
+
+def _sr_shape(D: int, M: int) -> SrShape:
+    """The instance `csrc/sr_attention.cu` (`wgmma_shape`) takes for head dim
+    D and M keys in bfloat16: DP the smallest of 64, 128, 192, 256, 320
+    that holds D, key tiles of 128 at DP = 64 past 64 keys, of 32 at DP =
+    320, else 64; as many K, V stages (at most 16) as fit an SM's shared
+    memory beside the q stages, the output tiles and the barriers. Past D =
+    320 the column-block kernel."""
+    if D > max(WG_SHAPES):
+        return SrShape(_SR_WIDE_OUT, 64, 1, _SR_WIDE_STAGES, 1024 + _SR_WIDE_STAGES * 2 * 64 * 128)
+    dp = next(w for w in WG_SHAPES if D <= w)
+    kt = 128 if dp == 64 and M > 64 else 32 if dp == 320 else 64
+    consumers, _, _, q_stages, o_in_q = WG_SHAPES[dp]
+    fixed = 1024 + (q_stages + (0 if o_in_q else 2)) * consumers * 64 * dp * 2
+    bars = 8 * (2 * q_stages + 2 * 16)  # the kernel's static mbarriers
+    kv = 2 * kt * dp * 2
+    stages = min((_MAX_SMEM - bars - fixed) // kv, 16)
+    return SrShape(dp, kt, consumers, stages, fixed + stages * kv)
+
+
 def _tma_copy(t, width: int):
     """t [B, T, H, D] copied into fresh storage whose rows are `width`
     (>= D, a multiple of 8) elements, as a [B, T, H, D] view of it."""
@@ -185,10 +225,11 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     [B, M, H, D]; returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D)
     happens here. Any N, any M, any D, any B * H (the JAX kernel's domain:
     M and D up to what VMEM holds). bfloat16 runs on the tensor cores
-    (`_sr_route` picks the kernel), float32 on the CUDA cores; the wgmma and
-    float32 kernels stream the keys through shared memory in tiles, and
-    above D = 256 (wgmma) or 128 (float32) take D in chunks, the output in
-    column blocks.
+    (`_sr_route` picks the kernel; `_sr_shape` the wgmma instance: D
+    padded to 64, 128, 192, 256 or 320), float32 on the CUDA cores; the
+    wgmma and float32 kernels stream the keys through shared memory in
+    tiles, and above D = 320 (wgmma) or 128 (float32) take D in chunks, the
+    output in column blocks.
 
     Forward only, like the JAX package's kernel: raises when an input
     requires grad while grad is enabled. A CUDA tensor launches a kernel
@@ -236,31 +277,91 @@ class NatPlan(NamedTuple):
 
 _NAT_TILE = 8  # queries per tile side
 _NAT_BUDGET = 57344  # bytes of K and V a block stages: four blocks an SM
-_NAT_WIDE_COLS, _NAT_WIDE_SLOTS = 128, 8  # the wide kernels' D chunk, slots of 8 keys a warp
+_NAT_MAX_NARROW_D = 128  # past it, the wide kernels
+_NAT_F32_WIDE_COLS, _NAT_F32_WIDE_SLOTS = 128, 8  # float32: D chunk, slots of 8 keys a warp
+# bfloat16 past D = 128: a block's query rows (a strip of 2 x 8), a unit's
+# columns (rows of 72 staged), slots of 8 keys a chunk, a row of p (16 slots
+# of 8 and 8), the ring's most buffers
+_NAT_STRIP_ROWS, _NAT_MMA_WIDE_COLS, _NAT_MMA_WIDE_SLOTS = 2, 64, 16
+_NAT_P_LD, _NAT_MMA_WIDE_STAGES = 136, 4
+_NAT_STRIP = _NAT_STRIP_ROWS * _NAT_TILE  # queries a block
+
+
+def _score_ld(n: int) -> int:
+    """Floats a score row of the bfloat16 wide kernel takes for n entries:
+    n rounded up to 4 mod 8."""
+    return n + (12 - n % 8) % 8
+
+
+def _window_scores(window: int) -> bool:
+    """Whether the bfloat16 wide kernel keeps each query's whole window of
+    scores (its 16 rows of window^2 floats within a sixth of the budget:
+    windows up to 11), else a chunk's, with the softmax online over the
+    chunks."""
+    return _NAT_STRIP * (_score_ld(window * window) + 1) * 4 <= _NAT_BUDGET // 6
+
+
+def _mma_wide_smem(window: int, D: int, npos: int, stages: int) -> int:
+    """The bfloat16 wide kernel's shared bytes for chunks of npos positions:
+    16 score rows (of the window, or of the chunk's positions) and the
+    corrections in float32, the strip's q (all of D in units of 64, and 8),
+    p's high parts and remainders, `stages` ring buffers of 72 bfloat16 a
+    position."""
+    entries = window * window if _window_scores(window) else npos
+    q_ld = -(-D // _NAT_MMA_WIDE_COLS) * _NAT_MMA_WIDE_COLS + 8
+    fixed = _NAT_STRIP * ((_score_ld(entries) + 1) * 4 + q_ld * 2 + 2 * _NAT_P_LD * 2)
+    return fixed + stages * npos * (_NAT_MMA_WIDE_COLS + 8) * 2
+
+
+def _nat_tile_rows(plan: NatPlan, halo_rows: int, halo_cols: int) -> int:
+    """The rows of a strip's chunks in the bfloat16 wide kernel
+    (`tile_rows` in csrc/neighborhood_attention.cu): the plan's, or more
+    where the strip's halo clamped to the image is narrower than the plan's
+    pieces, as many as the ring's buffers hold within 16 slots."""
+    piece = min(plan.cols, halo_cols)
+    nsx = -(-piece // 8)
+    t = min(plan.rows * plan.cols // piece, halo_rows)
+    while t > plan.rows and t * nsx > _NAT_MMA_WIDE_SLOTS:
+        t -= 1
+    return max(t, 1)
 
 
 def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
-    """The chunking `csrc/neighborhood_attention.cu` (`nat_plan`, `wide_plan`)
-    picks for an odd `window`, head dim D, q's dtype and the image's width.
-    The tile's halo, 8 + window - 1 positions a side, is clamped to the
-    width. Up to D = 128: where all of it fits `_NAT_BUDGET` it is one chunk
-    staged once; else the block streams it through two buffers of half the
-    budget each, in bands of whole rows, or of pieces of a row (a multiple
-    of 8 positions) where one row does not fit. The bfloat16 kernel also
-    stores its 64 output rows through shared memory. Above D = 128 (the wide
-    kernels): pieces of at most 64 columns, as many rows a chunk as keep a
-    warp's two query rows at 8 slots of 8 columns, one buffer of 128
-    columns a position (bfloat16 rows of 136, or float32 beside the 64
-    queries' score rows)."""
+    """The chunking `csrc/neighborhood_attention.cu` (`nat_plan`,
+    `mma_wide_plan`, `f32_wide_plan`) picks for an odd `window`, head dim D,
+    q's dtype and the image's width. The tile's halo, 8 + window - 1
+    positions a side, is clamped to the width. Up to D = 128: where all of
+    it fits `_NAT_BUDGET` it is one chunk staged once; else the block
+    streams it through two buffers of half the budget each, in bands of
+    whole rows, or of pieces of a row (a multiple of 8 positions) where one
+    row does not fit. The bfloat16 kernel also stores its 64 output rows
+    through shared memory. Above D = 128 the wide kernels cut rows into
+    pieces of at most 64 columns. bfloat16 (a block owns a strip of 2 x 8
+    queries, whose halo is 2 + window - 1 rows): as many rows a chunk as
+    keep it at 16 slots of 8 columns and two ring buffers of 64 columns of
+    K or V within the budget beside the score rows (of the window up to
+    window 11, `_window_scores`, else of the chunk's positions), the
+    strip's q and p; then as many buffers (2 to 4) as fit (window 7 at D =
+    320: the 8 x 14 halo in one chunk, two buffers). float32: as many rows
+    as keep a warp's two query rows at 8 slots, one buffer of 128 columns a
+    position beside the 64 queries' score rows."""
     halo = _NAT_TILE + 2 * (window // 2)
     wide = min(halo, width)
-    if D > _NAT_WIDE_COLS:
+    if D > _NAT_MAX_NARROW_D:
         cols = min(wide, 64)
-        rows = min(halo, _NAT_WIDE_SLOTS // -(-cols // 8))
+        nsx = -(-cols // 8)
+        if dtype == torch.bfloat16:
+            rows = min(_NAT_STRIP_ROWS + 2 * (window // 2), _NAT_MMA_WIDE_SLOTS // nsx)
+            while rows > 1 and _mma_wide_smem(window, D, rows * cols, 2) > _NAT_BUDGET:
+                rows -= 1
+            stages = _NAT_MMA_WIDE_STAGES
+            while stages > 2 and _mma_wide_smem(window, D, rows * cols, stages) > _NAT_BUDGET:
+                stages -= 1
+            return NatPlan(rows, cols, stages, _mma_wide_smem(window, D, rows * cols, stages))
+        rows = min(halo, _NAT_F32_WIDE_SLOTS // nsx)
         npos = rows * cols
-        smem = (npos * (_NAT_WIDE_COLS + 8) * 2 if dtype == torch.bfloat16
-                else (npos * _NAT_WIDE_COLS + _NAT_TILE ** 2 * (npos + 1)) * 4)
-        return NatPlan(rows, cols, 1, smem)
+        return NatPlan(rows, cols, 1,
+                       (npos * _NAT_F32_WIDE_COLS + _NAT_TILE ** 2 * (npos + 1)) * 4)
     if dtype == torch.bfloat16:
         # D padded to 32 n, and 8 more against bank conflicts
         ld = 32 * next(n for n in (1, 2, 3, 4) if D <= 32 * n) + 8
@@ -334,7 +435,9 @@ def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
     kernel's domain: its window and D are bounded by VMEM alone). The kernel
     streams the keys and values around an 8 x 8 tile of queries through
     shared memory in chunks (`_nat_plan`), so no window is too wide for it;
-    above D = 128 it takes D in chunks and the output in column blocks.
+    above D = 128 it takes D in chunks (bfloat16: each score once, the
+    output in column blocks of 320; float32: the output in column blocks of
+    128, the scores again for each).
     Head dims and strides that are multiples of 16 bytes (bfloat16) are
     staged 16 bytes a copy, others an element at a time.
 

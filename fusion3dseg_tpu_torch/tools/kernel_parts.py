@@ -7,7 +7,9 @@ Builds `csrc/histogram.cu`, `csrc/neighborhood_attention.cu` and
 `csrc/sr_attention.cu` three times (`F3S_PARTS` unset, 1 and 2) and times
 every variant at the shapes of the kernel table: K1 at [300, 1M] uint8, 133
 classes, the label lifter's row pitch, 85% and 10% of entries invalid; K2
-at [8, 64*64, 1, 64] and [2, 128*128, 1, 64], window 7, bfloat16; K3's two
+at [8, 64*64, 1, 64] and [2, 128*128, 1, 64], and past D = 128 (the strip
+kernel) at [8, 16*16, 1, 320] and [8, 32*32, 1, 320], window 7, bfloat16
+(its loads: K, V and q's staging; its arithmetic: both products); K3's two
 bfloat16 kernels (wgmma and, where its shared memory holds the keys,
 mma.sync, each named through `launch_sr_attention`) at `K3_SHAPES` (B2's
 calls at 256x256, 512x512 and 1024x1024). Each variant runs 20 times inside
@@ -53,10 +55,11 @@ def main(argv=None):
         cases.append((f"K1 histogram_classify [{F}, {N}] pitch {pitch}, "
                       f"{round(100 * share)}% invalid", "histogram",
                       lambda C=C: hist.histogram_classify(C, nclasses, 0.5)))
-    for B, h, w in ((8, 64, 64), (2, 128, 128)) if "k2" in kernels else ():
-        q, k, v = (torch.randn((B, h * w, 1, 64), device=dev, generator=gen).bfloat16()
+    for B, h, w, D in ((8, 64, 64, 64), (2, 128, 128, 64), (8, 16, 16, 320),
+                       (8, 32, 32, 320)) if "k2" in kernels else ():
+        q, k, v = (torch.randn((B, h * w, 1, D), device=dev, generator=gen).bfloat16()
                    for _ in range(3))
-        cases.append((f"K2 neighborhood_attention [{B},{h}*{w},1,64] window 7 bf16",
+        cases.append((f"K2 neighborhood_attention [{B},{h}*{w},1,{D}] window 7 bf16",
                       "neighborhood_attention",
                       lambda q=q, k=k, v=v, h=h, w=w: attn.neighborhood_attention(q, k, v, h, w, 7)))
     for B, N, H, M in K3_SHAPES if "k3" in kernels else ():

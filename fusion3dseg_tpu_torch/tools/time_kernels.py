@@ -14,19 +14,26 @@ classes (the counters decide how many blocks an SM holds). K2:
 [8, 64*64, 1, 64] window 7 in bfloat16 and float32. K3 in bfloat16 at
 `K3_SHAPES`: SegFormer-B2's calls at 256x256, 512x512 and 1024x1024
 (batch 8) and [2,16384,1,64]x[2,256,1,64]; a checkout whose K3 raises at a
-shape says so. `--kernels k3` times K3 alone. Each kernel runs 20 times
-inside one CUDA graph, replayed 5 times between two CUDA events. Needs a
-CUDA device.
+shape says so. `--kernels k3` times K3 alone. `wide` times both kernels
+past D = 128 at `WIDE_K3` and `WIDE_K2` (the shapes of B2 re-headed to
+num_heads=(1,1,1,2)), each beside `scaled_dot_product_attention` (masked
+to the window for K2) on the same inputs, and `b2wide` that model's
+predict_batch frames/s at 512x512 (the shipped checkpoint, K3 on, batch 8).
+Each kernel runs 20 times inside one CUDA graph, replayed 5 times between
+two CUDA events. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as nnf
 
 # K3's timed shapes (B, N, H, M) at D = 64: SegFormer-B2's calls at batch 8,
 # stages 0 and 1 at 256x256, stages 0-2 at 512x512, stages 0-3 at
@@ -34,6 +41,15 @@ import torch
 K3_SHAPES = ((8, 4096, 1, 64), (8, 1024, 2, 64), (2, 16384, 1, 256),
              (8, 16384, 1, 256), (8, 4096, 2, 256), (8, 1024, 5, 256),
              (8, 65536, 1, 1024), (8, 16384, 2, 1024), (8, 4096, 5, 1024), (8, 1024, 8, 1024))
+
+
+# past D = 128: K3 (B, N, H, D, M, dtype) and K2 (B, h, w, D, window, dtype)
+WIDE_K3 = ((8, 4096, 1, 256, 64, "bf16"), (8, 1024, 2, 160, 256, "bf16"),
+           (8, 1024, 2, 192, 256, "bf16"), (8, 1024, 1, 320, 256, "bf16"),
+           (8, 4096, 1, 320, 64, "bf16"), (8, 1024, 1, 320, 256, "f32"))
+WIDE_K2 = ((8, 16, 16, 320, 7, "bf16"), (8, 16, 16, 256, 7, "bf16"), (8, 32, 32, 320, 7, "bf16"),
+           (8, 16, 16, 320, 7, "f32"))
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def graph_ms(fn, iters=20, replays=5):
@@ -60,7 +76,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose fusion3dseg_tpu_torch is timed")
-    ap.add_argument("--kernels", default="k1,k2,k3", help="comma-separated subset of k1,k2,k3")
+    ap.add_argument("--kernels", default="k1,k2,k3",
+                    help="comma-separated subset of k1,k2,k3,wide,b2wide")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     kernels = set(args.kernels.split(","))
@@ -100,6 +117,44 @@ def main(argv=None):
         except RuntimeError as e:
             ms = f"raises ({e})"
         print(f"K3 sr_attention [{B},{N},{H},64]x[{B},{M},{H},64] bf16: {ms}")
+    for B, N, H, D, M, dt in WIDE_K3 if "wide" in kernels else ():
+        q, k, v = (torch.randn(s, device=dev, generator=gen).to(DTYPES[dt])
+                   for s in ((B, N, H, D), (B, M, H, D), (B, M, H, D)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = graph_ms(lambda: attn.sr_attention(q, k, v))
+        lib = graph_ms(lambda: nnf.scaled_dot_product_attention(qt, kt, vt))
+        print(f"K3 sr_attention [{B},{N},{H},{D}]x[{B},{M},{H},{D}] {dt}: {ms:.4f} ms; "
+              f"scaled_dot_product_attention {lib:.4f} ms")
+    for B, h, w, D, window, dt in WIDE_K2 if "wide" in kernels else ():
+        q, k, v = (torch.randn((B, h * w, 1, D), device=dev, generator=gen).to(DTYPES[dt])
+                   for _ in range(3))
+        r = window // 2
+        iy, ix = torch.arange(h, device=dev), torch.arange(w, device=dev)
+        mask = (((iy[:, None] - iy[None, :]).abs() <= r)[:, None, :, None]
+                & ((ix[:, None] - ix[None, :]).abs() <= r)[None, :, None, :]).reshape(h * w, h * w)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = graph_ms(lambda: attn.neighborhood_attention(q, k, v, h, w, window))
+        lib = graph_ms(lambda: nnf.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        print(f"K2 neighborhood_attention [{B},{h}*{w},1,{D}] window {window} {dt}: {ms:.4f} ms; "
+              f"masked scaled_dot_product_attention {lib:.4f} ms")
+    if "b2wide" in kernels:
+        from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
+        from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+        cfg = dataclasses.replace(SegFormerConfig.b2(), use_pallas_attention=True,
+                                  num_heads=(1, 1, 1, 2))
+        seg = Segmenter2D(cfg, convert.shipped_checkpoint("b2"), input_hw=(512, 512),
+                          batch_size=8, device="cuda")
+        frames = torch.randint(0, 256, (16, 96, 72, 3), generator=torch.Generator().manual_seed(0),
+                               dtype=torch.uint8).numpy()
+        best = float("inf")
+        for _ in range(4):  # the first is the warm-up
+            t0 = time.perf_counter()
+            for i in range(0, 16, 8):
+                seg.predict_batch(frames[i:i + 8], 0.017)  # ends in a copy to the host
+            best = min(best, time.perf_counter() - t0)
+        print(f"B2 num_heads=(1,1,1,2) predict_batch at 512x512, batch 8: "
+              f"{16 / best:.1f} frames/s (best of 3 runs of 16 frames)")
 
 
 if __name__ == "__main__":

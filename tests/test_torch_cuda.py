@@ -183,6 +183,12 @@ def _qkv(shape_q, shape_kv, dtype, device, seed=0):
     # with the output in column blocks (wgmma past 256, float32 past 128)
     (1, 777, 2, 160, 64, torch.bfloat16, "wgmma"), (1, 777, 2, 160, 64, torch.float32, "f32"),
     (2, 700, 1, 320, 256, torch.bfloat16, "wgmma"), (2, 700, 1, 320, 256, torch.float32, "f32"),
+    # the wide instances at chip_smoke.py's shapes: DP = 192 (D = 160, 192),
+    # DP = 320 (key tiles of 32); ragged N and M at both
+    (8, 1024, 2, 160, 256, torch.bfloat16, "wgmma"), (8, 1024, 2, 192, 256, torch.bfloat16, "wgmma"),
+    (8, 1024, 1, 320, 256, torch.bfloat16, "wgmma"), (8, 4096, 1, 320, 64, torch.bfloat16, "wgmma"),
+    (3, 300, 2, 176, 129, torch.bfloat16, "wgmma"), (1, 1000, 1, 320, 300, torch.bfloat16, "wgmma"),
+    (1, 999, 3, 288, 1000, torch.bfloat16, "wgmma"),
 ])
 def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype, route):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -307,6 +313,12 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     # head dims past 128: D in chunks, the output in column blocks
     (1, 13, 19, 2, 160, 7, torch.bfloat16), (1, 13, 19, 2, 160, 7, torch.float32),
     (1, 17, 16, 1, 320, 7, torch.bfloat16), (1, 17, 16, 1, 320, 7, torch.float32),
+    # the bfloat16 wide kernel at chip_smoke.py's shapes; ragged grids at D =
+    # 160 and 320; the chunk's scores online over the chunks (window 23); two
+    # column blocks (D = 384)
+    (8, 16, 16, 1, 320, 7, torch.bfloat16), (8, 16, 16, 1, 256, 7, torch.bfloat16),
+    (2, 13, 21, 1, 320, 9, torch.bfloat16), (1, 9, 70, 1, 160, 41, torch.bfloat16),
+    (1, 30, 27, 1, 320, 23, torch.bfloat16), (1, 33, 40, 2, 384, 11, torch.bfloat16),
 ])
 def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D, window, dtype):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -373,6 +385,37 @@ def test_attention_kernels_take_any_batch_heads(cuda_device, kernel, dtype):
     # a pair's output does not depend on how many pairs share the call
     parts = [fn(q[s], k[s], v[s]) for s in (slice(0, 65535), slice(65535, None))]
     assert torch.equal(got, torch.cat(parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sr", "nat"])
+def test_wide_kernels_take_any_batch_heads(cuda_device, kernel):
+    # 65,537 (batch, head) pairs at D = 320 in bfloat16: K3's DP = 320
+    # instance and K2's wide kernel. On a 2 x 2 image every window of 3 holds
+    # all four tokens, so both compute dense attention; each is held to the
+    # exact attention of the same inputs (float64, p unrounded) within
+    # BF16_BAR, to its plain version within BF16_BAR or two bfloat16 steps of
+    # the output (a step is 2^-5, past the bar, at |o| >= 4), and a pair's
+    # output does not depend on how many pairs share the call
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    q, k, v = _qkv((65537, 4, 1, 320), (65537, 4, 1, 320), torch.bfloat16, cuda_device, seed=3)
+    if kernel == "sr":
+        fn, ref = attn.sr_attention, attn.sr_attention_reference
+    else:
+        fn = lambda *t: attn.neighborhood_attention(*t, 2, 2, 3)
+        ref = lambda *t: attn.neighborhood_attention_reference(*t, 2, 2, 3)
+    got = fn(q, k, v)
+    parts = torch.cat([fn(q[s], k[s], v[s]) for s in (slice(0, 65535), slice(65535, None))])
+    torch.cuda.synchronize()
+    assert torch.equal(got, parts)
+    got, plain = got.double(), ref(q, k, v).double()
+    scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
+    exact = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
+    assert (got - exact).abs().max().item() <= BF16_BAR
+    big = torch.maximum(got.abs(), plain.abs()).clamp_min(2.0 ** -126)
+    steps = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert ((got - plain).abs() <= torch.maximum(2 * steps, torch.tensor(BF16_BAR))).all()
 
 
 @pytest.mark.cuda

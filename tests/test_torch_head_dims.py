@@ -101,26 +101,43 @@ def test_nat_plan_fits_every_window_and_width(D, dtype):
     """The wide kernels' chunks: no odd window from 1 to 63 at any width
     from 1 to 256 asks for more than the staging budget, and none is
     refused. A chunk is cut from the halo clamped to the width in pieces of
-    whole groups of 8 columns or its whole width, and holds at most 8 slots
-    of 8 columns for a warp (the registers of the bfloat16 kernel's scores)."""
+    whole groups of 8 columns or its whole width. float32: at most 8 slots
+    of 8 columns for a warp, one buffer of 128 columns a position. bfloat16:
+    at most 16 slots of 8 columns a chunk (the registers of the eight warps'
+    scores, two slots each, for a block's strip of 2 x 8 queries), its 16
+    score rows, q and p, and a ring of two to four units of 64 columns."""
     for window in range(1, 64, 2):
         halo = 8 + window - 1
         for width in range(1, 257):
             p = tattn._nat_plan(window, D, dtype, width)
             wide = min(halo, width)
-            assert 0 < p.smem <= tattn._NAT_BUDGET and p.stages == 1, (window, width, p)
-            assert 1 <= p.rows <= halo and p.rows * -(-p.cols // 8) <= 8, (window, width, p)
+            nsx = -(-p.cols // 8)
+            assert 0 < p.smem <= tattn._NAT_BUDGET, (window, width, p)
             assert p.cols == wide or (p.cols % 8 == 0 and p.cols < wide), (window, width, p)
-            # one buffer of 128 columns a position: bfloat16 rows of 136, or
-            # float32 beside 64 score rows of a float32 a position and one of
-            # padding
             npos = p.rows * p.cols
-            want = npos * 136 * 2 if dtype == torch.bfloat16 else 4 * (128 * npos + 64 * (npos + 1))
-            assert p.smem == want, (window, width, p)
+            if dtype == torch.float32:
+                # float32 beside 64 score rows of a float32 a position and
+                # one of padding
+                assert p.stages == 1 and 1 <= p.rows <= halo and p.rows * nsx <= 8, (window, p)
+                assert p.smem == 4 * (128 * npos + 64 * (npos + 1)), (window, width, p)
+            else:
+                # a strip of 2 x 8 queries a block: 16 score rows of the
+                # window's (up to window 11) or the chunk's entries rounded
+                # up to 4 mod 8 floats and the corrections, the strip's q
+                # (D in units of 64, and 8), p twice in rows of 136, 2 to 4
+                # ring buffers of rows of 72 bfloat16
+                assert 2 <= p.stages <= 4 and 1 <= p.rows <= window + 1, (window, width, p)
+                assert p.rows * nsx <= 16, (window, width, p)
+                n = window * window if window <= 11 else npos
+                ld, qld = n + (12 - n % 8) % 8, -(-D // 64) * 64 + 8
+                assert p.smem == 16 * ((ld + 1) * 4 + qld * 2 + 2 * 136 * 2) + \
+                    p.stages * npos * 72 * 2, (window, width, p)
 
 
 @pytest.mark.parametrize("height,width,window", [(16, 16, 7), (13, 19, 7), (9, 70, 41),
-                                                 (12, 30, 15), (5, 3, 63)])
+                                                 (12, 30, 15), (5, 3, 63), (30, 27, 23),
+                                                 (20, 24, 1), (33, 40, 11), (64, 64, 7),
+                                                 (17, 100, 63)])
 def test_wide_chunks_tile_each_clamped_halo(height, width, window):
     """The kernel's walk over the wide plan's chunks covers every key
     position of each tile's clamped halo once."""
