@@ -39,7 +39,12 @@ Phases (each prints its own lines; any failure exits non-zero):
             line says "faster" or "slower" than the call): [8,4096,1,256]x64
             keys, [8,1024,2,160]x256 and [8,1024,2,192]x256 (DP = 192),
             [8,1024,1,320]x256 and [8,4096,1,320]x64 (DP = 320), and
-            [8,1024,1,320]x256 in float32. The neighbourhood kernel (K2): its
+            [8,1024,1,320]x256 in float32. K3 in float32 (the tile kernel,
+            one pass, every D): its launcher's instance for every D to 700
+            against `_sr_f32_shape`, each instance's registers (no spill),
+            timed at B2's two 256x256 calls and [8,1024,1,128]x256 beside
+            SDPA, N and M off every tile, 1 and 5000 keys, D = 129 to 512, B
+            x H = 65,537 at D = 160. The neighbourhood kernel (K2): its
             launcher's chunk plan against `_nat_plan` (every odd window to
             255, widths to 256, D to 512), the registers and spilled bytes of
             its kernels (none in the bfloat16 wide kernel), windows 1 to 63
@@ -47,8 +52,10 @@ Phases (each prints its own lines; any failure exits non-zero):
             column pieces, a halo clamped inside the window; D > 128 in
             chunks), B x H = 65,537, timed at window 7 ([8, 64*64] and
             [2, 128*128], and [8, 16*16] at D = 320 in both dtypes and at
-            D = 256) and 23 beside its bound and the masked
-            `scaled_dot_product_attention`.
+            D = 256; [8, 64*64] in float32) and 23 beside its bound and the
+            masked `scaled_dot_product_attention`; the float32 wide kernel
+            (no spill) at ragged grids, windows 9 to 63, D = 129 to 512, B x
+            H = 65,537 at D = 129.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
             the fused spatial-reduction kernel (launches counted, pixel
@@ -64,8 +71,10 @@ Phases (each prints its own lines; any failure exits non-zero):
             256; frames/s at 512x512), and at 256x256 with stage 2 a
             window-7 neighbourhood stage
             (K2 at D = 320, 16 x 16 tokens), masks >= 0.995 equal to the
-            plain-version forward, launches counted; and `predict`'s
-            contract.
+            plain-version forward, launches counted; the same two in float32
+            (512x512: K3's tile kernel at D = 320, 13 launches a forward, all
+            on the "f32" route; the neighbourhood stage at 256x256: K2's
+            float32 wide kernel); and `predict`'s contract.
 8. stream   `stream_segment` on that session: votes' contract, run twice
             bit-identical, classes against predict_batch + vote_and_classify.
 8a. soak    `tools/soak.py`, the long-session soak: 2048 frames at 128x96,
@@ -250,15 +259,16 @@ def fail(msg):
 K3_ROUTES = {"wgmma": 0, "mma": 0, "f32": 0}  # K3's main-path launches by kernel
 
 
-def k3_counted(where):
-    """K3's launches since `reset_sr_counts()`, which must all have taken the
-    wgmma kernel; added to K3_ROUTES."""
+def k3_counted(where, route="wgmma"):
+    """K3's launches since `reset_sr_counts()`, which must all have taken
+    `route` (bfloat16: the wgmma kernel; float32: the tile kernel, the "f32"
+    route's only kernel); added to K3_ROUTES."""
     from fusion3dseg_tpu_torch.ops import attention as attn
 
     routes = attn.sr_attention.routes
-    if routes["wgmma"] != attn.sr_attention.launches:
+    if routes[route] != attn.sr_attention.launches:
         fail(f"{where}: K3 launched {attn.sr_attention.launches} times, by kernel {routes}: "
-             "not all on wgmma")
+             f"not all on {route}")
     for route, n in routes.items():
         K3_ROUTES[route] += n
     return attn.sr_attention.launches
@@ -599,7 +609,9 @@ def attention_phase(card):
     sra = {"name": "sr_attention", "route": "cuda",
            "source": "fusion3dseg_tpu_torch/csrc/sr_attention.cu",
            "replaces": "fusion3dseg_tpu/ops/attention.py:30", "launches": 0,
-           "max_abs_err": 0.0}
+           "max_abs_err": 0.0,
+           "kernels": ["sr_attention_wgmma_kernel", "sr_attention_wide_kernel",
+                       "sr_attention_mma_kernel", "sr_attention_f32_tile_kernel"]}
     # the wgmma launcher's instance choice against its mirror in
     # ops/attention.py, and the resources of each instance (no spills)
     shape_fn = cuda.load("sr_attention").f3s_sr_shape
@@ -612,9 +624,22 @@ def attention_phase(card):
                      f"_sr_shape {attn._sr_shape(D, M)}")
     log("attention: sr_attention: the launcher's instance equals _sr_shape for D 1-512 "
         "(DP 64, 128, 192, 256, 320; column blocks past 320)")
+    # the float32 tile kernel's instance (DP, keys a unit, units, shared
+    # bytes) against `_sr_f32_shape`
+    f32_shape = cuda.load("sr_attention").f3s_sr_f32_shape
+    f32_shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
+    got_f32 = (ctypes.c_int64 * 4)()
+    for D in range(1, 701):
+        if f32_shape(D, got_f32) != 0 or tuple(got_f32) != tuple(attn._sr_f32_shape(D)):
+            fail(f"sr_attention: the float32 launcher takes {tuple(got_f32)} at D {D}; "
+                 f"_sr_f32_shape {attn._sr_f32_shape(D)}")
+    log("attention: sr_attention: the float32 launcher's instance equals _sr_f32_shape for "
+        "D 1-700 (DP 64 to 320; column chunks and blocks past 320)")
+    f32_tiles = tuple(f"f32_tile_{dp}" for dp in (64, 128, 192, 256, 320))
     resources(cuda.load("sr_attention").f3s_sr_resources, "sr_attention",
               ("wgmma_64_64", "wgmma_64_128", "wgmma_128_64", "wgmma_192_64", "wgmma_256_64",
-               "wgmma_320_32", "wide"), new=("wgmma_192_64", "wgmma_320_32"))
+               "wgmma_320_32", "wide", *f32_tiles),
+              new=("wgmma_192_64", "wgmma_320_32", *f32_tiles))
     b2_calls = [(8, N, H, 64, M, "bf16", True) for N, H, M in (
         (4096, 1, 64), (1024, 2, 64), (16384, 1, 256), (4096, 2, 256), (1024, 5, 256),
         (65536, 1, 1024), (16384, 2, 1024), (4096, 5, 1024), (1024, 8, 1024))]
@@ -644,7 +669,15 @@ def attention_phase(card):
             (1, 999, 3, 288, 1000, "bf16", False), (3, 300, 2, 176, 129, "bf16", False),
             *((B, N, H, D, M, dtype, False) for dtype in ("f32", "bf16") for B, N, H, D, M in (
                 (1, 1000, 2, 129, 37), (1, 777, 2, 160, 64), (2, 500, 1, 200, 257),
-                (1, 1000, 1, 256, 300), (2, 700, 1, 320, 256), (1, 600, 1, 512, 100)))):
+                (1, 1000, 1, 256, 300), (2, 700, 1, 320, 256), (1, 600, 1, 512, 100))),
+            # float32 at B2's two 256x256 calls and at [8,1024,1,128]x256 (the
+            # narrow yardsticks: timed beside SDPA); past D = 128: N and M off
+            # every tile, one key, 5000 keys, D = 321 and 512 (column chunks
+            # and blocks of 320)
+            (8, 4096, 1, 64, 64, "f32", True), (8, 1024, 2, 64, 64, "f32", True),
+            (8, 1024, 1, 128, 256, "f32", True), (2, 333, 1, 321, 1, "f32", False),
+            (1, 200, 1, 320, 5000, "f32", False), (1, 300, 2, 512, 77, "f32", False),
+            (3, 65, 1, 160, 1, "f32", False), (2, 100, 1, 129, 5000, "f32", False)):
         q, k, v = qkv((B, N, H, D), (B, M, H, D), dtype)
         shape = f"[{B},{N},{H},{D}]x[{B},{M},{H},{D}]"
         route = attn._sr_route(q, k, v)
@@ -730,6 +763,15 @@ def attention_phase(card):
         sra["max_abs_err"] = max(sra["max_abs_err"], err)
         log(f"attention: sr_attention [65537,16,1,16]x[65537,64,1,16] {dtype} on {route}: "
             f"max abs err {err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
+    # float32 past D = 128: the tile kernel at D = 160 (DP = 192)
+    q, k, v = qkv((65537, 16, 1, 160), (65537, 8, 1, 160), "f32")
+    got = by_pairs(attn.sr_attention, q, k, v, "sr_attention f32 at D = 160")
+    err = held("sr_attention", got, attn.sr_attention_reference(q, k, v), "f32",
+               "B x H = 65537 at D = 160")
+    sra["max_abs_err"] = max(sra["max_abs_err"], err)
+    log(f"attention: sr_attention [65537,16,1,160]x[65537,8,1,160] f32: max abs err "
+        f"{err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
+    del q, k, v, got
     # bfloat16 at 65,537 pairs and other (N, M, D). The plain version (and
     # mma.sync) rounds normalised p, the one-pass wgmma kernel rounds p
     # before dividing by the row sum, and each rounds its output once: the
@@ -777,7 +819,9 @@ def attention_phase(card):
     nat = {"name": "neighborhood_attention", "route": "cuda",
            "source": "fusion3dseg_tpu_torch/csrc/neighborhood_attention.cu",
            "replaces": "fusion3dseg_tpu/ops/attention.py:151", "launches": 0,
-           "max_abs_err": 0.0}
+           "max_abs_err": 0.0,
+           "kernels": ["nat_mma_kernel", "nat_mma_wide_kernel", "nat_f32_kernel",
+                       "nat_f32_wide_kernel"]}
     # the launcher's chunk plan against its mirror in ops/attention.py, over
     # the domain tests/test_torch_nat_windows.py checks on the CPU
     plan_fn = cuda.load("neighborhood_attention").f3s_nat_plan
@@ -797,7 +841,7 @@ def attention_phase(card):
         f"{cases} cases (odd windows 1-255, D 8-512, widths 1-256, both dtypes)")
     resources(cuda.load("neighborhood_attention").f3s_nat_resources, "neighborhood_attention",
               ("mma_wide", "mma_wide_online", "f32_wide", "mma_2", "mma_4", "f32_16"),
-              new=("mma_wide", "mma_wide_online"))
+              new=("mma_wide", "mma_wide_online", "f32_wide"))
     for B, h, w, H, D, window, dtype, time_it in (
             (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", True),
             (1, 9, 11, 2, 8, 5, "f32", False),
@@ -833,7 +877,14 @@ def attention_phase(card):
               for B, h, w, H, D, window in (
                   (1, 16, 16, 1, 129, 7), (1, 13, 19, 2, 160, 7), (1, 16, 16, 1, 200, 9),
                   (2, 16, 16, 1, 256, 7), (1, 17, 16, 1, 320, 7), (1, 12, 30, 1, 512, 15),
-                  (1, 9, 70, 1, 160, 41)))):
+                  (1, 9, 70, 1, 160, 41))),
+            # float32: the narrow kernel's yardstick (B2's stage 0 at 256x256,
+            # timed beside the masked SDPA); past D = 128 a halo in bands
+            # (window 23), two column blocks (384, 321), an image smaller than
+            # the window
+            (8, 64, 64, 1, 64, 7, "f32", True), (1, 30, 27, 1, 320, 23, "f32", False),
+            (1, 33, 40, 2, 384, 11, "f32", False), (2, 13, 21, 1, 321, 9, "f32", False),
+            (1, 5, 3, 1, 200, 63, "f32", False)):
         N = h * w
         q, k, v = qkv((B, N, H, D), (B, N, H, D), dtype)
         shape = f"[{B},{h}*{w},{H},{D}] window {window}"
@@ -860,17 +911,18 @@ def attention_phase(card):
                   ops=4 * B * H * D * _window_pairs(h, r) * _window_pairs(w, r))
             del mask, near, lib
 
-    # batch x heads past the 65,535 a grid axis holds
-    for dtype in ("f32", "bf16"):
-        q, k, v = qkv((65537, 16, 1, 8), (65537, 16, 1, 8), dtype)
+    # batch x heads past the 65,535 a grid axis holds; float32 also past D =
+    # 128 (the wide kernel, D = 129: element copies)
+    for dtype, D in (("f32", 8), ("bf16", 8), ("f32", 129)):
+        q, k, v = qkv((65537, 16, 1, D), (65537, 16, 1, D), dtype)
         got = by_pairs(lambda *t: attn.neighborhood_attention(*t, 4, 4, 3), q, k, v,
                        "neighborhood_attention")
         err = held("neighborhood_attention", got,
                    attn.neighborhood_attention_reference(q, k, v, 4, 4, 3), dtype,
                    "B x H = 65537")
         nat["max_abs_err"] = max(nat["max_abs_err"], err)
-        log(f"attention: neighborhood_attention [65537,4*4,1,8] window 3 {dtype}: max abs err "
-            f"{err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
+        log(f"attention: neighborhood_attention [65537,4*4,1,{D}] window 3 {dtype}: max abs "
+            f"err {err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
     del q, k, v
 
     # q, k, v as slices of one fused projection [B, N, 3, H, D]: token and
@@ -964,15 +1016,16 @@ def segmenter_phase(card):
             f"{nframes / min(times):.1f} frames/s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    def compare(name, seg, plain, per_forward, bar):
+    def compare(name, seg, plain, per_forward, bar, route="wgmma"):
         """Masks and logits of the kernel path against the plain versions.
         per_forward: launches a forward of each kernel, {"sr": K3, "nat": K2};
-        returns the masks and the launches of each in the masks' run."""
+        route: the K3 kernel every launch must take; returns the masks and
+        the launches of each in the masks' run."""
         attn.reset_sr_counts()
         attn.neighborhood_attention.launches = 0
         got = masks_of(seg)
         torch.cuda.synchronize()
-        launches = {"sr": k3_counted(name), "nat": attn.neighborhood_attention.launches}
+        launches = {"sr": k3_counted(name, route), "nat": attn.neighborhood_attention.launches}
         forwards = nframes // batch
         for kernel, n in launches.items():
             if n != per_forward.get(kernel, 0) * forwards:
@@ -1090,6 +1143,34 @@ def segmenter_phase(card):
     _, n = compare("B2 num_heads=(1,1,1,2), nat_windows=(0,0,7,0), shipped weights less "
                    "stage 2's reduction", seg_nat, plain_nat, {"sr": 7, "nat": 6},
                    NAT_MASK_AGREE_BAR)
+    sra_launches += n["sr"]
+    nat_launches += n["nat"]
+    del seg_nat, plain_nat
+
+    # the float32 path of the two float32 kernels: the same re-headed B2 in
+    # float32 at 512x512 (K3's tile kernel at D = 64, 128 and 320, 13
+    # launches a forward), and with stage 2 a window-7 neighbourhood stage
+    # at 256x256 (K2's float32 wide kernel at D = 320 on 16 x 16 tokens,
+    # beside K3 in stages 0 and 1); every K3 launch on the "f32" route
+    cfg_f32 = dataclasses.replace(cfg_wide, dtype=torch.float32)
+    wide, wide_plain = (Segmenter2D(cfg_f32, ckpt, input_hw=(512, 512), batch_size=batch,
+                                    device="cuda", use_cuda_attention=use)
+                        for use in (True, False))
+    masks_of(wide)  # warm-up
+    _, n = compare("B2 num_heads=(1,1,1,2) float32 at 512x512, use_pallas_attention", wide,
+                   wide_plain, {"sr": 13}, MASK_AGREE_BAR, route="f32")
+    sra_launches += n["sr"]
+    del wide, wide_plain
+    cfg_f32_nat = dataclasses.replace(cfg_wide_nat, dtype=torch.float32)
+    state = convert.from_flax_params(less_reduction(2), cfg_f32_nat)
+    seg_nat, plain_nat = (Segmenter2D(cfg_f32_nat, input_hw=(256, 256), batch_size=batch,
+                                      device="cuda", use_cuda_attention=use)
+                          for use in (True, False))
+    for s in (seg_nat, plain_nat):
+        s.model.load_state_dict(state)
+    masks_of(seg_nat)  # warm-up
+    _, n = compare("B2 num_heads=(1,1,1,2), nat_windows=(0,0,7,0), float32", seg_nat, plain_nat,
+                   {"sr": 7, "nat": 6}, NAT_MASK_AGREE_BAR, route="f32")
     sra_launches += n["sr"]
     nat_launches += n["nat"]
     del seg_nat, plain_nat

@@ -64,20 +64,6 @@ __device__ __forceinline__ void load_chunk(const T* p, float (&out)[DPL]) {
   }
 }
 
-// The dot product of a query's DPL-element share of a chunk of D with a
-// key's, summed over the four lanes of the query (every lane gets the sum):
-// four partial sums, so the FMA chain is DPL / 4 deep.
-template <int DPL>
-__device__ __forceinline__ float dot_quad(const float (&a)[DPL], const float (&b)[DPL]) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) part[i % 4] = fmaf(a[i], b[i], part[i % 4]);
-  float s = (part[0] + part[1]) + (part[2] + part[3]);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  return s;
-}
-
 struct Strides {
   int64_t b, n, h;  // elements; the last axis is contiguous
 };

@@ -82,17 +82,18 @@
 //   output in column blocks of 320 past it): q staged once, K, then V, in
 //   units of 64 columns through a cp.async ring, each score taken once and
 //   the softmax in shared memory (`mma_wide_plan`); in float32
-//   `nat_f32_wide_kernel` on the CUDA cores, the scores over D in chunks of
-//   128 and the output in column blocks of 128 (`f32_wide_plan`). See their
-//   notes. Any B * H: launches take (batch, head) in runs of 65,535.
+//   `nat_f32_wide_kernel` on the CUDA cores, the same strip, units and
+//   column blocks, each score taken once for the keys in its query's window
+//   only, the softmax online over the halo's chunks (`f32_wide_plan`). See
+//   their notes. Any B * H: launches take (batch, head) in runs of 65,535.
 
 #include <cstring>
 
 #include "attention_common.cuh"
 
 // Measurement builds (tools/kernel_parts.py): 1 leaves out the staging of K
-// and V in the bfloat16 kernel, 2 its products. Results are then wrong by
-// design.
+// and V in the bfloat16 kernels and the float32 wide kernel, 2 their
+// products. Results are then wrong by design.
 #ifndef F3S_PARTS
 #define F3S_PARTS 0
 #endif
@@ -574,127 +575,6 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kMaxNarrowD = 128;  // past it, the wide kernels below
 
-// ---- float32 past D = 128: D in chunks of kWideCols, the output in column blocks
-//
-// The grid's z axis cuts the output into column blocks of kWideCols, each
-// block taking the scores over the whole D again. The clamped halo goes in
-// chunks (`f32_wide_plan`) of at most kWideSlots slots of 8 columns for
-// each warp's pair of query rows (64 positions); for each chunk the scores
-// add up over D in chunks of kWideCols columns of K staged in one buffer,
-// then the chunk's V columns (the block's) go through the same buffer and
-// the online softmax takes the chunk's keys.
-constexpr int kWideCols = 128;
-constexpr int kWideDPL = kWideCols / kLanes;
-constexpr int kWideSlots = 8;
-
-// float32 on the CUDA cores: four lanes a query, as in the float32 kernel,
-// each lane a quarter of q's chunk in registers, the partial sums in the
-// block's score rows. Each warp is one tile row and scores only the chunk's
-// rows its window holds, every column of them, masking the keys outside each
-// query's window; the softmax takes the chunk's maximum first, then each
-// key's exponential once.
-__global__ void __launch_bounds__(kF32Threads)
-nat_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, int height, int width,
-                    int window, int H, int D, int tiles_x, Strides sq, Strides sk, Strides sv,
-                    Strides so, float scale, int band_rows, int band_cols, int bh0) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int r = window / 2;
-  const int npos = band_rows * band_cols;  // at most 64
-  float* buf = reinterpret_cast<float*>(smem);  // [npos][kWideCols]
-  float* sc = buf + npos * kWideCols;           // [64 queries][npos + 1]
-
-  const int tid = threadIdx.x;
-  const int b = (bh0 + blockIdx.y) / H;
-  const int h = (bh0 + blockIdx.y) % H;
-  const int c0 = blockIdx.z * kWideCols;  // this block's output columns
-  const int ty0 = (blockIdx.x / tiles_x) * kTile;
-  const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
-  // columns d0 .. d0 + kWideCols - 1 of the chunk's positions, as float32
-  auto stage = [&](const float* src, int64_t stride, const Chunk& ch, int d0) {
-    const int cols = ch.x1 - ch.x0;
-#pragma unroll 4
-    for (int idx = tid; idx < (ch.y1 - ch.y0) * cols * kWideCols; idx += kF32Threads) {
-      const int pos = idx / kWideCols, d = idx % kWideCols;
-      const int64_t tok = static_cast<int64_t>(ch.y0 + pos / cols) * width + ch.x0 + pos % cols;
-      buf[idx] = d0 + d < D ? src[tok * stride + d0 + d] : 0.f;
-    }
-  };
-
-  const int lane = tid % kLanes;
-  const int qi = tid / kLanes;
-  const int qy = ty0 + qi / kTile, qx = tx0 + qi % kTile;  // a warp holds one tile row
-  const bool live = qy < height && qx < width;
-  const int64_t tok = live ? static_cast<int64_t>(qy) * width + qx : 0;
-  const float* qp = q + b * sq.b + tok * sq.n + h * sq.h;
-  float* srow = sc + qi * (npos + 1);
-
-  float m = -CUDART_INF_F, l = 0.f;
-  float acc[kWideDPL];
-#pragma unroll
-  for (int i = 0; i < kWideDPL; ++i) acc[i] = 0.f;
-  for (int c = 0; c < walk.count; ++c) {
-    const Chunk ch = walk[c];
-    const int cols = ch.x1 - ch.x0;
-    const int y0 = max(ch.y0, qy - r), y1 = min(ch.y1, qy + r + 1);  // the same over the warp
-    for (int d0 = 0; d0 < D; d0 += kWideCols) {
-      __syncthreads();  // buf is free
-      stage(kb, sk.n, ch, d0);
-      __syncthreads();
-      float qr[kWideDPL];
-#pragma unroll
-      for (int i = 0; i < kWideDPL; ++i) {
-        const int d = d0 + lane * kWideDPL + i;
-        qr[i] = (live && d < D) ? qp[d] * scale : 0.f;
-      }
-      for (int pos = (y0 - ch.y0) * cols; pos < (y1 - ch.y0) * cols; ++pos) {
-        float kr[kWideDPL];
-        load_chunk<float, kWideDPL>(buf + pos * kWideCols + lane * kWideDPL, kr);
-        const float s = dot_quad<kWideDPL>(qr, kr);
-        if ((pos % kLanes) == lane) srow[pos] = d0 == 0 ? s : srow[pos] + s;
-      }
-    }
-    __syncthreads();  // buf is free; the scores are written
-    stage(vb, sv.n, ch, c0);
-    __syncthreads();
-    const int p0 = (y0 - ch.y0) * cols, p1 = (y1 - ch.y0) * cols;
-    auto in_window = [&](int pos) { return abs(ch.x0 + pos % cols - qx) <= r; };
-    float m_new = m;
-    for (int pos = p0; pos < p1; ++pos)
-      if (in_window(pos)) m_new = fmaxf(m_new, srow[pos]);
-    if (m_new != -CUDART_INF_F) {  // else no key of the chunk is in the window
-      // exp(-inf - m) = 0: nothing accumulated yet
-      const float cf = expf(m - m_new);
-      l *= cf;
-#pragma unroll
-      for (int i = 0; i < kWideDPL; ++i) acc[i] *= cf;
-      m = m_new;
-      for (int pos = p0; pos < p1; ++pos) {
-        if (!in_window(pos)) continue;
-        const float p = expf(srow[pos] - m);
-        l += p;
-        float vr[kWideDPL];
-        load_chunk<float, kWideDPL>(buf + pos * kWideCols + lane * kWideDPL, vr);
-#pragma unroll
-        for (int i = 0; i < kWideDPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-      }
-    }
-  }
-
-  if (live) {
-    const float den = fmaxf(l, 1e-30f);
-    float* op = o + b * so.b + tok * so.n + h * so.h;
-#pragma unroll
-    for (int i = 0; i < kWideDPL; ++i) {
-      const int d = c0 + lane * kWideDPL + i;
-      if (d < D) op[d] = acc[i] / den;
-    }
-  }
-}
-
 // ---- bfloat16 past D = 128: one block owns all of D for a strip of queries
 //
 // A block of eight warps owns a strip of 2 x 8 queries (two rows of a tile:
@@ -1146,19 +1026,322 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   }
 }
 
-// The float32 wide kernel's chunks: rows of the clamped halo cut into
-// pieces of at most 64 columns (a multiple of 8, or the whole clamped
-// width), as many rows a chunk as keep a warp at kWideSlots slots of 8
-// columns or fewer; one buffer of kWideCols columns a position beside the
-// score rows.
+// ---- float32 past D = 128: a strip of 2 x 8 queries a block, all of D up to 320
+//
+// `nat_f32_wide_kernel`: the structure of nat_mma_wide_kernel on the CUDA
+// cores. A block of eight warps owns a strip of 2 x 8 queries (16 threads a
+// query) and 320 columns of its output: all of D up to 320, past that the
+// grid's z axis cuts the output into column blocks of 320, each taking the
+// scores again. The strip's halo, clamped to the image, goes in chunks of
+// at most kF32WidePos positions (`f32_wide_plan`: rows of pieces of at most
+// 64 columns; a strip whose clamped halo is narrower than the pieces takes
+// more rows a chunk, `f32_wide_rows`); window 7's 8 x 14 halo is one chunk.
+// Units of 64 columns stream through a cp.async ring of 2 to 4 buffers, one
+// barrier a unit: for each chunk, K units over all of D, each carrying the
+// strip's q in the same 64 columns (so q is staged once where the halo is
+// one chunk, and no D is too wide), then V units over the block's columns.
+//
+// Each score is taken once, and only for the keys in its query's window:
+// a thread holds up to kF32WideEntries scores of its query (entries sub +
+// 16 j of the query's window clamped to the chunk, row-major), summed over
+// the K units. After the chunk's last K unit the query's 16 threads take
+// the chunk's max by shuffles, rescale the running sum and O by exp(m_old
+// - m_new), and write p to the query's row in shared memory. For each V
+// unit a thread adds p v over the query's keys to 4 of the unit's 64
+// columns, O (5 x 4 floats) staying in registers for the whole halo. So the
+// softmax runs online over the chunks, as the TPU kernel carries it across
+// its rows of keys, and the output is divided by the row sum at the end.
+// At [8,16*16,1,320] window 7 the windowed FMAs take 1.5 us at 67 Tflop/s
+// and the bytes 3.1 us: what sets the time is the chain of staged units of
+// each of the 128 blocks (as for nat_mma_wide_kernel), so a block keeps up
+// to 4 units in flight.
+constexpr int kF32WideSubs = 16;                                // threads a query
+constexpr int kF32WideThreads = kStripQueries * kF32WideSubs;
+constexpr int kF32WideCols = 64;                                // columns of a unit
+constexpr int kF32WideLd = kF32WideCols + 4;                    // a staged row: 4 mod 32 words
+constexpr int kF32WideUnits = 5;                                // V units of a block's output
+constexpr int kF32WideOut = kF32WideUnits * kF32WideCols;       // 320 output columns a block
+constexpr int kF32WidePos = 128;                                // most positions of a chunk
+constexpr int kF32WideEntries = kF32WidePos / kF32WideSubs;     // scores a thread
+constexpr int kF32WideStages = 4;                               // the most buffers of the ring
+constexpr int kF32WideBudget = kMaxSmem / 2 - 1024;             // half an SM
+
+// shared bytes: the 16 queries' rows of p for npos entries, and `stages`
+// units of the strip's q and npos positions, 64 columns each
+__host__ __device__ inline int64_t f32_wide_smem(int npos, int stages) {
+  return static_cast<int64_t>(kStripQueries) * score_ld(npos) * 4 +
+         static_cast<int64_t>(stages) * (kStripQueries + npos) * kF32WideLd * 4;
+}
+
+// The rows of a strip's chunks: as many as fit the plan's positions in
+// pieces as wide as the strip's clamped halo allows, within its rows.
+// ops/attention.py `_nat_f32_rows` mirrors it.
+__host__ __device__ inline int f32_wide_rows(int rows, int cols, int halo_rows, int halo_cols) {
+  const int piece = cols < halo_cols ? cols : halo_cols;
+  const int t = rows * cols / piece;
+  return t < 1 ? 1 : t < halo_rows ? t : halo_rows;
+}
+
+__global__ void __launch_bounds__(kF32WideThreads, 1)
+nat_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int height, int width,
+                    int window, int H, int D, int tiles_x, Strides sq, Strides sk, Strides sv,
+                    Strides so, float scale, int band_rows, int band_cols, int bh0, int stages,
+                    bool vec, bool vec_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int npos_max = band_rows * band_cols;
+  const int p_ld = score_ld(npos_max);
+  float* ps = reinterpret_cast<float*>(smem);          // [16 queries][p_ld]: p
+  float* ring = ps + kStripQueries * p_ld;             // stages x [16 + npos_max][kF32WideLd]
+  const int unit_floats = (kStripQueries + npos_max) * kF32WideLd;
+
+  const int r = window / 2;
+  const int tid = threadIdx.x;
+  const int b = (bh0 + blockIdx.y) / H;
+  const int h = (bh0 + blockIdx.y) % H;
+  const int c0 = blockIdx.z * kF32WideOut;  // this block's output columns c0 ..
+  const int nk = (D + kF32WideCols - 1) / kF32WideCols;  // K units a chunk
+  const int nv = (min(kF32WideOut, D - c0) + kF32WideCols - 1) / kF32WideCols;  // V units
+  const int ty0 = (blockIdx.x / tiles_x) * kStripRows;
+  const int tx0 = (blockIdx.x % tiles_x) * kTile;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int halo_rows = min(ty0 + kStripRows + r, height) - max(ty0 - r, 0);
+  const int halo_cols = min(tx0 + kTile + r, width) - max(tx0 - r, 0);
+  const Walk walk(ty0, tx0, r, height, width,
+                  f32_wide_rows(band_rows, band_cols, halo_rows, halo_cols), band_cols,
+                  kStripRows);
+  const int per_chunk = nk + nv;
+  const int units = walk.count * per_chunk;
+
+  // unit u into buffer u % stages: chunk u / per_chunk; a K unit holds the
+  // strip's q (16 rows, zeros outside the image) and then the chunk's
+  // positions, a V unit the positions; 64 columns, zeros past D. A thread
+  // keeps one piece of the columns and walks down the rows. One cp.async
+  // group (empty past the last unit, so that every step commits one)
+  auto issue = [&](int u) {
+    if (u >= units || (F3S_PARTS & 1)) return;
+    const Chunk ch = walk[u / per_chunk];
+    const int ru = u % per_chunk, cw = ch.x1 - ch.x0;
+    const bool is_k = ru < nk;
+    const int col0 = is_k ? ru * kF32WideCols : c0 + (ru - nk) * kF32WideCols;
+    const float* src = is_k ? kb : vb;
+    const int64_t stride = is_k ? sk.n : sv.n;
+    const int qrows = is_k ? kStripQueries : 0;
+    const int rows = qrows + (ch.y1 - ch.y0) * cw;
+    float* dst = ring + (u % stages) * unit_floats;
+    const int per = vec ? 4 : 1;          // floats a copy
+    const int pieces = kF32WideCols / per;
+    const int step = kF32WideThreads / pieces;  // rows a pass
+    const int c = tid % pieces * per;
+    const bool in_d = col0 + c < D;
+    int py = -1, px = 0;  // the image position of the thread's position row
+    for (int row = tid / pieces; row < rows; row += step) {
+      const float* g;
+      bool in = in_d;
+      if (row < qrows) {
+        const int y = ty0 + row / kTile, x = tx0 + row % kTile;
+        in = in && y < height && x < width;
+        g = qb + (static_cast<int64_t>(y) * width + x) * sq.n;
+      } else {
+        if (py < 0) {  // the thread's first position row
+          py = ch.y0 + (row - qrows) / cw;
+          px = ch.x0 + (row - qrows) % cw;
+        }
+        g = src + (static_cast<int64_t>(py) * width + px) * stride;
+        px += step;
+        while (px >= ch.x1) {
+          px -= cw;
+          ++py;
+        }
+      }
+      if (vec)
+        cp_async16(dst + row * kF32WideLd + c, in ? g + col0 + c : src, in ? 16 : 0);
+      else
+        dst[row * kF32WideLd + c] = in ? g[col0 + c] : 0.f;
+    }
+  };
+
+  const int qi = tid / kF32WideSubs, sub = tid % kF32WideSubs;
+  const int qy = ty0 + qi / kTile, qx = tx0 + qi % kTile;
+  const bool live = qy < height && qx < width;
+  float* prow = ps + qi * p_ld;
+
+  float m_run = -CUDART_INF_F, l_part = 0.f;
+  float acc[kF32WideUnits][4];  // O: the query's 4 columns 4 sub of each V unit
+#pragma unroll
+  for (int vi = 0; vi < kF32WideUnits; ++vi)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[vi][c] = 0.f;
+
+  for (int u = 0; u < stages - 1; ++u) {
+    issue(u);
+    cp_async_commit();
+  }
+  int u = 0;
+  // the next unit: it has landed, every thread is done with the one before
+  // (whose buffer now takes the unit stages - 1 on)
+  auto next_unit = [&]() {
+    cp_async_wait_pending(stages - 2);
+    __syncthreads();
+    issue(u + stages - 1);
+    cp_async_commit();
+    return ring + (u++ % stages) * unit_floats;
+  };
+
+  for (int c = 0; c < walk.count; ++c) {
+    const Chunk ch = walk[c];
+    const int cw = ch.x1 - ch.x0;
+    // this query's keys in the chunk: rows [ry0, ry0 + wy), columns [rx0, rx0 + wx)
+    const int ry0 = max(ch.y0, qy - r), rx0 = max(ch.x0, qx - r);
+    const int wy = live ? max(min(ch.y1, qy + r + 1) - ry0, 0) : 0;
+    const int wx = max(min(ch.x1, qx + r + 1) - rx0, 0);
+    const int count = wy * wx;
+    const int ne = count > sub ? (count - sub + kF32WideSubs - 1) / kF32WideSubs : 0;
+    // entries sub + subs j of the rectangle, row-major; past ne the first
+    // position (its score is not used)
+    int pos[kF32WideEntries];
+#pragma unroll
+    for (int j = 0; j < kF32WideEntries; ++j) {
+      const int e = sub + kF32WideSubs * j, wd = wx > 0 ? wx : 1;
+      pos[j] = j < ne ? (ry0 + e / wd - ch.y0) * cw + rx0 + e % wd - ch.x0 : 0;
+    }
+
+    float s[kF32WideEntries];
+#pragma unroll
+    for (int j = 0; j < kF32WideEntries; ++j) s[j] = 0.f;
+    for (int ku = 0; ku < nk; ++ku) {
+      const float* unit = next_unit();
+      if (F3S_PARTS & 2) continue;
+      const float* qr = unit + qi * kF32WideLd;
+      const float* kr = unit + kStripQueries * kF32WideLd;
+      const int ncols = min(kF32WideCols, D - ku * kF32WideCols);  // past D: not staged
+      // entries in pairs: two independent chains a pass over the columns
+#pragma unroll
+      for (int j = 0; j < kF32WideEntries; j += 2) {
+        if (j >= ne) break;
+        const float* k0 = kr + pos[j] * kF32WideLd;
+        const float* k1 = kr + pos[j + 1] * kF32WideLd;
+        float s0 = 0.f, s1 = 0.f, t0 = 0.f, t1 = 0.f;  // two chains a key
+#pragma unroll 4
+        for (int c4 = 0; c4 < ncols; c4 += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(qr + c4);
+          const float4 x = *reinterpret_cast<const float4*>(k0 + c4);
+          const float4 y = *reinterpret_cast<const float4*>(k1 + c4);
+          s0 = fmaf(a.x * scale, x.x, s0);
+          t0 = fmaf(a.y * scale, x.y, t0);
+          s0 = fmaf(a.z * scale, x.z, s0);
+          t0 = fmaf(a.w * scale, x.w, t0);
+          s1 = fmaf(a.x * scale, y.x, s1);
+          t1 = fmaf(a.y * scale, y.y, t1);
+          s1 = fmaf(a.z * scale, y.z, s1);
+          t1 = fmaf(a.w * scale, y.w, t1);
+        }
+        s[j] += s0 + t0;
+        s[j + 1] += s1 + t1;
+      }
+    }
+
+    // the chunk's max over the query's threads, the running sum and O
+    // rescaled, p of the query's keys into its row
+    float cmax = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kF32WideEntries; ++j)
+      if (j < ne) cmax = fmaxf(cmax, s[j]);
+#pragma unroll
+    for (int off = 1; off < kF32WideSubs; off <<= 1)
+      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+    const float m_new = fmaxf(m_run, cmax);
+    // no key yet (the query outside the image, or no key of the chunk in
+    // its window before any other): nothing to rescale
+    const float alpha = m_new == -CUDART_INF_F ? 1.f : expf(m_run - m_new);
+    l_part *= alpha;
+#pragma unroll
+    for (int j = 0; j < kF32WideEntries; ++j)
+      if (j < ne) {
+        const float p = expf(s[j] - m_new);
+        l_part += p;
+        prow[sub + kF32WideSubs * j] = p;
+      }
+    m_run = m_new;
+#pragma unroll
+    for (int vi = 0; vi < kF32WideUnits; ++vi)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) acc[vi][cc] *= alpha;
+    __syncwarp();  // a query's threads share one warp
+
+#pragma unroll
+    for (int vi = 0; vi < kF32WideUnits; ++vi) {
+      if (vi >= nv) break;  // the same in the whole block
+      const float* unit = next_unit();
+      if (F3S_PARTS & 2) continue;
+      const float* vcol = unit + 4 * sub;
+      int e = 0;
+      for (int yy = ry0; yy < ry0 + wy; ++yy) {
+        const float* vrow = vcol + ((yy - ch.y0) * cw - ch.x0) * kF32WideLd;
+        int xx = rx0;
+        // two keys a step into a sum of their own: half the chain on acc
+        for (; xx + 1 < rx0 + wx; xx += 2, e += 2) {
+          const float p0 = prow[e], p1 = prow[e + 1];
+          const float4 x = *reinterpret_cast<const float4*>(vrow + xx * kF32WideLd);
+          const float4 y = *reinterpret_cast<const float4*>(vrow + (xx + 1) * kF32WideLd);
+          acc[vi][0] += fmaf(p1, y.x, p0 * x.x);
+          acc[vi][1] += fmaf(p1, y.y, p0 * x.y);
+          acc[vi][2] += fmaf(p1, y.z, p0 * x.z);
+          acc[vi][3] += fmaf(p1, y.w, p0 * x.w);
+        }
+        if (xx < rx0 + wx) {
+          const float p0 = prow[e++];
+          const float4 x = *reinterpret_cast<const float4*>(vrow + xx * kF32WideLd);
+          acc[vi][0] = fmaf(p0, x.x, acc[vi][0]);
+          acc[vi][1] = fmaf(p0, x.y, acc[vi][1]);
+          acc[vi][2] = fmaf(p0, x.z, acc[vi][2]);
+          acc[vi][3] = fmaf(p0, x.w, acc[vi][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait_group<0>();  // the empty groups past the last unit
+
+  float l = l_part;
+#pragma unroll
+  for (int off = 1; off < kF32WideSubs; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+  if (!live) return;
+  const float den = fmaxf(l, 1e-30f);
+  float* op = o + b * so.b + h * so.h + (static_cast<int64_t>(qy) * width + qx) * so.n;
+#pragma unroll
+  for (int vi = 0; vi < kF32WideUnits; ++vi) {
+    const int d = c0 + vi * kF32WideCols + 4 * sub;
+    if (vi >= nv || d >= D) continue;
+    float x[4];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) x[cc] = acc[vi][cc] / den;
+    if (vec_out) {
+      *reinterpret_cast<float4*>(op + d) = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        if (d + cc < D) op[d + cc] = x[cc];
+    }
+  }
+}
+
+// The float32 wide kernel's chunks: rows of the strip's clamped halo cut
+// into pieces of at most 64 columns (a multiple of 8, or the whole clamped
+// width), as many rows a chunk as keep it at kF32WidePos positions; then as
+// many ring buffers (2 to 4) as fit kF32WideBudget beside the rows of p.
+// Window 7 at D = 320 on a 16-wide image: the strip's 8 x 14 halo in one
+// chunk, three buffers.
 Plan f32_wide_plan(int window, int width) {
-  const int halo = kTile + 2 * (window / 2);
+  const int halo_rows = kStripRows + 2 * (window / 2), halo = kTile + 2 * (window / 2);
   const int wide = halo < width ? halo : width;
   const int cols = wide < 64 ? wide : 64;
-  const int by_slots = kWideSlots / ((cols + 7) / 8);
-  const int rows = by_slots < halo ? by_slots : halo;
-  const int64_t npos = static_cast<int64_t>(rows) * cols;
-  return {rows, cols, 1, (npos * kWideCols + kTile * kTile * (npos + 1)) * static_cast<int64_t>(4)};
+  const int by_pos = kF32WidePos / cols;
+  const int rows = by_pos < halo_rows ? by_pos : halo_rows;
+  int stages = kF32WideStages;
+  while (stages > 2 && f32_wide_smem(rows * cols, stages) > kF32WideBudget) --stages;
+  return {rows, cols, stages, f32_wide_smem(rows * cols, stages)};
 }
 
 // The bfloat16 wide kernel's chunks: rows of the strip's clamped halo cut
@@ -1266,15 +1449,26 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Geome
                 can_vectorise(k, v, st, gm.D, sizeof(float)));
 }
 
-// past D = 128: float32 in column blocks of kWideCols, bfloat16 in column
-// blocks of kMmaWideOut (one block at D <= 320)
+// past D = 128: float32 and bfloat16 in column blocks of 320 (one block at
+// D <= 320)
 int launch_wide(int dtype, const void* q, const void* k, const void* v, void* o,
                 const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch(nat_f32_wide_kernel, kF32Threads, f32_wide_plan(gm.window, gm.width),
-                  (gm.D + kWideCols - 1) / kWideCols, kTile, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<float*>(o), gm, st, scale, stream);
+  if (dtype == 0) {
+    const Plan plan = f32_wide_plan(gm.window, gm.width);
+    // 16-byte copies of q too, and 16-byte stores of o
+    bool vec = can_vectorise(k, v, st, gm.D, sizeof(float)) &&
+               reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    bool vec_out = gm.D % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+    for (int i = 0; i < 3; ++i) {
+      vec = vec && st[i] % 4 == 0;
+      vec_out = vec_out && st[9 + i] % 4 == 0;
+    }
+    return launch(nat_f32_wide_kernel, kF32WideThreads, plan,
+                  (gm.D + kF32WideOut - 1) / kF32WideOut, kStripRows,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o), gm, st, scale, stream,
+                  plan.stages, vec, vec_out);
+  }
   const Plan plan = mma_wide_plan(gm.window, gm.D, gm.width);
   // 16-byte copies of q too: its base and strides whole 16-byte pieces
   bool vec = can_vectorise(k, v, st, gm.D, sizeof(BF)) && reinterpret_cast<uintptr_t>(q) % 16 == 0;

@@ -86,23 +86,22 @@
 //   mma.sync m16n8k16, eight warps of 16 query rows a block, K and V of one
 //   (batch, head) staged per block, two passes over the keys (max and sum,
 //   then the normalised product).
-// * float32: FMAs on the CUDA cores (TF32 tensor-core products would not
-//   hold the 1e-4 agreement asked of float32). A block owns 32 queries; four
-//   adjacent lanes share a query, each holding a quarter of D in registers,
-//   so a score is a quarter dot product plus two shuffles. K and V stream
-//   through shared memory in tiles of 64 keys, twice: the first pass keeps
-//   the row's max and sum (the sum rescaled to each new max), the second
-//   recomputes the scores, normalises them and accumulates p * v. A tile's
-//   scores live in shared memory ([32][68] float32, rows of 4 mod 8 words
-//   against bank conflicts). Past D = 128, `sr_attention_f32_wide_kernel`:
-//   the scores over D in chunks of 128, the output in column blocks of 128.
+// * float32, `sr_attention_f32_tile_kernel<DJ>` (every D): FMAs on the
+//   CUDA cores (TF32 tensor-core products would not hold the 1e-4
+//   agreement asked of float32), one pass over the keys in tiles of 32 with
+//   a running softmax, each score taken once, SIMT-GEMM register tiles; see
+//   its note. It replaced the two-pass kernels of PR 2 (four lanes a query;
+//   past D = 128 column blocks of 128, each taking every score again),
+//   which it beats 3.6-10.6x at D <= 128 and 37x at D = 320 (PERF.md).
 //
-// The two bfloat16 kernels read F3S_PARTS: 1 leaves the loads out, 2 the
-// arithmetic (tools/kernel_parts.py times both; the results are wrong).
+// The bfloat16 kernels and the float32 tile kernel read F3S_PARTS: 1 leaves
+// the loads out, 2 the arithmetic (tools/kernel_parts.py times both; the
+// results are wrong).
 
 #include <algorithm>
 #include <cmath>
 #include <cstring>
+#include <initializer_list>
 
 #include "attention_common.cuh"
 #include "hopper.cuh"
@@ -115,287 +114,425 @@ namespace {
 
 using namespace f3s;
 
-// ---- float32: FMAs on the CUDA cores
-
 using T = float;
-constexpr int kThreads = 128;
-constexpr int kQueries = kThreads / kLanes;  // queries per block
-constexpr int kF32Keys = 64;                 // keys of a staged K, V tile
-constexpr int kF32Row = kF32Keys + 4;        // a query's score row: 4 mod 8 words
 
-template <int DPL>
-__global__ void __launch_bounds__(kThreads)
-sr_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o,
-                        int N, int M, int H, int D,
-                        Strides sq, Strides sk, Strides sv, Strides so, float scale, int bh0) {
-  constexpr int Dp = DPL * kLanes;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                                  // [kF32Keys][Dp]
-  T* vs = ks + kF32Keys * Dp;                                          // [kF32Keys][Dp]
-  float* sc = reinterpret_cast<float*>(vs + kF32Keys * Dp);            // [kQueries][kF32Row]
+// ---- float32, one pass: register-tiled FMAs on the CUDA cores
+//
+// `sr_attention_f32_tile_kernel<DJ>` takes every D: DP = 64 DJ columns, D
+// padded up to DP (64 to 320); past D = 320, DP = 320, the output in column
+// blocks of 320 (the grid's z axis) and the scores over D in chunks of 320,
+// each block taking them again (registers hold O for 320 columns beside a
+// tile's scores, not for more). A block owns 64 queries of one (batch,
+// head) and all of its D (its column block past 320). q * scale (rounded to
+// T, as the TPU kernel rounds it) is staged once. K and V stream through a
+// cp.async ring of units, a unit one tile of 32 keys of K (a column chunk)
+// or of V (the block's columns), 2-4 units in flight (`F32Tile`), one
+// barrier a unit. The softmax is online: a running max and sum per query
+// row, O rescaled in registers by exp(m_old - m_new) at each V unit and
+// divided by the row sum at the end. The TPU kernel rounds the normalised p
+// to v's dtype; in float32 that rounding is the identity, so the two differ
+// by float32 rounding only, each score taken once.
+//
+// What bounds it at [8,1024,1,320]x256 (the re-headed B2's stage 2 at
+// 512x512): the FMAs, 2 * 1024 * 256 * 320 a (batch, head), 0.040 ms at
+// 67 Tflop/s; bytes are 0.007 ms. So it is written as a SIMT GEMM: a
+// thread holds an 8 x 8 register tile, 16 FMAs for every 16-byte shared
+// load, and the loads of a warp's quarter fall on 128 contiguous bytes.
+// * S = Q K^T: warp w owns queries 8w .. 8w + 7 against all 32 keys of the
+//   unit; lane = 8 kt + ds holds an 8 x 8 tile (those queries, keys 8 kt ..
+//   8 kt + 7) summed over columns 4 ds + 32 t of the chunk: per 4 columns
+//   8 + 8 loads and 256 FMAs. The eight column slices sum by shuffles in
+//   three halving steps (56 a tile), after which lane ds holds query 8w +
+//   ds against its 8 keys; the row max takes two more shuffles (over kt).
+//   p goes to shared memory transposed, [key][query].
+// * O += P V: warp w keeps its 8 queries; lane c holds them x 2 DJ columns
+//   (4c + 128 i, and 2c + 128 (DJ / 2) when DJ is odd): per key 2 loads of
+//   p and DJ / 2 + 1 of V for 16 DJ FMAs.
+// O is 16 DJ registers a thread. At DP = 320, q 82 KB and three units of
+// 41 KB fill the SM: one block of eight warps. There the copies are in
+// before a unit starts; what sets the pace is the products themselves, at
+// about half the FMA peak (with the loads left out the kernel keeps 85% of
+// its time, tools/kernel_parts.py), then the copies' issue between the
+// barrier and the products. Tried and not faster: 4 x 4 tiles, a
+// warp-specialised split (scores on one warpgroup at 8 x 16 tiles, P V on
+// two), a producer warpgroup with mbarriers in place of block barriers, a
+// bulk copy a row, TMA boxes, the copies issued in two halves around the
+// products.
+constexpr int kTileThreads = 256;     // eight warps
+constexpr int kTileQ = 64;            // queries a block
+constexpr int kTileKeys = 32;         // keys a unit of K or V
+constexpr int kTileMaxDJ = 5;         // DP up to 320
+constexpr int kTilePLd = kTileQ + 4;  // a row of p^T, [key][query]
+constexpr int kTileMaxStages = 4;
 
-  const int tid = threadIdx.x;
-  const int b = (bh0 + blockIdx.y) / H;
-  const int h = (bh0 + blockIdx.y) % H;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  // rows key0 .. key0 + count - 1 of K or V into a tile: kThreads / Dp rows a step
-  auto stage = [&](const T* src, int64_t stride, T* dst, int key0, int count) {
-    const int d = tid % Dp;
-    const T zero = from_f32<T>(0.f);
-    for (int m = tid / Dp; m < count; m += kThreads / Dp)
-      dst[m * Dp + d] = d < D ? src[static_cast<int64_t>(key0 + m) * stride + d] : zero;
-  };
+// The shape of instance DJ: DP = 64 DJ columns, staged rows of DP + 8
+// floats, and as many units in the ring as fit an SM's shared memory (at
+// most 4) beside q, p^T and the row statistics. ops/attention.py
+// `_sr_f32_shape` mirrors it.
+template <int DJ>
+struct F32Tile {
+  static constexpr int kDP = 64 * DJ;
+  static constexpr int kLd = kDP + 8;
+  static constexpr int kQFloats = kTileQ * kLd;
+  static constexpr int kUnitFloats = kTileKeys * kLd;
+  static constexpr int kFixedBytes = (kQFloats + kTileKeys * kTilePLd + 2 * kTileQ) * 4;
+  static constexpr int kFit = (kMaxSmem - kFixedBytes) / (kUnitFloats * 4);
+  static constexpr int kStages = kFit < kTileMaxStages ? kFit : kTileMaxStages;
+  static constexpr int kSmem = kFixedBytes + kStages * kUnitFloats * 4;
+  static_assert(kStages >= 2, "two units in flight at least");
+};
 
-  const int lane = tid % kLanes;
-  const int qi = tid / kLanes;
-  const int n = blockIdx.x * kQueries + qi;
-  const bool live = n < N;
-  const int d0 = lane * DPL;
-
-  float qr[DPL];
-  {
-    const T* qp = q + b * sq.b + static_cast<int64_t>(live ? n : 0) * sq.n + h * sq.h;
+// keep[i] = own[i + h n] + the partner's own[i + (1 - h) n] (lane ^ mask),
+// i < n: one halving step of the sum over the column slices (h: this lane's
+// half, the bit `mask` of its lane index)
+template <int N2, int J>
+__device__ __forceinline__ void halve(const float (&own)[2 * N2][J], float (&keep)[N2][J],
+                                      bool h, int mask) {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = d0 + i;
-      qr[i] = (live && d < D) ? round_to<T>(to_f32<T>(qp[d]) * scale) : 0.f;
+  for (int i = 0; i < N2; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float send = h ? own[i][j] : own[i + N2][j];
+      keep[i][j] = (h ? own[i + N2][j] : own[i][j]) + __shfl_xor_sync(0xffffffffu, send, mask);
     }
-  }
-  // this query's score against staged key m; equal bit for bit on the four
-  // lanes of the query (the shuffled sums add the same pairs)
-  auto score = [&](int m) {
-    float kr[DPL];
-    load_chunk<T, DPL>(ks + m * Dp + d0, kr);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) s = fmaf(qr[i], kr[i], s);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    return s;
-  };
+}
 
-  // pass 1: the row's max and sum; lane j keeps the entries m = j mod 4
-  float* srow = sc + qi * kF32Row;
-  float mx = -CUDART_INF_F, l = 0.f;
-  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
-    const int count = min(kF32Keys, M - key0);
-    __syncthreads();  // the previous tile is read
-    stage(kb, sk.n, ks, key0, count);
-    __syncthreads();
-    float tile_mx = -CUDART_INF_F;
-    for (int m = 0; m < count; ++m) {
-      const float s = score(m);
-      tile_mx = fmaxf(tile_mx, s);
-      if ((m % kLanes) == lane) srow[m] = s;
-    }
-    const float new_mx = fmaxf(mx, tile_mx);
-    float e = 0.f;
-    for (int m = lane; m < count; m += kLanes) e += expf(srow[m] - new_mx);
-    l = l * expf(mx - new_mx) + e;  // expf(-inf) = 0 on the first tile
-    mx = new_mx;
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-
-  // pass 2: the normalised probabilities, rounded to T, times V
-  float acc[DPL];
+// O / l of query rows n0 .. n0 + 7 (those below N) from column c0 on: acc[i]
+// holds lane c's 2 DJ columns, float4 chunks at 128 j + 4 c and, where DJ
+// is odd, a float2 chunk at 128 (DJ / 2) + 2 c; columns past D are not
+// stored. ob: the output of the (batch, head), son its token stride.
+template <int DJ>
+__device__ __forceinline__ void store_o(const float (&acc)[8][2 * DJ], const float (&ls)[8],
+                                        T* ob, int64_t son, int n0, int N, int c0, int D,
+                                        int lane, bool vec_out) {
+  constexpr int C4 = DJ / 2, C2 = DJ % 2;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
-    const int count = min(kF32Keys, M - key0);
-    __syncthreads();
-    stage(kb, sk.n, ks, key0, count);
-    stage(vb, sv.n, vs, key0, count);
-    __syncthreads();
-    for (int m = 0; m < count; ++m) {
-      const float s = score(m);
-      if ((m % kLanes) == lane) srow[m] = round_to<T>(expf(s - mx) / l);
-    }
-    __syncwarp();  // the four lanes of a query sit in one warp
-    for (int m = 0; m < count; ++m) {
-      const float p = srow[m];
-      float vr[DPL];
-      load_chunk<T, DPL>(vs + m * Dp + d0, vr);
+  for (int i = 0; i < 8; ++i) {
+    if (n0 + i >= N) continue;
+    T* op = ob + static_cast<int64_t>(n0 + i) * son + c0;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-    }
-  }
-
-  if (live) {
-    T* op = o + b * so.b + static_cast<int64_t>(n) * so.n + h * so.h;
+    for (int c4 = 0; c4 < C4; ++c4) {
+      const int d = 128 * c4 + 4 * lane;
+      if (c0 + d >= D) continue;
+      float x[4];
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = d0 + i;
-      if (d < D) op[d] = from_f32<T>(acc[i]);
+      for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * c4 + e] / ls[i];
+      if (vec_out) {
+        *reinterpret_cast<float4*>(op + d) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + d + e < D) op[d + e] = from_f32<T>(x[e]);
+      }
+    }
+    if (C2) {
+      const int d = 128 * C4 + 2 * lane;
+      if (c0 + d >= D) continue;
+      const float x0 = acc[i][4 * C4] / ls[i], x1 = acc[i][4 * C4 + 1] / ls[i];
+      if (vec_out) {
+        *reinterpret_cast<float2*>(op + d) = make_float2(x0, x1);
+      } else {
+        op[d] = from_f32<T>(x0);
+        if (c0 + d + 1 < D) op[d + 1] = from_f32<T>(x1);
+      }
     }
   }
 }
 
-template <int DPL>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int N,
-               int M, int H, int D, const int64_t* st, float scale,
-               cudaStream_t stream) {
-  constexpr int Dp = DPL * kLanes;
-  const size_t smem = 2 * static_cast<size_t>(kF32Keys) * Dp * sizeof(T) +
-                      static_cast<size_t>(kQueries) * kF32Row * sizeof(float);
-  auto kern = sr_attention_f32_kernel<DPL>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
-  const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  return over_batch_heads(static_cast<int64_t>(B) * H, [&](int bh0, int count) {
-    const dim3 grid((N + kQueries - 1) / kQueries, count);
-    kern<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale, bh0);
-    return static_cast<int>(cudaGetLastError());
-  });
-}
-
-// Any D (D > 128 here): the same two passes, with the scores taken over D
-// in chunks of kWideCols (each lane a quarter of a chunk of q in registers,
-// the partial scores summed in the block's score rows) and the output in
-// column blocks of kWideCols, one block of the grid's z axis each, every
-// block computing the scores over the whole D again. A key tile of K (a
-// chunk of its columns) and then of V (the block's columns) share one
-// buffer.
-constexpr int kWideCols = 128;
-constexpr int kWideDPL = kWideCols / kLanes;
-
-__global__ void __launch_bounds__(kThreads)
-sr_attention_f32_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ o,
-                             int N, int M, int H, int D,
-                             Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                             int bh0) {
+template <int DJ>
+__global__ void __launch_bounds__(kTileThreads, 1)
+sr_attention_f32_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o, int N, int M, int H,
+                             int D, Strides sq, Strides sk, Strides sv, Strides so,
+                             float scale, int bh0, bool vec, bool vec_out) {
+  using S = F32Tile<DJ>;
+  constexpr int DP = S::kDP, LD = S::kLd, STAGES = S::kStages;
+  constexpr int C4 = DJ / 2, C2 = DJ % 2;  // O's float4 and float2 column chunks
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                                    // [kF32Keys][kWideCols]
-  float* sc = reinterpret_cast<float*>(ks + kF32Keys * kWideCols);       // [kQueries][kF32Row]
+  float* qs = reinterpret_cast<float*>(smem);        // [kTileQ][LD]: T(q * scale)
+  float* ring = qs + S::kQFloats;                     // STAGES x [kTileKeys][LD]
+  float* pt = ring + STAGES * S::kUnitFloats;         // [kTileKeys][kTilePLd]: p^T
+  float* alpha_s = pt + kTileKeys * kTilePLd;         // [kTileQ]: O's rescale at this tile
+  float* l_s = alpha_s + kTileQ;                      // [kTileQ]: the row sums
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = (bh0 + blockIdx.y) / H;
   const int h = (bh0 + blockIdx.y) % H;
-  const int c0 = blockIdx.z * kWideCols;  // this block's output columns
+  const int n0 = blockIdx.x * kTileQ;
+  const int c0 = blockIdx.z * DP;        // the block's output columns
+  const int nc = (D + DP - 1) / DP;      // column chunks of the scores: 1 up to D = 320
+  const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
-  // columns d0 .. d0 + kWideCols - 1 of rows key0 .. key0 + count - 1 into ks
-  auto stage = [&](const T* src, int64_t stride, int key0, int count, int d0) {
-    const int d = tid % kWideCols;
-#pragma unroll 4
-    for (int m = tid / kWideCols; m < count; m += kThreads / kWideCols)
-      ks[m * kWideCols + d] =
-          d0 + d < D ? src[static_cast<int64_t>(key0 + m) * stride + d0 + d] : 0.f;
+  const int units = (M + kTileKeys - 1) / kTileKeys * (nc + 1);
+
+  // unit u: key tile u / (nc + 1); of K the column chunk u % (nc + 1), of V
+  // the block's columns where that is nc. Rows past M and columns past D
+  // are zeros. One cp.async group a unit (empty past the last).
+  auto issue = [&](int u) {
+    if (u >= units || F3S_PARTS == 1) return;
+    const int key0 = u / (nc + 1) * kTileKeys, r = u % (nc + 1);
+    const T* src = r < nc ? kb : vb;
+    const int64_t stride = r < nc ? sk.n : sv.n;
+    const int col0 = r < nc ? r * DP : c0;
+    float* dst = ring + (u % STAGES) * S::kUnitFloats;
+    if (vec) {  // a warp takes rows warp, warp + 8, ..., its lanes a row's 16-byte pieces
+      for (int row = warp; row < kTileKeys; row += kTileThreads / 32) {
+        const T* s = src + (key0 + row) * stride + col0;
+        const bool live = key0 + row < M;
+#pragma unroll
+        for (int c = 4 * lane; c < DP; c += 128) {
+          const bool in = live && col0 + c < D;
+          cp_async16(dst + row * LD + c, in ? s + c : src, in ? 16 : 0);
+        }
+      }
+    } else {
+      for (int i = tid; i < kTileKeys * DP; i += kTileThreads) {
+        const int row = i / DP, c = i % DP;
+        dst[row * LD + c] =
+            key0 + row < M && col0 + c < D ? src[(key0 + row) * stride + col0 + c] : 0.f;
+      }
+    }
+  };
+  // q's column chunk c, scaled and rounded, rows past N and columns past D zeros
+  auto stage_q = [&](int c) {
+    if (F3S_PARTS == 1) return;
+    const int col0 = c * DP;
+    for (int i = tid; i < kTileQ * (DP / 4); i += kTileThreads) {
+      const int row = i / (DP / 4), cc = i % (DP / 4) * 4;
+      const T* src = qb + static_cast<int64_t>(n0 + row) * sq.n + col0 + cc;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (n0 + row < N) {
+        if (vec && col0 + cc < D) {
+          const float4 y = *reinterpret_cast<const float4*>(src);
+          x[0] = y.x; x[1] = y.y; x[2] = y.z; x[3] = y.w;
+        } else if (!vec) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col0 + cc + e < D) x[e] = src[e];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = round_to<T>(x[e] * scale);
+      *reinterpret_cast<float4*>(qs + row * LD + cc) = make_float4(x[0], x[1], x[2], x[3]);
+    }
   };
 
-  const int lane = tid % kLanes;
-  const int qi = tid / kLanes;
-  const int n = blockIdx.x * kQueries + qi;
-  const bool live = n < N;
-  const T* qp = q + b * sq.b + static_cast<int64_t>(live ? n : 0) * sq.n + h * sq.h;
-  float* srow = sc + qi * kF32Row;
-  // the scores of keys key0 .. key0 + count - 1 into srow; lane j keeps m = j mod 4
-  auto scores = [&](int key0, int count) {
-    for (int d0 = 0; d0 < D; d0 += kWideCols) {
-      __syncthreads();  // ks is free
-      stage(kb, sk.n, key0, count, d0);
+  // S: lane = 8 kt + ds; after the sum over the slices, query 8 warp + ds
+  const int ds = lane & 7, kt = lane >> 3;
+  const int qrow = 8 * warp + ds;
+
+  float m_run = -CUDART_INF_F, l_part = 0.f;
+  float acc[8][2 * DJ];  // O: queries 8 warp + i, columns as `col` below
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 2 * DJ; ++c) acc[i][c] = 0.f;
+  float s[8][8];
+
+  // q (where it is one chunk and its rows whole 16-byte pieces: copied with
+  // the first unit, scaled in place once that has landed), then the ring's
+  // first units
+  const bool q_async = nc == 1 && vec && F3S_PARTS != 1;
+  if (q_async) {
+    for (int row = warp; row < kTileQ; row += kTileThreads / 32) {
+      const T* s = qb + static_cast<int64_t>(n0 + row) * sq.n;
+      const bool live = n0 + row < N;
+#pragma unroll
+      for (int c = 4 * lane; c < DP; c += 128) {
+        const bool in = live && c < D;
+        cp_async16(qs + row * LD + c, in ? s + c : qb, in ? 16 : 0);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) {
+    issue(u);
+    cp_async_commit();
+  }
+  if (nc == 1 && !q_async) stage_q(0);
+
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait_group<STAGES - 2>();
+    __syncthreads();  // unit u has landed; every thread is done with unit u - 1
+    issue(u + STAGES - 1);
+    cp_async_commit();
+    const float* unit = ring + (u % STAGES) * S::kUnitFloats;
+    const int r = u % (nc + 1);
+    if (u == 0 && q_async) {  // q landed with unit 0
+      for (int i = tid; i < kTileQ * (DP / 4); i += kTileThreads) {
+        float4* x = reinterpret_cast<float4*>(qs + i / (DP / 4) * LD) + i % (DP / 4);
+        const float4 y = *x;
+        *x = make_float4(round_to<T>(y.x * scale), round_to<T>(y.y * scale),
+                         round_to<T>(y.z * scale), round_to<T>(y.w * scale));
+      }
       __syncthreads();
-      float qr[kWideDPL];
-#pragma unroll
-      for (int i = 0; i < kWideDPL; ++i) {
-        const int d = d0 + lane * kWideDPL + i;
-        qr[i] = (live && d < D) ? round_to<T>(to_f32<T>(qp[d]) * scale) : 0.f;
+    }
+    if (r < nc) {  // S += q K^T over the chunk's columns
+      if (nc > 1) {
+        stage_q(r);
+        __syncthreads();
       }
-      for (int m = 0; m < count; ++m) {
-        float kr[kWideDPL];
-        load_chunk<T, kWideDPL>(ks + m * kWideCols + lane * kWideDPL, kr);
-        const float s = dot_quad<kWideDPL>(qr, kr);
-        if ((m % kLanes) == lane) srow[m] = d0 == 0 ? s : srow[m] + s;
+      if (r == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      }
+      if (F3S_PARTS != 2) {
+        const float* qp = qs + 8 * warp * LD + 4 * ds;
+        const float* kp = unit + 8 * kt * LD + 4 * ds;
+#pragma unroll 1
+        for (int d = 0; d < DP; d += 32) {
+          float4 a[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(qp + i * LD + d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 x = *reinterpret_cast<const float4*>(kp + j * LD + d);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              s[i][j] = fmaf(a[i].x, x.x, s[i][j]);
+              s[i][j] = fmaf(a[i].y, x.y, s[i][j]);
+              s[i][j] = fmaf(a[i].z, x.z, s[i][j]);
+              s[i][j] = fmaf(a[i].w, x.w, s[i][j]);
+            }
+          }
+        }
+      }
+      if (r == nc - 1) {
+        // the eight column slices summed (lane bits 2, 1, 0 halve the
+        // queries), keys past M masked, the running max and sum, p^T out
+        float s4[4][8], s2[2][8], s1[1][8];
+        halve<4, 8>(s, s4, lane & 4, 4);
+        halve<2, 8>(s4, s2, lane & 2, 2);
+        halve<1, 8>(s2, s1, lane & 1, 1);
+        const int key0 = u / (nc + 1) * kTileKeys + 8 * kt;
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (key0 + j >= M) s1[0][j] = -CUDART_INF_F;
+          mx = fmaxf(mx, s1[0][j]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_run, mx);  // finite: a tile holds a key below M
+        const float alpha = expf(m_run - m_new);  // 0 on the first tile
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = expf(s1[0][j] - m_new);
+          sum += p;
+          pt[(8 * kt + j) * kTilePLd + qrow] = p;
+        }
+        l_part = l_part * alpha + sum;
+        m_run = m_new;
+        if (kt == 0) alpha_s[qrow] = alpha;
+      }
+    } else {  // O = O * alpha + P V over the block's columns
+      const float* pp = pt + 8 * warp;
+      const float4 a0 = *reinterpret_cast<const float4*>(alpha_s + 8 * warp);
+      const float4 a1 = *reinterpret_cast<const float4*>(alpha_s + 8 * warp + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 2 * DJ; ++c) acc[i][c] *= al[i];
+      if (F3S_PARTS != 2) {
+#pragma unroll 2
+        for (int m = 0; m < kTileKeys; ++m) {
+          const float4 p0 = *reinterpret_cast<const float4*>(pp + m * kTilePLd);
+          const float4 p1 = *reinterpret_cast<const float4*>(pp + m * kTilePLd + 4);
+          const float pm[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+          const float* vr = unit + m * LD;
+#pragma unroll
+          for (int c4 = 0; c4 < C4; ++c4) {
+            const float4 x = *reinterpret_cast<const float4*>(vr + 128 * c4 + 4 * lane);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][4 * c4] = fmaf(pm[i], x.x, acc[i][4 * c4]);
+              acc[i][4 * c4 + 1] = fmaf(pm[i], x.y, acc[i][4 * c4 + 1]);
+              acc[i][4 * c4 + 2] = fmaf(pm[i], x.z, acc[i][4 * c4 + 2]);
+              acc[i][4 * c4 + 3] = fmaf(pm[i], x.w, acc[i][4 * c4 + 3]);
+            }
+          }
+          if (C2) {
+            const float2 x = *reinterpret_cast<const float2*>(vr + 128 * C4 + 2 * lane);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][4 * C4] = fmaf(pm[i], x.x, acc[i][4 * C4]);
+              acc[i][4 * C4 + 1] = fmaf(pm[i], x.y, acc[i][4 * C4 + 1]);
+            }
+          }
+        }
       }
     }
-  };
-
-  // pass 1: the row's max and sum over the lane's entries, then the quad's
-  float mx = -CUDART_INF_F, l = 0.f;
-  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
-    const int count = min(kF32Keys, M - key0);
-    scores(key0, count);
-    float tile_mx = -CUDART_INF_F;
-    for (int m = lane; m < count; m += kLanes) tile_mx = fmaxf(tile_mx, srow[m]);
-    tile_mx = fmaxf(tile_mx, __shfl_xor_sync(0xffffffffu, tile_mx, 1));
-    tile_mx = fmaxf(tile_mx, __shfl_xor_sync(0xffffffffu, tile_mx, 2));
-    const float new_mx = fmaxf(mx, tile_mx);
-    float e = 0.f;
-    for (int m = lane; m < count; m += kLanes) e += expf(srow[m] - new_mx);
-    l = l * expf(mx - new_mx) + e;
-    mx = new_mx;
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  cp_async_wait_group<0>();
 
-  // pass 2: the normalised probabilities, rounded to T, times V's columns
-  float acc[kWideDPL];
-#pragma unroll
-  for (int i = 0; i < kWideDPL; ++i) acc[i] = 0.f;
-  for (int key0 = 0; key0 < M; key0 += kF32Keys) {
-    const int count = min(kF32Keys, M - key0);
-    scores(key0, count);
-    for (int m = lane; m < count; m += kLanes) srow[m] = round_to<T>(expf(srow[m] - mx) / l);
-    __syncthreads();  // ks is free; srow is written
-    stage(vb, sv.n, key0, count, c0);
-    __syncthreads();
-    for (int m = 0; m < count; ++m) {
-      const float p = srow[m];
-      float vr[kWideDPL];
-      load_chunk<T, kWideDPL>(ks + m * kWideCols + lane * kWideDPL, vr);
-#pragma unroll
-      for (int i = 0; i < kWideDPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-    }
-  }
-
-  if (live) {
-    T* op = o + b * so.b + static_cast<int64_t>(n) * so.n + h * so.h;
-#pragma unroll
-    for (int i = 0; i < kWideDPL; ++i) {
-      const int d = c0 + lane * kWideDPL + i;
-      if (d < D) op[d] = from_f32<T>(acc[i]);
-    }
-  }
+  // the row sums over the four key groups, then O / l
+  float l = l_part;
+  l += __shfl_xor_sync(0xffffffffu, l, 8);
+  l += __shfl_xor_sync(0xffffffffu, l, 16);
+  if (kt == 0) l_s[qrow] = l;
+  __syncwarp();
+  const float4 l0 = *reinterpret_cast<const float4*>(l_s + 8 * warp);
+  const float4 l1 = *reinterpret_cast<const float4*>(l_s + 8 * warp + 4);
+  const float ls[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+  store_o<DJ>(acc, ls, o + b * so.b + h * so.h, so.n, n0 + 8 * warp, N, c0, D, lane, vec_out);
 }
 
-int launch_f32_wide(const void* q, const void* k, const void* v, void* o, int B, int N,
-                    int M, int H, int D, const int64_t* st, float scale,
-                    cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kF32Keys) * kWideCols * sizeof(T) +
-                      static_cast<size_t>(kQueries) * kF32Row * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(sr_attention_f32_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// 16-byte accesses: D a multiple of 4, the tensors' bases on 16 bytes and
+// their strides whole 16-byte pieces (st: 3 strides a tensor)
+bool aligned16(std::initializer_list<const void*> bases, const int64_t* st, int nst, int D) {
+  bool ok = D % 4 == 0;
+  for (const void* p : bases) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < nst; ++i) ok = ok && st[i] % 4 == 0;
+  return ok;
+}
+
+template <int DJ>
+int launch_f32_tile(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
+                    int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
+  using S = F32Tile<DJ>;
+  auto kern = sr_attention_f32_tile_kernel<DJ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
+  const bool vec = aligned16({q, k, v}, st, 9, D), vec_out = aligned16({o}, st + 9, 3, D);
+  const int col_blocks = (D + S::kDP - 1) / S::kDP;
   return over_batch_heads(static_cast<int64_t>(B) * H, [&](int bh0, int count) {
-    const dim3 grid((N + kQueries - 1) / kQueries, count, (D + kWideCols - 1) / kWideCols);
-    sr_attention_f32_wide_kernel<<<grid, kThreads, smem, stream>>>(
+    const dim3 grid((N + kTileQ - 1) / kTileQ, count, col_blocks);
+    kern<<<grid, kTileThreads, S::kSmem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale, bh0);
+        static_cast<T*>(o), N, M, H, D, sq, sk, sv, so, scale, bh0, vec, vec_out);
     return static_cast<int>(cudaGetLastError());
   });
+}
+
+// the float32 instance at head dim D: DJ = D / 64 rounded up, at most 5
+int f32_dj(int D) { return D > 64 * kTileMaxDJ ? kTileMaxDJ : (D + 63) / 64; }
+
+template <int DJ>
+void f32_shape(int64_t* shape) {
+  shape[0] = F32Tile<DJ>::kDP;
+  shape[1] = kTileKeys;
+  shape[2] = F32Tile<DJ>::kStages;
+  shape[3] = F32Tile<DJ>::kSmem;
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int N,
                  int M, int H, int D, const int64_t* st, float scale,
                  cudaStream_t stream) {
-  if (D <= 8) return launch_f32<2>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 16) return launch_f32<4>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 32) return launch_f32<8>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 64) return launch_f32<16>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 128) return launch_f32<32>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  return launch_f32_wide(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  switch (f32_dj(D)) {
+    case 1: return launch_f32_tile<1>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+    case 2: return launch_f32_tile<2>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+    case 3: return launch_f32_tile<3>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+    case 4: return launch_f32_tile<4>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+    default: return launch_f32_tile<5>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  }
 }
 
 // ---- bfloat16 on the tensor cores: mma.sync m16n8k16 (any layout)
@@ -1503,6 +1640,11 @@ bool kernel_attributes(const char* name, cudaFuncAttributes* attr, cudaError_t* 
       {"wgmma_256_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<256, 64>)},
       {"wgmma_320_32", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<320, 32>)},
       {"wide", reinterpret_cast<const void*>(sr_attention_wide_kernel)},
+      {"f32_tile_64", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<1>)},
+      {"f32_tile_128", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<2>)},
+      {"f32_tile_192", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<3>)},
+      {"f32_tile_256", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<4>)},
+      {"f32_tile_320", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<5>)},
   };
   for (const auto& kernel : kKernels)
     if (!std::strcmp(name, kernel.name)) {
@@ -1537,6 +1679,20 @@ extern "C" int f3s_sr_attention(const void* q, const void* k, const void* v,
   if (kernel == 1) return dispatch_mma(q, k, v, o, B, N, M, H, D, strides, scale, s);
   if (kernel == 2) return dispatch_wgmma(q, k, v, o, B, N, M, H, D, strides, scale, s);
   return -3;
+}
+
+// The float32 tile kernel's instance at head dim D, for checking
+// ops/attention.py `_sr_f32_shape`: shape = [DP, keys a unit, units of the
+// ring, shared bytes].
+extern "C" int f3s_sr_f32_shape(int D, int64_t* shape) {
+  switch (f32_dj(D)) {
+    case 1: f32_shape<1>(shape); break;
+    case 2: f32_shape<2>(shape); break;
+    case 3: f32_shape<3>(shape); break;
+    case 4: f32_shape<4>(shape); break;
+    default: f32_shape<5>(shape);
+  }
+  return 0;
 }
 
 // The wgmma route's choice at head dim D and M keys, for checking

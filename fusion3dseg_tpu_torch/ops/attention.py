@@ -135,7 +135,8 @@ def _mma_fits(M: int, D: int) -> bool:
 
 
 def _sr_route(q, k, v) -> str:
-    """The kernel a CUDA call of `sr_attention` launches: "f32" for float32;
+    """The kernel a CUDA call of `sr_attention` launches: "f32" for float32
+    (the one-pass tile kernel at every D, `_sr_f32_shape`);
     for bfloat16 "wgmma" (TMA-fed, keys streamed in tiles, any M, any D)
     when TMA can describe q, k and v, else "mma" (`mma.sync`, any strides)
     while D <= 128 and K and V of one (batch, head) fit its shared memory,
@@ -188,6 +189,35 @@ def _sr_shape(D: int, M: int) -> SrShape:
     return SrShape(dp, kt, consumers, stages, fixed + stages * kv)
 
 
+class SrF32Shape(NamedTuple):
+    """The float32 tile kernel's instance at a head dim: q, K and V in rows
+    of `dp` columns (D padded up to it; past D = 320 column chunks of 320
+    and the output in column blocks of 320), units of `kt` keys, `stages`
+    units in the ring, `smem` dynamic shared bytes."""
+    dp: int
+    kt: int
+    stages: int
+    smem: int
+
+
+_SR_F32_Q, _SR_F32_KT, _SR_F32_MAX_DJ, _SR_F32_MAX_STAGES = 64, 32, 5, 4
+
+
+def _sr_f32_shape(D: int) -> SrF32Shape:
+    """The instance `csrc/sr_attention.cu` (`F32Tile<DJ>`) takes for head dim
+    D in float32: DJ = D / 64 rounded up, at most 5; DP = 64 DJ columns in
+    staged rows of DP + 8 floats; q (64 rows), p^T (32 rows of 68) and two
+    rows of 64 statistics fixed; then as many units of 32 keys (at most 4)
+    as fit an SM's shared memory: 4 up to DP = 256, 3 at 320."""
+    dj = min(-(-D // 64), _SR_F32_MAX_DJ)
+    dp = 64 * dj
+    ld = dp + 8
+    fixed = (_SR_F32_Q * ld + _SR_F32_KT * (_SR_F32_Q + 4) + 2 * _SR_F32_Q) * 4
+    unit = _SR_F32_KT * ld * 4
+    stages = min((_MAX_SMEM - fixed) // unit, _SR_F32_MAX_STAGES)
+    return SrF32Shape(dp, _SR_F32_KT, stages, fixed + stages * unit)
+
+
 def _tma_copy(t, width: int):
     """t [B, T, H, D] copied into fresh storage whose rows are `width`
     (>= D, a multiple of 8) elements, as a [B, T, H, D] view of it."""
@@ -226,10 +256,10 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     happens here. Any N, any M, any D, any B * H (the JAX kernel's domain:
     M and D up to what VMEM holds). bfloat16 runs on the tensor cores
     (`_sr_route` picks the kernel; `_sr_shape` the wgmma instance: D
-    padded to 64, 128, 192, 256 or 320), float32 on the CUDA cores; the
-    wgmma and float32 kernels stream the keys through shared memory in
-    tiles, and above D = 320 (wgmma) or 128 (float32) take D in chunks, the
-    output in column blocks.
+    padded to 64, 128, 192, 256 or 320), float32 on the CUDA cores (one
+    pass, `_sr_f32_shape`: D padded to 64 to 320); both stream the keys
+    through shared memory in tiles, and above D = 320 take D in chunks,
+    the output in column blocks.
 
     Forward only, like the JAX package's kernel: raises when an input
     requires grad while grad is enabled. A CUDA tensor launches a kernel
@@ -278,7 +308,10 @@ class NatPlan(NamedTuple):
 _NAT_TILE = 8  # queries per tile side
 _NAT_BUDGET = 57344  # bytes of K and V a block stages: four blocks an SM
 _NAT_MAX_NARROW_D = 128  # past it, the wide kernels
-_NAT_F32_WIDE_COLS, _NAT_F32_WIDE_SLOTS = 128, 8  # float32: D chunk, slots of 8 keys a warp
+# float32 past D = 128: columns a unit (rows of 68 staged), the most
+# positions a chunk, the ring's most buffers, the budget (half an SM)
+_NAT_F32_WIDE_COLS, _NAT_F32_WIDE_POS, _NAT_F32_WIDE_STAGES = 64, 128, 4
+_NAT_F32_WIDE_BUDGET = _MAX_SMEM // 2 - 1024
 # bfloat16 past D = 128: a block's query rows (a strip of 2 x 8), a unit's
 # columns (rows of 72 staged), slots of 8 keys a chunk, a row of p (16 slots
 # of 8 and 8), the ring's most buffers
@@ -313,6 +346,24 @@ def _mma_wide_smem(window: int, D: int, npos: int, stages: int) -> int:
     return fixed + stages * npos * (_NAT_MMA_WIDE_COLS + 8) * 2
 
 
+def _f32_wide_smem(npos: int, stages: int) -> int:
+    """The float32 wide kernel's shared bytes for chunks of npos positions:
+    16 rows of p (npos floats, rounded up to 4 mod 8) and `stages` units of
+    the strip's 16 q rows and npos positions, 64 columns in rows of 68
+    floats."""
+    return _NAT_STRIP * _score_ld(npos) * 4 + \
+        stages * (_NAT_STRIP + npos) * (_NAT_F32_WIDE_COLS + 4) * 4
+
+
+def _nat_f32_rows(plan: NatPlan, halo_rows: int, halo_cols: int) -> int:
+    """The rows of a strip's chunks in the float32 wide kernel
+    (`f32_wide_rows` in csrc/neighborhood_attention.cu): as many as fit the
+    plan's positions in pieces as wide as the strip's halo, clamped to the
+    image, allows, within its rows."""
+    piece = min(plan.cols, halo_cols)
+    return max(1, min(plan.rows * plan.cols // piece, halo_rows))
+
+
 def _nat_tile_rows(plan: NatPlan, halo_rows: int, halo_cols: int) -> int:
     """The rows of a strip's chunks in the bfloat16 wide kernel
     (`tile_rows` in csrc/neighborhood_attention.cu): the plan's, or more
@@ -342,9 +393,11 @@ def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
     K or V within the budget beside the score rows (of the window up to
     window 11, `_window_scores`, else of the chunk's positions), the
     strip's q and p; then as many buffers (2 to 4) as fit (window 7 at D =
-    320: the 8 x 14 halo in one chunk, two buffers). float32: as many rows
-    as keep a warp's two query rows at 8 slots, one buffer of 128 columns a
-    position beside the 64 queries' score rows."""
+    320: the 8 x 14 halo in one chunk, two buffers). float32 (the same
+    strips): as many rows a chunk as keep it at 128 positions, then as many
+    buffers (2 to 4) of the strip's q and the chunk's positions, 64 columns
+    each, as fit half an SM beside the strip's rows of p (window 7 at D =
+    320: the 8 x 14 halo in one chunk, three buffers)."""
     halo = _NAT_TILE + 2 * (window // 2)
     wide = min(halo, width)
     if D > _NAT_MAX_NARROW_D:
@@ -358,10 +411,11 @@ def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
             while stages > 2 and _mma_wide_smem(window, D, rows * cols, stages) > _NAT_BUDGET:
                 stages -= 1
             return NatPlan(rows, cols, stages, _mma_wide_smem(window, D, rows * cols, stages))
-        rows = min(halo, _NAT_F32_WIDE_SLOTS // nsx)
-        npos = rows * cols
-        return NatPlan(rows, cols, 1,
-                       (npos * _NAT_F32_WIDE_COLS + _NAT_TILE ** 2 * (npos + 1)) * 4)
+        rows = min(_NAT_STRIP_ROWS + 2 * (window // 2), _NAT_F32_WIDE_POS // cols)
+        stages = _NAT_F32_WIDE_STAGES
+        while stages > 2 and _f32_wide_smem(rows * cols, stages) > _NAT_F32_WIDE_BUDGET:
+            stages -= 1
+        return NatPlan(rows, cols, stages, _f32_wide_smem(rows * cols, stages))
     if dtype == torch.bfloat16:
         # D padded to 32 n, and 8 more against bank conflicts
         ld = 32 * next(n for n in (1, 2, 3, 4) if D <= 32 * n) + 8
@@ -435,9 +489,8 @@ def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
     kernel's domain: its window and D are bounded by VMEM alone). The kernel
     streams the keys and values around an 8 x 8 tile of queries through
     shared memory in chunks (`_nat_plan`), so no window is too wide for it;
-    above D = 128 it takes D in chunks (bfloat16: each score once, the
-    output in column blocks of 320; float32: the output in column blocks of
-    128, the scores again for each).
+    above D = 128 a block owns a strip of 2 x 8 queries and all of D up to
+    320 (each score once; past 320 the output in column blocks of 320).
     Head dims and strides that are multiples of 16 bytes (bfloat16) are
     staged 16 bytes a copy, others an element at a time.
 

@@ -16,8 +16,10 @@ classes (the counters decide how many blocks an SM holds). K2:
 (batch 8) and [2,16384,1,64]x[2,256,1,64]; a checkout whose K3 raises at a
 shape says so. `--kernels k3` times K3 alone. `wide` times both kernels
 past D = 128 at `WIDE_K3` and `WIDE_K2` (the shapes of B2 re-headed to
-num_heads=(1,1,1,2)), each beside `scaled_dot_product_attention` (masked
-to the window for K2) on the same inputs, and `b2wide` that model's
+num_heads=(1,1,1,2)) and the float32 kernels at the narrow yardsticks (B2's
+two 256x256 calls, [8,1024,1,128]x256; K2 at [8,64*64,1,64]), each beside
+`scaled_dot_product_attention` (masked to the window for K2) on the same
+inputs, saying which is faster, and `b2wide` that model's
 predict_batch frames/s at 512x512 (the shipped checkpoint, K3 on, batch 8).
 Each kernel runs 20 times inside one CUDA graph, replayed 5 times between
 two CUDA events. Needs a CUDA device.
@@ -43,12 +45,15 @@ K3_SHAPES = ((8, 4096, 1, 64), (8, 1024, 2, 64), (2, 16384, 1, 256),
              (8, 65536, 1, 1024), (8, 16384, 2, 1024), (8, 4096, 5, 1024), (8, 1024, 8, 1024))
 
 
-# past D = 128: K3 (B, N, H, D, M, dtype) and K2 (B, h, w, D, window, dtype)
+# past D = 128, and float32 at the narrow yardsticks: K3 (B, N, H, D, M,
+# dtype) and K2 (B, h, w, D, window, dtype)
 WIDE_K3 = ((8, 4096, 1, 256, 64, "bf16"), (8, 1024, 2, 160, 256, "bf16"),
            (8, 1024, 2, 192, 256, "bf16"), (8, 1024, 1, 320, 256, "bf16"),
-           (8, 4096, 1, 320, 64, "bf16"), (8, 1024, 1, 320, 256, "f32"))
+           (8, 4096, 1, 320, 64, "bf16"), (8, 1024, 1, 320, 256, "f32"),
+           (8, 4096, 1, 64, 64, "f32"), (8, 1024, 2, 64, 64, "f32"),
+           (8, 1024, 1, 128, 256, "f32"))
 WIDE_K2 = ((8, 16, 16, 320, 7, "bf16"), (8, 16, 16, 256, 7, "bf16"), (8, 32, 32, 320, 7, "bf16"),
-           (8, 16, 16, 320, 7, "f32"))
+           (8, 16, 16, 320, 7, "f32"), (8, 64, 64, 64, 7, "f32"))
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
@@ -70,6 +75,12 @@ def graph_ms(fn, iters=20, replays=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def _versus(ms, lib_ms):
+    """The kernel against the library call, as a factor."""
+    return (f"the kernel {lib_ms / ms:.2f}x faster" if ms < lib_ms
+            else f"the kernel {ms / lib_ms:.2f}x slower")
 
 
 def main(argv=None):
@@ -124,7 +135,7 @@ def main(argv=None):
         ms = graph_ms(lambda: attn.sr_attention(q, k, v))
         lib = graph_ms(lambda: nnf.scaled_dot_product_attention(qt, kt, vt))
         print(f"K3 sr_attention [{B},{N},{H},{D}]x[{B},{M},{H},{D}] {dt}: {ms:.4f} ms; "
-              f"scaled_dot_product_attention {lib:.4f} ms")
+              f"scaled_dot_product_attention {lib:.4f} ms: {_versus(ms, lib)}")
     for B, h, w, D, window, dt in WIDE_K2 if "wide" in kernels else ():
         q, k, v = (torch.randn((B, h * w, 1, D), device=dev, generator=gen).to(DTYPES[dt])
                    for _ in range(3))
@@ -136,7 +147,7 @@ def main(argv=None):
         ms = graph_ms(lambda: attn.neighborhood_attention(q, k, v, h, w, window))
         lib = graph_ms(lambda: nnf.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
         print(f"K2 neighborhood_attention [{B},{h}*{w},1,{D}] window {window} {dt}: {ms:.4f} ms; "
-              f"masked scaled_dot_product_attention {lib:.4f} ms")
+              f"masked scaled_dot_product_attention {lib:.4f} ms: {_versus(ms, lib)}")
     if "b2wide" in kernels:
         from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
         from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D

@@ -189,6 +189,14 @@ def _qkv(shape_q, shape_kv, dtype, device, seed=0):
     (8, 1024, 1, 320, 256, torch.bfloat16, "wgmma"), (8, 4096, 1, 320, 64, torch.bfloat16, "wgmma"),
     (3, 300, 2, 176, 129, torch.bfloat16, "wgmma"), (1, 1000, 1, 320, 300, torch.bfloat16, "wgmma"),
     (1, 999, 3, 288, 1000, torch.bfloat16, "wgmma"),
+    # the float32 tile kernel past D = 128: D padded to 192 (129, 160), 256,
+    # 320 (the re-headed B2's stage 2 at 512x512) and column chunks and
+    # blocks of 320 past it (321, 512); N and M off every tile (64 queries,
+    # 32 keys a unit), one key, 5000 keys
+    (8, 1024, 1, 320, 256, torch.float32, "f32"), (1, 1000, 1, 129, 37, torch.float32, "f32"),
+    (2, 333, 1, 321, 1, torch.float32, "f32"), (1, 200, 1, 320, 5000, torch.float32, "f32"),
+    (1, 300, 2, 512, 77, torch.float32, "f32"), (3, 65, 1, 160, 1, torch.float32, "f32"),
+    (1, 129, 2, 256, 33, torch.float32, "f32"), (2, 100, 1, 129, 5000, torch.float32, "f32"),
 ])
 def test_sr_attention_kernel_matches_plain(cuda_device, B, N, H, D, M, dtype, route):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -319,6 +327,14 @@ def test_sr_attention_kernel_reads_strides_and_refuses(cuda_device):
     (8, 16, 16, 1, 320, 7, torch.bfloat16), (8, 16, 16, 1, 256, 7, torch.bfloat16),
     (2, 13, 21, 1, 320, 9, torch.bfloat16), (1, 9, 70, 1, 160, 41, torch.bfloat16),
     (1, 30, 27, 1, 320, 23, torch.bfloat16), (1, 33, 40, 2, 384, 11, torch.bfloat16),
+    # the float32 wide kernel: the re-headed B2's stage 2 (16 x 16, D = 320),
+    # D not a multiple of 4 (129: element copies), a halo streamed in bands
+    # (window 23) and in row pieces (41, 63), two column blocks (384, 512,
+    # 321), an image smaller than the window
+    (8, 16, 16, 1, 320, 7, torch.float32), (1, 16, 16, 1, 129, 7, torch.float32),
+    (1, 30, 27, 1, 320, 23, torch.float32), (1, 9, 70, 1, 160, 41, torch.float32),
+    (1, 33, 40, 2, 384, 11, torch.float32), (1, 12, 30, 1, 512, 15, torch.float32),
+    (2, 13, 21, 1, 321, 9, torch.float32), (1, 5, 3, 1, 200, 63, torch.float32),
 ])
 def test_neighborhood_attention_kernel_matches_plain(cuda_device, B, h, w, H, D, window, dtype):
     from fusion3dseg_tpu_torch.ops import attention as attn
@@ -416,6 +432,62 @@ def test_wide_kernels_take_any_batch_heads(cuda_device, kernel):
     big = torch.maximum(got.abs(), plain.abs()).clamp_min(2.0 ** -126)
     steps = torch.exp2(torch.floor(torch.log2(big)) - 7)
     assert ((got - plain).abs() <= torch.maximum(2 * steps, torch.tensor(BF16_BAR))).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sr", "nat"])
+def test_f32_kernels_take_any_batch_heads_past_128(cuda_device, kernel):
+    # 65,537 (batch, head) pairs in float32 past D = 128: K3's tile kernel
+    # at D = 160 (8 keys), K2's wide kernel at D = 129 (element copies) on
+    # a 4 x 4 image; a pair's output does not depend on how many pairs
+    # share the call
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    if kernel == "sr":
+        q, k, v = _qkv((65537, 16, 1, 160), (65537, 8, 1, 160), torch.float32, cuda_device)
+        fn, ref = attn.sr_attention, attn.sr_attention_reference
+    else:
+        q, k, v = _qkv((65537, 16, 1, 129), (65537, 16, 1, 129), torch.float32, cuda_device)
+        fn = lambda *t: attn.neighborhood_attention(*t, 4, 4, 3)
+        ref = lambda *t: attn.neighborhood_attention_reference(*t, 4, 4, 3)
+    got = fn(q, k, v)
+    parts = torch.cat([fn(q[s], k[s], v[s]) for s in (slice(0, 65535), slice(65535, None))])
+    torch.cuda.synchronize()
+    assert torch.equal(got, parts)
+    assert (got - ref(q, k, v)).abs().max().item() <= F32_BAR
+
+
+@pytest.mark.cuda
+def test_f32_kernel_plans_and_registers(cuda_device):
+    # the launchers' float32 instances against their mirrors in
+    # ops/attention.py, and no float32 kernel spills
+    import ctypes
+
+    from fusion3dseg_tpu_torch import cuda
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    shape_fn = cuda.load("sr_attention").f3s_sr_f32_shape
+    shape_fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
+    got = (ctypes.c_int64 * 4)()
+    for D in range(1, 700):
+        assert shape_fn(D, got) == 0 and tuple(got) == tuple(attn._sr_f32_shape(D)), D
+    plan_fn = cuda.load("neighborhood_attention").f3s_nat_plan
+    plan_fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int64)]
+    plan = (ctypes.c_int64 * 4)()
+    for D in (7, 64, 128, 129, 320, 512):
+        for window in range(1, 128, 2):
+            for width in (1, 5, 9, 16, 17, 64, 70, 256):
+                assert plan_fn(0, window, D, width, plan) == 0
+                assert tuple(plan) == tuple(attn._nat_plan(window, D, torch.float32, width))
+    for lib, names in (("sr_attention", [f"f32_tile_{dp}" for dp in (64, 128, 192, 256, 320)]),
+                       ("neighborhood_attention", ["f32_wide", "f32_16"])):
+        fn = getattr(cuda.load(lib), "f3s_sr_resources" if lib == "sr_attention"
+                     else "f3s_nat_resources")
+        fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+        for name in names:
+            out = (ctypes.c_int * 4)()
+            assert fn(name.encode(), out) == 0, name
+            assert out[1] == 0, f"{name}: {out[1]} bytes of local memory a thread"
 
 
 @pytest.mark.cuda
@@ -520,6 +592,37 @@ def test_segmenter_cuda_matches_cpu(cuda_device, kw):
     assert (lg - lc).abs().max().item() <= 1e-3
     agree = (on_card.predict_batch(frames, 0.0) == on_cpu.predict_batch(frames, 0.0)).mean()
     assert agree >= 0.98, agree
+
+
+@pytest.mark.cuda
+def test_float32_reheaded_b2_segmenter_cuda_matches_cpu(cuda_device):
+    # the float32 path of K3's tile kernel: the shipped B2 with
+    # num_heads=(1, 1, 1, 2) (head dims 64, 128, 320, 256; the attention
+    # weights do not depend on the heads) in float32 at 512x512, where
+    # stage 2 runs K3 at [2,1024,1,320]x256; every launch takes the float32
+    # route; masks and logits against the port on the CPU
+    import dataclasses
+
+    from fusion3dseg_tpu_torch.io.synthetic import make_session
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    frames = make_session(nframes=2, depth_hw=(48, 36), appearance="textured").colors
+    cfg = dataclasses.replace(SegFormerConfig.b2(), dtype=torch.float32, num_heads=(1, 1, 1, 2),
+                              use_pallas_attention=True)
+    ckpt = convert.shipped_checkpoint("b2")
+    on_card, on_cpu = (Segmenter2D(cfg, ckpt, input_hw=(512, 512), batch_size=2, device=dev)
+                       for dev in ("cuda", "cpu"))
+    attn.reset_sr_counts()
+    got = on_card.predict_batch(frames, 0.0)
+    assert attn.sr_attention.launches == attn.sr_attention.routes["f32"] == 13
+    agree = (got == on_cpu.predict_batch(frames, 0.0)).mean()
+    assert agree >= 0.999, agree
+    x = on_cpu._model_input(frames)
+    lc = on_cpu._logits_sem_conf(x, 0.0, (48, 36))[0]
+    lg = on_card._logits_sem_conf(x.cuda(), 0.0, (48, 36))[0].cpu()
+    assert (lg - lc).abs().max().item() <= 1e-2
 
 
 # ------------------------------------------------------------ fusion engine

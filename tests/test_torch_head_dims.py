@@ -101,10 +101,12 @@ def test_nat_plan_fits_every_window_and_width(D, dtype):
     """The wide kernels' chunks: no odd window from 1 to 63 at any width
     from 1 to 256 asks for more than the staging budget, and none is
     refused. A chunk is cut from the halo clamped to the width in pieces of
-    whole groups of 8 columns or its whole width. float32: at most 8 slots
-    of 8 columns for a warp, one buffer of 128 columns a position. bfloat16:
-    at most 16 slots of 8 columns a chunk (the registers of the eight warps'
-    scores, two slots each, for a block's strip of 2 x 8 queries), its 16
+    whole groups of 8 columns or its whole width. Both kernels give a block
+    a strip of 2 x 8 queries. float32: at most 128 positions a chunk, 16
+    rows of p and a ring of two to four units of the strip's q and the
+    chunk's positions, 64 columns each, within half an SM's shared memory.
+    bfloat16: at most 16 slots of 8 columns a chunk
+    (the registers of the eight warps' scores, two slots each), its 16
     score rows, q and p, and a ring of two to four units of 64 columns."""
     for window in range(1, 64, 2):
         halo = 8 + window - 1
@@ -112,14 +114,17 @@ def test_nat_plan_fits_every_window_and_width(D, dtype):
             p = tattn._nat_plan(window, D, dtype, width)
             wide = min(halo, width)
             nsx = -(-p.cols // 8)
-            assert 0 < p.smem <= tattn._NAT_BUDGET, (window, width, p)
+            budget = tattn._NAT_F32_WIDE_BUDGET if dtype == torch.float32 else tattn._NAT_BUDGET
+            assert 0 < p.smem <= budget, (window, width, p)
             assert p.cols == wide or (p.cols % 8 == 0 and p.cols < wide), (window, width, p)
             npos = p.rows * p.cols
             if dtype == torch.float32:
-                # float32 beside 64 score rows of a float32 a position and
-                # one of padding
-                assert p.stages == 1 and 1 <= p.rows <= halo and p.rows * nsx <= 8, (window, p)
-                assert p.smem == 4 * (128 * npos + 64 * (npos + 1)), (window, width, p)
+                # 16 rows of p (npos floats, up to 4 mod 8) beside the ring
+                # of units of 16 + npos rows of 68 floats
+                assert 2 <= p.stages <= 4 and 1 <= p.rows <= window + 1, (window, width, p)
+                assert npos <= 128 and p.cols <= 64, (window, width, p)
+                ld = npos + (12 - npos % 8) % 8
+                assert p.smem == 16 * ld * 4 + p.stages * (16 + npos) * 68 * 4, (window, width, p)
             else:
                 # a strip of 2 x 8 queries a block: 16 score rows of the
                 # window's (up to window 11) or the chunk's entries rounded

@@ -39,17 +39,24 @@ def test_wide_plan_fits_every_window_and_width(D, dtype):
     most 64) or its whole width. bfloat16 (a block owns a strip of 2 x 8
     queries, its halo window + 1 rows): a chunk holds at most 16 slots of 8
     columns, with as many rows as that and the budget allow at two ring
-    buffers, and then as many buffers (2 to 4) as fit; float32: a warp's two
-    query rows see at most 8 slots."""
+    buffers, and then as many buffers (2 to 4) as fit; float32 (the same
+    strips, within half an SM's shared memory): as many rows as keep a chunk
+    at 128 positions, then as many buffers (2 to 4) as fit."""
     for window in range(1, 64, 2):
         halo = 8 + window - 1
         for width in range(1, 257):
             p = tattn._nat_plan(window, D, dtype, width)
             wide, nsx = min(halo, width), -(-p.cols // 8)
-            assert 0 < p.smem <= tattn._NAT_BUDGET and 1 <= p.rows <= halo, (window, width, p)
+            budget = tattn._NAT_F32_WIDE_BUDGET if dtype == torch.float32 else tattn._NAT_BUDGET
+            assert 0 < p.smem <= budget and 1 <= p.rows <= halo, (window, width, p)
             assert p.cols == min(wide, 64) and (p.cols == wide or p.cols % 8 == 0), (window, p)
             if dtype == torch.float32:
-                assert p.stages == 1 and p.rows * nsx <= 8, (window, width, p)
+                npos = p.rows * p.cols
+                assert 2 <= p.stages <= 4 and npos <= 128, (window, width, p)
+                assert p.rows == min(window + 1, 128 // p.cols), (window, width, p)
+                assert p.smem == tattn._f32_wide_smem(npos, p.stages), (window, width, p)
+                assert p.stages == 4 or tattn._f32_wide_smem(
+                    npos, p.stages + 1) > tattn._NAT_F32_WIDE_BUDGET, (window, width, p)
                 continue
             npos = p.rows * p.cols
             assert 2 <= p.stages <= 4 and p.rows <= window + 1 and p.rows * nsx <= 16, (window, p)
@@ -66,13 +73,12 @@ def test_wide_plan_fits_every_window_and_width(D, dtype):
                          ids=["1-15", "17-31", "33-63"])
 def test_wide_chunks_tile_every_clamped_halo(windows, dtype):
     """The walk over a wide plan's chunks covers every key position of each
-    block's halo clamped to the image exactly once (float32: 8 x 8 tiles;
-    bfloat16: 2 x 8 strips, whose chunks take more rows where the clamped
-    halo is narrower than the plan's pieces), on images no tile divides and
-    on ones smaller than the window, for every odd window. A chunk fits the
-    plan's buffers and holds at most 16 slots (float32: a warp's two rows
-    see at most 8)."""
-    rows_a_block = 8 if dtype == torch.float32 else 2
+    block's halo clamped to the image exactly once (2 x 8 strips, whose
+    chunks take more rows where the clamped halo is narrower than the plan's
+    pieces), on images no tile divides and on ones smaller than the window,
+    for every odd window. A chunk fits the plan's buffers and holds at most
+    16 slots (float32: at most 128 positions)."""
+    rows_a_block = 2
     for window in windows:
         r = window // 2
         for width in SIZES:
@@ -82,14 +88,14 @@ def test_wide_chunks_tile_every_clamped_halo(windows, dtype):
                     for tx0 in range(0, width, 8):
                         y0, y1 = max(ty0 - r, 0), min(ty0 + rows_a_block + r, height)
                         x0, x1 = max(tx0 - r, 0), min(tx0 + 8 + r, width)
-                        rows = p.rows if dtype == torch.float32 else \
-                            tattn._nat_tile_rows(p, y1 - y0, x1 - x0)
+                        rows = (tattn._nat_f32_rows if dtype == torch.float32 else
+                                tattn._nat_tile_rows)(p, y1 - y0, x1 - x0)
                         seen = np.zeros((height, width), int)
                         for cy0, cy1, cx0, cx1 in _walk(y0, y1, x0, x1, rows, p.cols):
                             nsx = -(-(cx1 - cx0) // 8)
                             assert (cy1 - cy0) * (cx1 - cx0) <= p.rows * p.cols
                             if dtype == torch.float32:
-                                assert min(cy1 - cy0, window + 1) * nsx <= 8
+                                assert (cy1 - cy0) * (cx1 - cx0) <= 128
                             else:
                                 assert (cy1 - cy0) * nsx <= 16
                             seen[cy0:cy1, cx0:cx1] += 1
