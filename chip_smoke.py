@@ -11,7 +11,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 3. kernels  the histogram kernel against its plain PyTorch version on the
             card (exact) at the main path's shape on the label lifter's own
             row pitch, sparse and dense, on an odd pitch, on ragged shapes and
-            with 254 classes; timed in a CUDA graph beside its bound.
+            with 254 classes; timed in a CUDA graph beside its bound and
+            its plain version (`tools/bench.k1_row`, as the bench times it).
 4. headline the session label lifter `label_fuse_session` on the 1M-point,
             300-frame, 256x192, 133-class workload: timed, its kernel
             launches counted, held exactly to the same run classified by
@@ -163,6 +164,17 @@ Phases (each prints its own lines; any failure exits non-zero):
             loss, the loss descends. Every call timed beside its one-device
             call, with its collectives and the bytes gloo moved through the
             host.
+15. bench   the port's bench (`tools/bench.py`, `bench.py`'s counterpart) in
+            this process at cut sizes: the headline at 200k points x 60
+            frames, config 5 at 2.5M x 20 (the gid-range-sharded z-buffer,
+            nsub 3), the fusion blocks with the reference resolution
+            (960x720) on 2 frames, config 4 with the shipped B2; every bar of
+            the full run (label agreement >= 0.9995 at both sizes, classes
+            equal to the plain-version run, n equal in two runs, the model in
+            the loop >= 0.98, K1 on both winner matrices equal to its plain
+            version), K1's launches in its timed runs counted and K1 timed on
+            both winner matrices; the classes at both sizes and the 960x720
+            state and uv2pt equal to the port's on the CPU bit for bit.
 
 Then one JSON line for the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest of
@@ -187,8 +199,6 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 NPTS, NFRAMES, HW, NCLASSES = 1_000_000, 300, (256, 192), 133
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor float32 (the table's only non-tensor rate)
 BF16_OPS_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
 EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM exponentials: 16 a clock on each SM, boost clock
 AGREEMENT_BAR = 0.9995
@@ -205,7 +215,14 @@ NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
 KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
 ALL_PHASES = ["label", "attention", "segmenter", "stream", "soak", "loop", "fusion", "files",
-              "hf", "train", "post", "parallel"]
+              "hf", "train", "post", "parallel", "bench"]
+K1_ENTRY = {"name": "histogram_classify", "route": "cuda",
+            "source": "fusion3dseg_tpu_torch/csrc/histogram.cu",
+            "replaces": "fusion3dseg_tpu/ops/histogram.py:33"}
+# phase 15: the bench's sizes cut to about 90 s (nsub 3 at 2.5M ids)
+BENCH_ARGV = ["--npts", "200000", "--frames", "60", "--tenm-npts", "2500000",
+              "--tenm-frames", "20"]
+BENCH_REF_FRAMES = 2
 SOAK_FRAMES = 2048  # examples/soak_long_session.py's session
 LOOP_AGREE_BAR, LOOP_SAME_BAR = 0.98, 0.999  # loop: vs the gt masks, vs use_pallas_attention=False
 JPEG_PSNR_BAR = 35.0  # the port's q95 JPEG of the textured frames against their colours
@@ -274,44 +291,6 @@ def k3_counted(where, route="wgmma"):
     return attn.sr_attention.launches
 
 
-def event_ms(fn, iters, warmup=2):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters, replays=5):
-    """Device time of one `fn()` in ms: `iters` calls captured in one CUDA
-    graph, so that no host launch cost lies between them, replayed `replays`
-    times between two CUDA events. For kernels shorter than their launch."""
-    import torch
-
-    fn()  # warm-up outside the capture: builds, plans, allocations
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
-
-
 def label_phases(card):
     """Phases 3-5: K1 and the session label lifter. Returns K1's entry."""
     import numpy as np
@@ -320,6 +299,8 @@ def label_phases(card):
     from fusion3dseg_tpu_torch.io.workload import cpu_label_fuse, make_workload
     from fusion3dseg_tpu_torch.ops import histogram as hist
     from fusion3dseg_tpu_torch.ops import label_fuse as lf
+    from fusion3dseg_tpu_torch.tools.bench import k1_err, k1_row
+    from fusion3dseg_tpu_torch.tools.profiling import event_ms
 
     dev = torch.device("cuda")
 
@@ -334,29 +315,6 @@ def label_phases(card):
                           generator=gen)
         invalid = torch.rand((F, pitch), device=dev, generator=gen) < invalid_share
         return torch.where(invalid, 255, C).to(torch.uint8)[:, :N]
-
-    def check(C, nclasses, threshold):
-        got = hist.histogram_classify(C, nclasses, threshold)
-        want = hist.histogram_classify_reference(C, nclasses, threshold)
-        torch.cuda.synchronize()
-        err = 0
-        for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
-            err = max(err, int((g.long() - w.long()).abs().max()))
-        if err != 0:
-            fail(f"K1 disagrees with its plain version at {tuple(C.shape)}, "
-                 f"stride {C.stride(0)}, nclasses={nclasses}: max abs err {err}")
-        return err
-
-    def timed_k1(C, name):
-        k_ms = graph_ms(lambda: hist.histogram_classify(C, NCLASSES, 0.5), iters=20)
-        F, N = C.shape
-        bytes_moved = F * N + 3 * 4 * N
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * F * N / F32_OPS_PER_S * 1e3  # one compare + one increment per byte
-        return {"shape": f"[{F}, {N}] {name}", "ms": k_ms, "plain_ms": None,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None}, bytes_moved
 
     max_err = 0
     # the main path's layout: the label lifter's own row pitch (rows start on
@@ -381,25 +339,29 @@ def label_phases(card):
              254, 0.5, False)):
         C = make()
         tiled = hist.rows_aligned(C.data_ptr(), C.stride(0), C.shape[0])
-        max_err = max(max_err, check(C, nc, thr))
+        # k1_row holds K1 to its plain version and times both
+        row = k1_row(C, nc, thr) if time_it else {"max_abs_err": k1_err(C, nc, thr)}
+        if row["max_abs_err"] != 0:
+            fail(f"K1 disagrees with its plain version at {tuple(C.shape)}, stride "
+                 f"{C.stride(0)}, nclasses={nc}: max abs err {row['max_abs_err']}")
+        max_err = max(max_err, row["max_abs_err"])
         log(f"kernels: histogram_classify {tuple(C.shape)} stride {C.stride(0)} ({name}; "
             f"{'tiled' if tiled else 'byte'} kernel) nclasses={nc} threshold={thr}: "
             "exact vs plain version")
         if time_it:
-            row, bytes_moved = timed_k1(C, name)
+            row = dict(row, shape=f"{row['shape']} {name}", library_ms=None)
             extra = ""
-            if not rows:  # there also the plain version, and the time between
-                # CUDA events around single calls, as earlier runs read it
-                row["plain_ms"] = event_ms(
-                    lambda: hist.histogram_classify_reference(C, NCLASSES, 0.5), iters=3, warmup=1)
-                e_ms = event_ms(lambda: hist.histogram_classify(C, NCLASSES, 0.5), iters=50)
-                extra = (f"; between events around single calls {e_ms:.4f} ms; "
-                         f"plain version {row['plain_ms']:.3f} ms")
+            if not rows:  # there also the time between CUDA events around
+                # single calls, as earlier runs read it
+                e_ms = event_ms(lambda: hist.histogram_classify(C, NCLASSES, 0.5), iters=50,
+                                warmup=2)
+                extra = f"; between events around single calls {e_ms:.4f} ms"
             log(f"kernels: histogram_classify {row['shape']} {card}: kernel {row['ms']:.4f} ms "
                 f"(in a CUDA graph), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-                f"{bytes_moved / 1e6:.1f} MB at 3.35 TB/s), "
-                f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
-                f"{bytes_moved / (row['ms'] * 1e-3) / 1e12:.3f} TB/s{extra}")
+                f"{row['bytes'] / 1e6:.1f} MB at 3.35 TB/s), "
+                f"{100 * row['share_of_bound']:.1f}% of bound, "
+                f"{row['bytes'] / (row['ms'] * 1e-3) / 1e12:.3f} TB/s; plain version "
+                f"{row['plain_ms']:.3f} ms{extra}")
             rows.append(row)
         del C
         torch.cuda.empty_cache()
@@ -510,23 +472,12 @@ def label_phases(card):
     log("sharded: classes, total, vmax exactly equal to the id_bits=20 headline")
 
     return {
-        "name": "histogram_classify",
-        "route": "cuda",
-        "source": "fusion3dseg_tpu_torch/csrc/histogram.cu",
-        "replaces": "fusion3dseg_tpu/ops/histogram.py:33",
+        **K1_ENTRY,
         "launches": launches,
         "max_abs_err": max_err,
         **rows[0],
         "other_shapes": rows[1:],
     }
-
-
-def _bound(nbytes, ops, dtype_name):
-    """(bound_ms, bound_by): bytes over the memory rate against operations
-    over the peak rate of the inputs' type."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / (BF16_OPS_PER_S if dtype_name == "bf16" else F32_OPS_PER_S) * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def _window_pairs(n, r):
@@ -545,6 +496,7 @@ def attention_phase(card):
 
     from fusion3dseg_tpu_torch import cuda
     from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.tools.profiling import F32_OPS_PER_S, bound_ms, graph_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -571,7 +523,7 @@ def attention_phase(card):
         o_ms = {label: graph_ms(fn, iters=50) for label, fn in (others or {}).items()}
         p_ms = graph_ms(plain, iters=5)
         l_ms = graph_ms(library, iters=50)
-        b_ms, by = _bound(nbytes, ops, dtype)
+        b_ms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S)
         log(f"attention: {name} {shape} {dtype} {card}: kernel {k_ms:.4f} ms, "
             + "".join(f"{label} {ms:.4f} ms, " for label, ms in o_ms.items())
             + f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), "
@@ -2843,6 +2795,83 @@ def parallel_phase(card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def bench_phase(card):
+    """Phase 15: the port's bench (`tools/bench.py`) in-process at cut sizes,
+    with every bar of the full run. Returns (K1's launches in the bench's
+    timed runs, K1's rows on their winner matrices)."""
+    import numpy as np
+    import torch
+
+    from fusion3dseg_tpu_torch.fusion import fusion as fe
+    from fusion3dseg_tpu_torch.ops import histogram as hist
+    from fusion3dseg_tpu_torch.tools import bench
+
+    args = bench.parse_args(BENCH_ARGV)
+    sizes = bench.FusionSizes(ref_frames=BENCH_REF_FRAMES)
+    hist.histogram_classify.launches = 0  # count the bench's launches only
+    t0 = time.perf_counter()
+    result, outputs = bench.run(args, sizes=sizes)
+    wall = time.perf_counter() - t0
+    log(f"bench {card}: {json.dumps(result)}")
+    log(f"bench: cut from the full run (python -m fusion3dseg_tpu_torch.tools.bench): headline "
+        f"{args.npts} x {args.frames}, config 5 {args.tenm_npts} x {args.tenm_frames} (nsub "
+        f"{result['tenm_nsub']}), the reference resolution on {sizes.ref_frames} frames; "
+        f"{wall:.1f} s")
+    for text in result.get("failed_bars", []):
+        fail(f"bench: {text}")
+    launches = result["k1_launches"]
+    want = (1 + args.repeat) + (1 + 2)  # warm-up and timed runs of the headline and config 5
+    if launches != want or hist.histogram_classify.launches < launches:
+        fail(f"bench: K1 launched {launches} times in its timed runs (want {want})")
+    for key, n in (("headline", args.npts), ("10m", args.tenm_npts)):
+        c = outputs[key]["classes"]
+        if c.shape != (n,) or int(c.min()) < 0 or int(c.max()) > args.nclasses:
+            fail(f"bench {key}: classes of shape {c.shape} in [{c.min()}, {c.max()}]")
+    for row in result["k1_rows"]:
+        log(f"bench: K1 {row['shape']} {card}: {row['kernel']} kernel {row['ms']:.4f} ms (in a "
+            f"CUDA graph), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{100 * row['share_of_bound']:.1f}% of bound; plain version {row['plain_ms']:.3f} ms; "
+            f"max abs err {row['max_abs_err']}")
+
+    # the card's classes against the port's lifter on the CPU: the same
+    # workload and cell index (both cached by the run above), bit for bit
+    hw = (args.height, args.width)
+    tenm_cs = max(args.cell_size, 256)  # config5_10m's
+    for key, npts, frames, cs, cache in (
+            ("headline", args.npts, args.frames, args.cell_size, None),
+            ("10m", args.tenm_npts, args.tenm_frames, tenm_cs,
+             bench.cells_cache(args.tenm_npts, args.tenm_frames, hw, tenm_cs))):
+        t0 = time.perf_counter()
+        build, cpu_args, _, _ = bench.cells_run(npts, args.nclasses, hw,
+                                                *bench.cached_workload(npts, frames, hw), cs,
+                                                torch.device("cpu"), cache)
+        cpu_classes = build()(*cpu_args)[1].numpy()
+        same = np.array_equal(outputs[key]["classes"], cpu_classes)
+        log(f"bench {key}: {npts} x {frames} classes on the card equal to the port's lifter on "
+            f"the CPU ({time.perf_counter() - t0:.1f} s) bit for bit: {same}")
+        if not same:
+            fail(f"bench {key}: the card's classes differ from the CPU's at "
+                 f"{int(np.count_nonzero(outputs[key]['classes'] != cpu_classes))} points")
+
+    # the reference-resolution state on the card against the port on the CPU
+    state, uv2pt = outputs["fusion/e2e"]["ref_res"]
+    hw = sizes.ref_hw
+    _, _, rargs = bench.fusion_session(sizes.ref_frames, hw, "cpu")
+    t0 = time.perf_counter()
+    st_cpu, uv_cpu = fe.fuse_session(*rargs, **bench.engine_kw(hw, 1 << 18, 1 << 14, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(state, st_cpu)) and \
+        torch.equal(uv2pt.cpu(), uv_cpu)
+    n = int(state.n)
+    log(f"bench: {hw[0]}x{hw[1]} engine, {sizes.ref_frames} frames, capacity 2^18: n {n} "
+        f"({int(np.count_nonzero(uv2pt.cpu().numpy() >= 0))} pixels mapped); state and uv2pt "
+        f"equal to the port on the CPU ({cpu_s:.1f} s) bit for bit: {same}")
+    if not same or not 0 < n <= 1 << 18 or not bool(torch.isfinite(state.points[:n]).all()):
+        fail(f"bench: the {hw[0]}x{hw[1]} engine state differs from the CPU's or is broken "
+             f"(n {n}, equal {same})")
+    return launches, result["k1_rows"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2937,6 +2966,17 @@ def main():
         for entry in kernels:
             if entry["name"] == "histogram_classify":
                 entry["launches"] += n
+    if "bench" in phases:
+        n, rows = bench_phase(card)
+        rows = [dict(row, shape=f"{row['shape']} {row['kernel']} kernel, bench", library_ms=None)
+                for row in rows]
+        entry = next((e for e in kernels if e["name"] == "histogram_classify"), None)
+        if entry is None:  # without phase 3: the bench's last row is the entry's own
+            entry = dict(K1_ENTRY, launches=0, **rows[-1], other_shapes=[])
+            kernels.append(entry)
+        entry["launches"] += n
+        entry["max_abs_err"] = max(entry["max_abs_err"], *(row["max_abs_err"] for row in rows))
+        entry["other_shapes"] += rows
     log(f"phases {phases} took {time.perf_counter() - t_start:.1f} s")
     log(f"K3 launches by kernel in the counted main-path runs: {json.dumps(K3_ROUTES)}")
 

@@ -295,16 +295,20 @@ def tpu_label_fuse_cells(npts, nclasses, hw, Ks, sizes, threshold=0.5,
     cell lists are conservative supersets and padding duplicates are no-ops.
 
     Returns run(cells_table, cell_lists, K, quats, trans, masks) ->
-    ((total [N], vmax [N]) int32, classes [N] int32) on `device`.
+    ((total [N], vmax [N]) int32, classes [N] int32) on `device`;
+    `run.winners` takes the same arguments and returns the winner matrix C
+    [F, N + 1] uint8 (column N the trash slot) that `run` classifies.
     """
     dev = resolve_device(device)
     nsub = -(-npts // (1 << id_bits))
     z_bits = _z_bits(id_bits)
 
-    def run(cells_table, cell_lists, K, quats, trans, masks):
+    def winners(cells_table, cell_lists, K, quats, trans, masks):
         table = _dev(cells_table, dev, torch.float32)
         xyz = table[..., :3].contiguous()
-        ids = table[..., 3].contiguous().view(torch.int32)  # int32 bits stored as f32
+        # the ids are int32 bits stored in a float32 column; reinterpret
+        # before copying, so that no float operation touches them
+        ids = table.view(torch.int32)[..., 3].contiguous()
         lists = _dev(cell_lists, dev, torch.int64)
         sess = _Session(K, quats, trans, masks, dev)
         C = _winner_matrix(npts, sess.nframes, dev)
@@ -317,8 +321,12 @@ def tpu_label_fuse_cells(npts, nclasses, hw, Ks, sizes, threshold=0.5,
                                         hw, nsub, id_bits, z_bits)
                 _set_row(C, f, win, has, sess.masks[f], npts)
             o += sz
-        return _histogram_classify(C[:, :npts], nclasses, threshold, use_cuda_hist)
+        return C
 
+    def run(*args):
+        return _histogram_classify(winners(*args)[:, :npts], nclasses, threshold, use_cuda_hist)
+
+    run.winners = winners
     return run
 
 
@@ -431,7 +439,7 @@ def tpu_label_fuse_culled_big(npts, nclasses, hw, M, threshold=0.5, shard_bits=2
                          shard_bits, zb, device)
 
 
-def tpu_label_fuse(npts, nclasses, hw, threshold=0.5, device="cuda"):
+def tpu_label_fuse(npts, nclasses, hw, threshold=0.5, use_cuda_hist=True, device="cuda"):
     """Unculled label fusion: every frame z-buffers all npts points. The
     exactness reference for the culled paths.
 
@@ -449,6 +457,6 @@ def tpu_label_fuse(npts, nclasses, hw, threshold=0.5, device="cuda"):
         for f in range(sess.nframes):
             win, has = sess.winners(f, pts, ids, hw, 1, 20, 11)
             _set_row(C, f, win, has, sess.masks[f], npts)
-        return _histogram_classify(C[:, :npts], nclasses, threshold)
+        return _histogram_classify(C[:, :npts], nclasses, threshold, use_cuda_hist)
 
     return run

@@ -19,7 +19,9 @@ past D = 128 at `WIDE_K3` and `WIDE_K2` (the shapes of B2 re-headed to
 num_heads=(1,1,1,2)) and the float32 kernels at the narrow yardsticks (B2's
 two 256x256 calls, [8,1024,1,128]x256; K2 at [8,64*64,1,64]), each beside
 `scaled_dot_product_attention` (masked to the window for K2) on the same
-inputs, saying which is faster, and `b2wide` that model's
+inputs, saying which is faster, and K2's rows beside its plain version
+(`neighborhood_attention_reference`, between CUDA events around single
+calls after a warm-up), and `b2wide` that model's
 predict_batch frames/s at 512x512 (the shipped checkpoint, K3 on, batch 8).
 Each kernel runs 20 times inside one CUDA graph, replayed 5 times between
 two CUDA events. Needs a CUDA device.
@@ -29,13 +31,29 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import subprocess
+import functools
+import importlib.util
 import sys
 import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as nnf
+
+
+def _own_profiling():
+    """This checkout's `tools/profiling.py`, loaded by its path: importing
+    the package here would shadow the `--root` checkout's."""
+    spec = importlib.util.spec_from_file_location(
+        "_time_kernels_profiling", Path(__file__).resolve().with_name("profiling.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_profiling = _own_profiling()
+card_line, event_ms = _profiling.card_line, _profiling.event_ms
+graph_ms = functools.partial(_profiling.graph_ms, iters=20)
 
 # K3's timed shapes (B, N, H, M) at D = 64: SegFormer-B2's calls at batch 8,
 # stages 0 and 1 at 256x256, stages 0-2 at 512x512, stages 0-3 at
@@ -55,26 +73,6 @@ WIDE_K3 = ((8, 4096, 1, 256, 64, "bf16"), (8, 1024, 2, 160, 256, "bf16"),
 WIDE_K2 = ((8, 16, 16, 320, 7, "bf16"), (8, 16, 16, 256, 7, "bf16"), (8, 32, 32, 320, 7, "bf16"),
            (8, 16, 16, 320, 7, "f32"), (8, 64, 64, 64, 7, "f32"))
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def graph_ms(fn, iters=20, replays=5):
-    """Device time of one `fn()` in ms: `iters` calls captured in one CUDA
-    graph, replayed `replays` times between two CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
 
 
 def _versus(ms, lib_ms):
@@ -98,10 +96,7 @@ def main(argv=None):
     from fusion3dseg_tpu_torch.ops import attention as attn
     from fusion3dseg_tpu_torch.ops import histogram as hist
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}; package: {Path(hist.__file__).resolve().parents[2]}")
+    print(f"card: {card_line()}; package: {Path(hist.__file__).resolve().parents[2]}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     F, N = 300, 1_000_000
@@ -146,8 +141,10 @@ def main(argv=None):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = graph_ms(lambda: attn.neighborhood_attention(q, k, v, h, w, window))
         lib = graph_ms(lambda: nnf.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        plain = event_ms(lambda: attn.neighborhood_attention_reference(q, k, v, h, w, window))
         print(f"K2 neighborhood_attention [{B},{h}*{w},1,{D}] window {window} {dt}: {ms:.4f} ms; "
-              f"masked scaled_dot_product_attention {lib:.4f} ms: {_versus(ms, lib)}")
+              f"masked scaled_dot_product_attention {lib:.4f} ms: {_versus(ms, lib)}; "
+              f"plain version {plain:.4f} ms")
     if "b2wide" in kernels:
         from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
         from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
