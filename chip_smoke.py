@@ -56,7 +56,17 @@ Phases (each prints its own lines; any failure exits non-zero):
             D = 256; [8, 64*64] in float32) and 23 beside its bound and the
             masked `scaled_dot_product_attention`; the float32 wide kernel
             (no spill) at ragged grids, windows 9 to 63, D = 129 to 512, B x
-            H = 65,537 at D = 129.
+            H = 65,537 at D = 129. float16 (the float16 instances of every
+            tensor-core kernel, no spill in any): K3 on each route (wgmma on
+            the tensors, mma.sync, wgmma on copies, D = 160, 320, 384 and
+            512) and K2 on each kernel (window 7 staged once, 23 streamed,
+            column pieces, the wide kernel at D = 320 and 384), B x H = 65,537
+            on each, held to the plain version and to the exact float64
+            attention within F16_BAR or two float16 steps; timed at B2's two
+            256x256 K3 calls, [8,1024,1,320]x256, K2 at [8, 64*64] and
+            [8, 16*16] D = 320, window 7, beside float16 SDPA and the bound;
+            the launchers' float16 instances and plans against `_sr_shape` and
+            `_nat_plan`.
 7. segmenter  `Segmenter2D` at SegFormer-B2 width, bfloat16, 256x256, batch 8,
             on a textured synthetic session: the shipped checkpoint through
             the fused spatial-reduction kernel (launches counted, pixel
@@ -75,7 +85,12 @@ Phases (each prints its own lines; any failure exits non-zero):
             plain-version forward, launches counted; the same two in float32
             (512x512: K3's tile kernel at D = 320, 13 launches a forward, all
             on the "f32" route; the neighbourhood stage at 256x256: K2's
-            float32 wide kernel); and `predict`'s contract.
+            float32 wide kernel); in float16, the shipped B2 as a snapshot
+            whose metadata says "float16" (Segmenter2D reads the config from
+            it; K3, 7 launches a forward, frames/s) and the re-headed B2 with a
+            window-7 neighbourhood stage 2 (K2's wide kernel), masks >= 0.999
+            equal to the plain-version float16 forward; and `predict`'s
+            contract.
 8. stream   `stream_segment` on that session: votes' contract, run twice
             bit-identical, classes against predict_batch + vote_and_classify.
 8a. soak    `tools/soak.py`, the long-session soak: 2048 frames at 128x96,
@@ -199,10 +214,14 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 NPTS, NFRAMES, HW, NCLASSES = 1_000_000, 300, (256, 192), 133
-BF16_OPS_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bfloat16 (and float16) on the tensor cores
 EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM exponentials: 16 a clock on each SM, boost clock
 AGREEMENT_BAR = 0.9995
 BF16_BAR, F32_BAR = 2e-2, 1e-4  # attention kernels vs plain versions, unit-normal inputs
+# float16: BF16_BAR is about 1.3 bfloat16 steps at outputs below 4 (2^-6
+# each); float16 has three more bits, so 1.3 of its steps there (2^-9 each),
+# or two steps of the output's magnitude where that is more (`f16_apart`)
+F16_BAR = 2.5e-3
 PIXEL_ACC_BAR, MASK_AGREE_BAR, STREAM_AGREE_BAR = 0.95, 0.999, 0.9
 # the main path on the card against the port on the CPU, and the JAX bar
 # of the overflow repair against the full merge
@@ -289,6 +308,17 @@ def k3_counted(where, route="wgmma"):
     for route, n in routes.items():
         K3_ROUTES[route] += n
     return attn.sr_attention.launches
+
+
+def f16_apart(got, want):
+    """The largest |got - want| in units of the float16 bar: F16_BAR or two
+    float16 steps of the two's magnitude, whichever is larger (<= 1 holds)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -14)
+    bar = (2 * torch.exp2(torch.floor(torch.log2(big)) - 10)).clamp_min(F16_BAR)
+    return float(((got - want).abs() / bar).max())
 
 
 def label_phases(card):
@@ -500,7 +530,7 @@ def attention_phase(card):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    dtypes = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 
     def qkv(shape_q, shape_kv, dtype):
         return [torch.randn(s, device=dev, generator=gen).to(dtypes[dtype])
@@ -509,10 +539,36 @@ def attention_phase(card):
     def held(name, got, want, dtype, what):
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        bar = BF16_BAR if dtype == "bf16" else F32_BAR
-        if got.shape != want.shape or got.dtype != want.dtype or not err <= bar:
+        if dtype == "f16":
+            ok, bar = f16_apart(got, want) <= 1.0, f"{F16_BAR} or two float16 steps"
+        else:
+            bar = BF16_BAR if dtype == "bf16" else F32_BAR
+            ok = err <= bar
+        if got.shape != want.shape or got.dtype != want.dtype or not ok:
             fail(f"{name} {what}: max abs err {err} against its plain version (bar {bar})")
         return err
+
+    def exact_of(q, k, v, window=None, hw=None):
+        """The exact attention of the inputs in float64 (q * scale rounded as
+        the kernels round it, p unrounded); with `window`, masked to it."""
+        scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
+        if window is not None:
+            r = window // 2
+            iy, ix = torch.arange(hw[0], device=dev), torch.arange(hw[1], device=dev)
+            near = ((iy[:, None] - iy[None, :]).abs() <= r)[:, None, :, None] & \
+                ((ix[:, None] - ix[None, :]).abs() <= r)[None, :, None, :]
+            scores = scores.masked_fill(~near.reshape(hw[0] * hw[1], -1), float("-inf"))
+        return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
+
+    def held_exact(name, got, plain, exact, what):
+        """A float16 kernel and its plain version against the exact attention
+        (each within F16_BAR or two float16 steps); returns their errors."""
+        torch.cuda.synchronize()
+        err, plain_err = (float((t.double() - exact).abs().max()) for t in (got, plain))
+        if not (f16_apart(got, exact) <= 1.0 and f16_apart(plain, exact) <= 1.0):
+            fail(f"{name} {what} float16: {err} (plain version {plain_err}) from the exact "
+                 f"attention, past {F16_BAR} or two float16 steps")
+        return err, plain_err
 
     def timed(entry, name, shape, dtype, kernel, plain, library, nbytes, ops, others=None):
         # these kernels are shorter than a launch from Python: time them in
@@ -523,14 +579,14 @@ def attention_phase(card):
         o_ms = {label: graph_ms(fn, iters=50) for label, fn in (others or {}).items()}
         p_ms = graph_ms(plain, iters=5)
         l_ms = graph_ms(library, iters=50)
-        b_ms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S)
+        b_ms, by = bound_ms(nbytes, ops, F32_OPS_PER_S if dtype == "f32" else BF16_OPS_PER_S)
         log(f"attention: {name} {shape} {dtype} {card}: kernel {k_ms:.4f} ms, "
             + "".join(f"{label} {ms:.4f} ms, " for label, ms in o_ms.items())
             + f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), "
             f"{100 * b_ms / k_ms:.1f}% of bound; plain version {p_ms:.4f} ms; "
             f"scaled_dot_product_attention {l_ms:.4f} ms: the kernel "
             + (f"{l_ms / k_ms:.2f}x faster" if k_ms < l_ms else f"{k_ms / l_ms:.2f}x slower"))
-        row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        row = {"shape": shape, "dtype": dtype, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                "bound_by": by, "library_ms": l_ms,
                **{f"{label.split()[0]}_ms": ms for label, ms in o_ms.items()}}
         if "ms" not in entry:  # the first timed shape is the entry's own
@@ -540,8 +596,10 @@ def attention_phase(card):
 
     def resources(fn, lib, names, new):
         """Each instance's registers and spilled bytes (cudaFuncGetAttributes);
-        fails where one of the `new` (wide) kernels spills."""
+        fails where one of the `new` (wide) kernels spills, or where a float16
+        instance ("<name>_f16") spills more than its bfloat16 twin."""
         fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+        local = {}
         for name in names:
             out = (ctypes.c_int * 4)()
             err = fn(name.encode(), out)
@@ -549,8 +607,14 @@ def attention_phase(card):
                 fail(f"{lib}: no attributes for {name} (error {err})")
             log(f"attention: {lib} {name}: {out[0]} registers a thread, {out[1]} bytes local "
                 f"(spilled) a thread, {out[2]} bytes static shared, up to {out[3]} threads")
+            local[name] = out[1]
             if name in new and out[1] != 0:
                 fail(f"{lib} {name}: {out[1]} bytes of local memory a thread (a spill)")
+        for name, n in local.items():
+            twin = name.removesuffix("_f16")
+            if name != twin and n > local.get(twin, 0):
+                fail(f"{lib} {name}: {n} bytes of local memory a thread, its bfloat16 twin "
+                     f"{local.get(twin, 0)}")
 
     # ---- K3, spatial-reduction attention: each bfloat16 case through
     # `sr_attention` (the wgmma kernel on every layout here) and, where its
@@ -567,15 +631,17 @@ def attention_phase(card):
     # the wgmma launcher's instance choice against its mirror in
     # ops/attention.py, and the resources of each instance (no spills)
     shape_fn = cuda.load("sr_attention").f3s_sr_shape
-    shape_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
+    shape_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int64)]
     got_shape = (ctypes.c_int64 * 5)()
-    for D in range(1, 513):
-        for M in (1, 64, 65, 1024):
-            if shape_fn(D, M, got_shape) != 0 or tuple(got_shape) != tuple(attn._sr_shape(D, M)):
-                fail(f"sr_attention: the launcher takes {tuple(got_shape)} at D {D}, M {M}; "
-                     f"_sr_shape {attn._sr_shape(D, M)}")
+    for code in (1, 2):  # bfloat16, float16: the same instances
+        for D in range(1, 513):
+            for M in (1, 64, 65, 1024):
+                if shape_fn(code, D, M, got_shape) != 0 or \
+                        tuple(got_shape) != tuple(attn._sr_shape(D, M)):
+                    fail(f"sr_attention: the launcher takes {tuple(got_shape)} at D {D}, M "
+                         f"{M}, dtype {code}; _sr_shape {attn._sr_shape(D, M)}")
     log("attention: sr_attention: the launcher's instance equals _sr_shape for D 1-512 "
-        "(DP 64, 128, 192, 256, 320; column blocks past 320)")
+        "(DP 64, 128, 192, 256, 320; column blocks past 320), bfloat16 and float16")
     # the float32 tile kernel's instance (DP, keys a unit, units, shared
     # bytes) against `_sr_f32_shape`
     f32_shape = cuda.load("sr_attention").f3s_sr_f32_shape
@@ -588,10 +654,13 @@ def attention_phase(card):
     log("attention: sr_attention: the float32 launcher's instance equals _sr_f32_shape for "
         "D 1-700 (DP 64 to 320; column chunks and blocks past 320)")
     f32_tiles = tuple(f"f32_tile_{dp}" for dp in (64, 128, 192, 256, 320))
+    sr_two_byte = ("wgmma_64_64", "wgmma_64_128", "wgmma_128_64", "wgmma_192_64",
+                   "wgmma_256_64", "wgmma_320_32", "wide", "mma_16", "mma_32", "mma_64",
+                   "mma_128")
+    sr_f16 = tuple(f"{name}_f16" for name in sr_two_byte)
     resources(cuda.load("sr_attention").f3s_sr_resources, "sr_attention",
-              ("wgmma_64_64", "wgmma_64_128", "wgmma_128_64", "wgmma_192_64", "wgmma_256_64",
-               "wgmma_320_32", "wide", *f32_tiles),
-              new=("wgmma_192_64", "wgmma_320_32", *f32_tiles))
+              (*sr_two_byte, *f32_tiles, *sr_f16),
+              new=("wgmma_192_64", "wgmma_320_32", *f32_tiles, *sr_f16))  # none spills
     b2_calls = [(8, N, H, 64, M, "bf16", True) for N, H, M in (
         (4096, 1, 64), (1024, 2, 64), (16384, 1, 256), (4096, 2, 256), (1024, 5, 256),
         (65536, 1, 1024), (16384, 2, 1024), (4096, 5, 1024), (1024, 8, 1024))]
@@ -629,18 +698,33 @@ def attention_phase(card):
             (8, 4096, 1, 64, 64, "f32", True), (8, 1024, 2, 64, 64, "f32", True),
             (8, 1024, 1, 128, 256, "f32", True), (2, 333, 1, 321, 1, "f32", False),
             (1, 200, 1, 320, 5000, "f32", False), (1, 300, 2, 512, 77, "f32", False),
-            (3, 65, 1, 160, 1, "f32", False), (2, 100, 1, 129, 5000, "f32", False)):
+            (3, 65, 1, 160, 1, "f32", False), (2, 100, 1, 129, 5000, "f32", False),
+            # float16 (the float16 instances; mma.sync named where its shared
+            # memory holds the keys): B2's two 256x256 calls and
+            # [8,1024,1,320]x256 (DP = 320) timed beside float16 SDPA; ragged N
+            # and M, keys in tiles and streamed, DP = 192, past D = 320 (column
+            # blocks); each also held to the exact attention
+            (8, 4096, 1, 64, 64, "f16", True), (8, 1024, 2, 64, 64, "f16", True),
+            (8, 1024, 1, 320, 256, "f16", True), (1, 1000, 3, 32, 37, "f16", False),
+            (2, 700, 2, 64, 257, "f16", False), (1, 777, 2, 64, 2048, "f16", False),
+            (8, 1024, 2, 160, 256, "f16", False), (1, 999, 3, 384, 300, "f16", False),
+            (1, 600, 1, 512, 100, "f16", False)):
         q, k, v = qkv((B, N, H, D), (B, M, H, D), dtype)
         shape = f"[{B},{N},{H},{D}]x[{B},{M},{H},{D}]"
         route = attn._sr_route(q, k, v)
-        if route != ("wgmma" if dtype == "bf16" else "f32"):
+        if route != ("f32" if dtype == "f32" else "wgmma"):
             fail(f"sr_attention {shape} {dtype}: routed to {route}")
         want = attn.sr_attention_reference(q, k, v)
-        err = held("sr_attention", attn.sr_attention(q, k, v), want, dtype, shape)
+        got = attn.sr_attention(q, k, v)
+        err = held("sr_attention", got, want, dtype, shape)
         line = f"attention: sr_attention {shape} {dtype}: {route} max abs err {err:.3e}"
         if route == "wgmma" and D > 128:
             line += f" ({attn._sr_shape(D, M)})"
-        mma = dtype == "bf16" and attn._mma_fits(M, D)
+        if dtype == "f16":
+            e, pe = held_exact("sr_attention", got, want, exact_of(q, k, v), shape)
+            line += f" (exact: {e:.3e}, plain version {pe:.3e})"
+        del got
+        mma = dtype != "f32" and attn._mma_fits(M, D)
         if mma:
             err_mma = held("sr_attention (mma)", attn.launch_sr_attention(q, k, v, "mma"),
                            want, dtype, shape)
@@ -693,6 +777,25 @@ def attention_phase(card):
         refusal = str(e)
     log(f"attention: sr_attention [2,300,1,160]x[2,40,1,160] bf16, q 8 bytes off 16 (copied "
         f"for wgmma): max abs err {err:.3e} vs plain version; the mma route: {refusal!r}")
+    # float16 on a layout TMA cannot describe (q's base 8 bytes off 16): the
+    # mma.sync kernel at 40 keys, wgmma on copies at 1024 (past what mma.sync
+    # holds)
+    for M, want_route in ((40, "mma"), (1024, "wgmma")):
+        flat = torch.randn(4 + 2 * 300 * 64, device=dev, generator=gen).half()
+        q = flat[4:].view(2, 300, 1, 64)
+        k, v = (torch.randn((2, M, 1, 64), device=dev, generator=gen).half() for _ in "kv")
+        route = attn._sr_route(q, k, v)
+        if route != want_route:
+            fail(f"sr_attention float16, q 8 bytes off 16, M = {M}: routed to {route}")
+        before = attn.sr_attention.routes[route]
+        got, plain = attn.sr_attention(q, k, v), attn.sr_attention_reference(q.contiguous(), k, v)
+        if attn.sr_attention.routes[route] != before + 1:
+            fail(f"sr_attention float16 at M = {M} did not launch {route}")
+        err = held("sr_attention", got, plain, "f16", f"q 8 bytes off 16, M = {M}")
+        e, pe = held_exact("sr_attention", got, plain, exact_of(q, k, v), f"M = {M}")
+        sra["max_abs_err"] = max(sra["max_abs_err"], err)
+        log(f"attention: sr_attention [2,300,1,64]x[2,{M},1,64] f16, q 8 bytes off 16: {route} "
+            f"max abs err {err:.3e} vs plain version (exact: {e:.3e}, plain version {pe:.3e})")
     # batch x heads past the 65,535 a grid axis holds: every kernel. A
     # pair's output must not depend on how many pairs share the call (the
     # grid kernels take them in runs of 65,535, wgmma walks a flat list), so
@@ -706,15 +809,22 @@ def attention_phase(card):
             fail(f"{what}: the 65,537-pair result differs from the same pairs as 65,535 + 2")
         return whole
 
-    for dtype, route in (("f32", "f32"), ("bf16", "wgmma"), ("bf16", "mma")):
+    for dtype, route in (("f32", "f32"), ("bf16", "wgmma"), ("bf16", "mma"), ("f16", "wgmma"),
+                         ("f16", "mma")):
         q, k, v = qkv((65537, 16, 1, 16), (65537, 64, 1, 16), dtype)
         got = by_pairs(lambda *t: attn.launch_sr_attention(*t, route), q, k, v,
                        f"sr_attention on {route}")
-        err = held("sr_attention", got, attn.sr_attention_reference(q, k, v), dtype,
-                   f"B x H = 65537 on {route}")
+        plain = attn.sr_attention_reference(q, k, v)
+        err = held("sr_attention", got, plain, dtype, f"B x H = 65537 on {route}")
         sra["max_abs_err"] = max(sra["max_abs_err"], err)
+        line = ""
+        if dtype == "f16":
+            e, pe = held_exact("sr_attention", got, plain, exact_of(q, k, v), route)
+            line = f" (exact: {e:.3e}, plain version {pe:.3e})"
         log(f"attention: sr_attention [65537,16,1,16]x[65537,64,1,16] {dtype} on {route}: "
-            f"max abs err {err:.3e} vs plain version; equal bit for bit to 65,535 + 2 pairs")
+            f"max abs err {err:.3e} vs plain version{line}; equal bit for bit to 65,535 + 2 "
+            "pairs")
+        del got, plain
     # float32 past D = 128: the tile kernel at D = 160 (DP = 192)
     q, k, v = qkv((65537, 16, 1, 160), (65537, 8, 1, 160), "f32")
     got = by_pairs(attn.sr_attention, q, k, v, "sr_attention f32 at D = 160")
@@ -744,9 +854,7 @@ def attention_phase(card):
         g = torch.Generator(device=where).manual_seed(seed)
         q, k, v = (torch.randn(s, generator=g, device=where).bfloat16().to(dev)
                    for s in ((65537, N, 1, D), (65537, M, 1, D), (65537, M, 1, D)))
-        scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
-        exact = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
-        del scores
+        exact = exact_of(q, k, v)
         plain = attn.sr_attention_reference(q, k, v).double()
         plain_err = float((plain - exact).abs().max())
         for route in ("wgmma", "mma"):
@@ -791,9 +899,26 @@ def attention_phase(card):
                     cases += 1
     log(f"attention: neighborhood_attention: the launcher's chunk plan equals _nat_plan in "
         f"{cases} cases (odd windows 1-255, D 8-512, widths 1-256, both dtypes)")
+    cases = 0  # float16 stages as bfloat16 does: the same plans
+    for D in (8, 64, 128, 129, 320, 512):
+        for window in range(1, 64, 2):
+            for w in (1, 5, 9, 16, 17, 64, 70, 256):
+                want_plan = tuple(attn._nat_plan(window, D, torch.float16, w))
+                if plan_fn(2, window, D, w, got_plan) != 0 or tuple(got_plan) != want_plan:
+                    fail(f"neighborhood_attention: the launcher plans {tuple(got_plan)} for "
+                         f"window {window}, D {D}, float16, width {w}; _nat_plan {want_plan}")
+                cases += 1
+    log(f"attention: neighborhood_attention: float16's chunk plan equals _nat_plan in {cases} "
+        "cases (odd windows 1-63, D 8-512, widths 1-256)")
+    # the narrow kernel at D <= 64 (NK2 = 1, 2) holds four blocks an SM, 128
+    # registers a thread: its bfloat16 instances spill 8 and 24 bytes, its
+    # float16 twin at NK2 = 2 16 bytes, held to its twin's
+    nat_two_byte = ("mma_wide", "mma_wide_online", "mma_1", "mma_2", "mma_3", "mma_4")
+    nat_f16 = tuple(f"{name}_f16" for name in nat_two_byte)
     resources(cuda.load("neighborhood_attention").f3s_nat_resources, "neighborhood_attention",
-              ("mma_wide", "mma_wide_online", "f32_wide", "mma_2", "mma_4", "f32_16"),
-              new=("mma_wide", "mma_wide_online", "f32_wide"))
+              (*nat_two_byte, "f32_wide", "f32_16", *nat_f16),
+              new=("mma_wide", "mma_wide_online", "f32_wide", "mma_wide_f16",
+                   "mma_wide_online_f16", "mma_3_f16", "mma_4_f16"))
     for B, h, w, H, D, window, dtype, time_it in (
             (8, 64, 64, 1, 64, 7, "bf16", True), (2, 128, 128, 1, 64, 7, "bf16", True),
             (1, 9, 11, 2, 8, 5, "f32", False),
@@ -836,15 +961,32 @@ def attention_phase(card):
             # the window
             (8, 64, 64, 1, 64, 7, "f32", True), (1, 30, 27, 1, 320, 23, "f32", False),
             (1, 33, 40, 2, 384, 11, "f32", False), (2, 13, 21, 1, 321, 9, "f32", False),
-            (1, 5, 3, 1, 200, 63, "f32", False)):
+            (1, 5, 3, 1, 200, 63, "f32", False),
+            # float16 (the float16 instances), each also held to the exact
+            # attention (p float32-grade: a high part and a float16 remainder,
+            # subnormal below p of about 0.12): window 7 at B2's stage 0 and D =
+            # 320 on 16 x 16 tokens timed beside float16 SDPA; window 23
+            # streamed in bands, rows in column pieces, element copies, the wide
+            # kernel's chunk scores online, two column blocks
+            (8, 64, 64, 1, 64, 7, "f16", True), (8, 16, 16, 1, 320, 7, "f16", True),
+            (2, 64, 64, 1, 64, 23, "f16", False), (1, 12, 100, 1, 128, 63, "f16", False),
+            (1, 9, 9, 3, 7, 3, "f16", False), (1, 30, 27, 1, 320, 23, "f16", False),
+            (1, 33, 40, 2, 384, 11, "f16", False)):
         N = h * w
         q, k, v = qkv((B, N, H, D), (B, N, H, D), dtype)
         shape = f"[{B},{h}*{w},{H},{D}] window {window}"
-        err = held("neighborhood_attention", attn.neighborhood_attention(q, k, v, h, w, window),
-                   attn.neighborhood_attention_reference(q, k, v, h, w, window), dtype, shape)
+        got = attn.neighborhood_attention(q, k, v, h, w, window)
+        plain = attn.neighborhood_attention_reference(q, k, v, h, w, window)
+        err = held("neighborhood_attention", got, plain, dtype, shape)
         nat["max_abs_err"] = max(nat["max_abs_err"], err)
-        log(f"attention: neighborhood_attention {shape} {dtype}: max abs err {err:.3e} "
-            f"vs plain version; {attn._nat_plan(window, D, dtypes[dtype], w)}")
+        line = f"attention: neighborhood_attention {shape} {dtype}: max abs err {err:.3e} " \
+            f"vs plain version; {attn._nat_plan(window, D, dtypes[dtype], w)}"
+        if dtype == "f16":
+            e, pe = held_exact("neighborhood_attention", got, plain,
+                               exact_of(q, k, v, window, (h, w)), shape)
+            line += f"; exact: {e:.3e}, plain version {pe:.3e}"
+        log(line)
+        del got, plain
         if time_it:
             r = window // 2
             iy, ix = torch.arange(h, device=dev), torch.arange(w, device=dev)
@@ -865,7 +1007,7 @@ def attention_phase(card):
 
     # batch x heads past the 65,535 a grid axis holds; float32 also past D =
     # 128 (the wide kernel, D = 129: element copies)
-    for dtype, D in (("f32", 8), ("bf16", 8), ("f32", 129)):
+    for dtype, D in (("f32", 8), ("bf16", 8), ("f32", 129), ("f16", 8)):
         q, k, v = qkv((65537, 16, 1, D), (65537, 16, 1, D), dtype)
         got = by_pairs(lambda *t: attn.neighborhood_attention(*t, 4, 4, 3), q, k, v,
                        "neighborhood_attention")
@@ -1123,6 +1265,48 @@ def segmenter_phase(card):
     masks_of(seg_nat)  # warm-up
     _, n = compare("B2 num_heads=(1,1,1,2), nat_windows=(0,0,7,0), float32", seg_nat, plain_nat,
                    {"sr": 7, "nat": 6}, NAT_MASK_AGREE_BAR, route="f32")
+    sra_launches += n["sr"]
+    nat_launches += n["nat"]
+    del seg_nat, plain_nat
+
+    # float16: the shipped B2 as a snapshot whose metadata says "float16"
+    # (and use_pallas_attention), Segmenter2D reading its config from the
+    # file, at 256x256, batch 8: K3's float16 wgmma instance, 7 launches a
+    # forward; then the re-headed B2 with stage 2 a window-7 neighbourhood
+    # stage in float16 (K2's float16 wide kernel at D = 320 beside K3 in
+    # stages 0 and 1). Masks against the plain-version float16 forward
+    import shutil
+    import tempfile
+
+    cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
+    work = Path(tempfile.mkdtemp(prefix="f3s_f16_"))
+    try:
+        snap = work / "b2_float16.npz"
+        convert.save_params_npz(snap, convert.load_params_npz(ckpt), input_hw=(256, 256),
+                                config=cfg16)
+        seg16, plain16 = (Segmenter2D(checkpoint_dir=snap, batch_size=batch, device="cuda",
+                                      use_cuda_attention=use) for use in (True, False))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if seg16.config != cfg16 or seg16.input_hw != (256, 256):
+        fail(f"the float16 snapshot resolved to {seg16.config}, {seg16.input_hw}")
+    masks_of(seg16)  # warm-up
+    _, n = compare("shipped B2 float16 from the snapshot's metadata, use_pallas_attention",
+                   seg16, plain16, {"sr": 7}, MASK_AGREE_BAR)
+    sra_launches += n["sr"]
+    del plain16
+    throughput(seg16)
+    del seg16
+    cfg16_nat = dataclasses.replace(cfg_wide_nat, dtype=torch.float16)
+    state = convert.from_flax_params(less_reduction(2), cfg16_nat)
+    seg_nat, plain_nat = (Segmenter2D(cfg16_nat, input_hw=(256, 256), batch_size=batch,
+                                      device="cuda", use_cuda_attention=use)
+                          for use in (True, False))
+    for s in (seg_nat, plain_nat):
+        s.model.load_state_dict(state)
+    masks_of(seg_nat)  # warm-up
+    _, n = compare("B2 num_heads=(1,1,1,2), nat_windows=(0,0,7,0), float16", seg_nat,
+                   plain_nat, {"sr": 7, "nat": 6}, MASK_AGREE_BAR)
     sra_launches += n["sr"]
     nat_launches += n["nat"]
     del seg_nat, plain_nat

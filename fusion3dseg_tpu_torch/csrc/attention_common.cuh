@@ -1,13 +1,18 @@
 // Helpers shared by the attention kernels: conversions between the storage
-// type T (float or __nv_bfloat16) and float32, vector loads of a lane's
-// chunk of a row, the strides of a [B, tokens, H, D] tensor, the bfloat16
-// tensor-core product (mma.sync m16n8k16) with its fragment loads
-// (ldmatrix), and 16-byte asynchronous copies into shared memory.
+// type T (float, __nv_bfloat16 or __half) and float32, vector loads of a
+// lane's chunk of a row, the strides of a [B, tokens, H, D] tensor, the
+// tensor-core product of the two 16-bit types (mma.sync m16n8k16, bfloat16
+// or float16 in, float32 accumulators) with its fragment loads (ldmatrix),
+// and 16-byte asynchronous copies into shared memory. Every conversion
+// between a 16-bit type and float goes through the CUDA intrinsics; float16
+// keeps its subnormals both ways (round to nearest, no flush to zero).
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -21,13 +26,40 @@ template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
+}
+
+// The tensor-core element types: a pair of them in one 32-bit word, the
+// first in the low half
+template <typename E> constexpr bool kIsHalf = std::is_same<E, __half>::value;
+template <typename E> __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  static_assert(std::is_same<E, __nv_bfloat16>::value || kIsHalf<E>, "a 16-bit float");
+  uint32_t w;
+  if constexpr (kIsHalf<E>) {
+    const __half2 v = __floats2half2_rn(lo, hi);  // .x (low half) = lo
+    w = *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    w = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  return w;
+}
+template <typename E> __device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (kIsHalf<E>) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  }
 }
 
 // DPL consecutive elements of type T at `p` (aligned to min(16, DPL *
@@ -55,11 +87,12 @@ __device__ __forceinline__ void load_chunk(const T* p, float (&out)[DPL]) {
   if constexpr (sizeof(T) == 4) {
 #pragma unroll
     for (int i = 0; i < DPL; ++i) out[i] = __uint_as_float(w[i]);
-  } else {  // two bfloat16 per word, the first in the low half
+  } else {  // two 16-bit floats per word, the first in the low half
 #pragma unroll
     for (int i = 0; i < W; ++i) {
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      const float2 x = unpack2<T>(w[i]);
+      out[2 * i] = x.x;
+      out[2 * i + 1] = x.y;
     }
   }
 }
@@ -81,7 +114,7 @@ int over_batch_heads(int64_t batch_heads, F launch) {
   return 0;
 }
 
-// ---- bfloat16 on the tensor cores
+// ---- bfloat16 and float16 on the tensor cores
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -92,26 +125,29 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// c[16x8] += a[16x16] * b[16x8], bfloat16 in, float32 accumulators. A lane
-// (g = lane / 4, t = lane % 4) holds: a0..a3 = rows g, g + 8, g, g + 8 at
-// columns 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3); b0, b1 = column g
-// at rows 2t, 2t + 1 and 2t + 8, 2t + 9; c0, c1 = row g, c2, c3 = row g + 8,
-// at columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c[16x8] += a[16x16] * b[16x8], E (bfloat16 or float16) in, float32
+// accumulators. A lane (g = lane / 4, t = lane % 4) holds: a0..a3 = rows g,
+// g + 8, g, g + 8 at columns 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2,
+// a3); b0, b1 = column g at rows 2t, 2t + 1 and 2t + 8, 2t + 9; c0, c1 = row
+// g, c2, c3 = row g + 8, at columns 2t, 2t + 1. The two types share the
+// fragment layout.
+#define F3S_MMA16816(TY)                                                        \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "       \
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"        \
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <typename E>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (kIsHalf<E>) {
+    F3S_MMA16816("f16");
+  } else {
+    F3S_MMA16816("bf16");
+  }
 }
+#undef F3S_MMA16816
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Four 8x8 bfloat16 matrices from shared memory: lane L gives the 16-byte
+// Four 8x8 matrices of 16-bit elements from shared memory: lane L gives the 16-byte
 // row L % 8 of matrix L / 8; every lane receives, of each matrix, row
 // lane / 4, columns 2 * (lane % 4) and the next. `.trans` hands out the
 // transposed matrices: rows 2 * (lane % 4) and the next, column lane / 4.

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as inline PTX: mbarriers, TMA tensor copies
 // between device and shared memory, shared-memory matrix descriptors and the
-// warpgroup products (wgmma) of bfloat16 with float32 accumulators.
+// warpgroup products (wgmma) of bfloat16 or float16 with float32
+// accumulators.
 //
-// Shared-memory tiles here are rows of 128 bytes (64 bfloat16) in TMA's
+// Shared-memory tiles here are rows of 128 bytes (64 16-bit elements) in TMA's
 // 128-byte swizzle: the 16-byte piece c of row r lies at piece c ^ (r % 8),
 // and every tile starts on a 1024-byte boundary.
 
@@ -10,7 +11,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing of libcuda is linked
 
-#include "attention_common.cuh"  // smem_addr
+#include "attention_common.cuh"  // smem_addr, kIsHalf
 
 namespace f3s {
 
@@ -131,42 +132,66 @@ template <int R> __device__ __forceinline__ void pin(uint32_t (&r)[R]) {
 // Accumulator layout of m64nN (thread t of the warpgroup, w = t / 32,
 // g = t % 32 / 4, c = t % 4): d[4j], d[4j + 1] hold row 16w + g, columns
 // 8j + 2c and 8j + 2c + 1; d[4j + 2], d[4j + 3] the same columns of row
-// 16w + g + 8. Columns 16i .. 16i + 15 of it (d[8i .. 8i + 7], as bfloat16
-// pairs) are the register A operand of a k16 product, unchanged.
-template <int N> struct Wgmma;
+// 16w + g + 8. Columns 16i .. 16i + 15 of it (d[8i .. 8i + 7], as pairs of
+// the input type) are the register A operand of a k16 product, unchanged.
+// E, the input type, is __nv_bfloat16 or __half: the products of the two
+// are the same instruction with another type, the same shapes, fragment
+// layouts and descriptors.
+//
+// The accumulator's operands: 8 from d[i] on, and its N / 2 register names
+#define F3S_D8(d, i)                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define F3S_D16(d, i) F3S_D8(d, i), F3S_D8(d, i + 8)
+#define F3S_D32(d, i) F3S_D16(d, i), F3S_D16(d, i + 16)
+#define F3S_D64(d, i) F3S_D32(d, i), F3S_D32(d, i + 32)
+#define F3S_D128(d) F3S_D64(d, 0), F3S_D64(d, 64)
+#define F3S_R16                                                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define F3S_R32                                                                     \
+  F3S_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define F3S_R64                                                                     \
+  F3S_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "   \
+          "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define F3S_R128                                                                    \
+  F3S_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "  \
+          "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, " \
+          "%95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "  \
+          "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "    \
+          "%122, %123, %124, %125, %126, %127"
+// One wgmma of shape SHAPE on TY inputs: accumulator names REGS, then the
+// A and B operands and the immediates (REST); the accumulate flag (scale-d)
+// is the operand named PRED
+#define F3S_WGMMA(SHAPE, TY, REGS, REST, PRED)                                       \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                                  \
+  "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " {" REGS "}, " REST ";\n}\n"
+// The product for E: the float16 or the bfloat16 form of one asm statement
+#define F3S_WGMMA_E(E, SHAPE, REGS, REST, PRED, OUTS, ...)                          \
+  if constexpr (kIsHalf<E>) {                                                        \
+    asm volatile(F3S_WGMMA(SHAPE, "f16", REGS, REST, PRED) : OUTS : __VA_ARGS__);   \
+  } else {                                                                           \
+    asm volatile(F3S_WGMMA(SHAPE, "bf16", REGS, REST, PRED) : OUTS : __VA_ARGS__);  \
+  }
 
-template <> struct Wgmma<32> {
+template <int N, typename E> struct Wgmma;
+
+template <typename E> struct Wgmma<32, E> {
   // d[64 x 32] (+)= A[64 x 16] * B[16 x 32]; A and B from shared memory
   // (descriptors), both K-major
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
+    F3S_WGMMA_E(E, "m64n32k16", F3S_R16, "%16, %17, p, 1, 1, 0, 0", "%18",
+                F3S_D16(d, 0), "l"(a), "l"(b), "r"(scale_d))
   }
 };
 
-template <> struct Wgmma<64> {
+template <typename E> struct Wgmma<64, E> {
   // d[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B from shared memory
   // (descriptors), both K-major
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+    F3S_WGMMA_E(E, "m64n64k16", F3S_R32, "%32, %33, p, 1, 1, 0, 0", "%34", F3S_D32(d, 0),
+                "l"(a), "l"(b), "r"(scale_d))
   }
   // d[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A from registers (fragment
   // layout of an m64nNk16 accumulator's 16 columns), B from shared memory,
@@ -174,42 +199,18 @@ template <> struct Wgmma<64> {
   static __device__ __forceinline__ void rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                             uint32_t a2, uint32_t a3, uint64_t b,
                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+    F3S_WGMMA_E(E, "m64n64k16", F3S_R32, "{%32, %33, %34, %35}, %36, p, 1, 1, 1", "%37",
+                F3S_D32(d, 0), "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d))
   }
 };
 
-template <> struct Wgmma<128> {
+template <typename E> struct Wgmma<128, E> {
   // d[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B from shared memory
   // (descriptors), both K-major
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+    F3S_WGMMA_E(E, "m64n128k16", F3S_R64, "%64, %65, p, 1, 1, 0, 0", "%66", F3S_D64(d, 0),
+                "l"(a), "l"(b), "r"(scale_d))
   }
   // d[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A from registers (fragment
   // layout of an m64nNk16 accumulator's 16 columns), B from shared memory,
@@ -217,64 +218,33 @@ template <> struct Wgmma<128> {
   static __device__ __forceinline__ void rs(float (&d)[64], uint32_t a0, uint32_t a1,
                                             uint32_t a2, uint32_t a3, uint64_t b,
                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+    F3S_WGMMA_E(E, "m64n128k16", F3S_R64, "{%64, %65, %66, %67}, %68, p, 1, 1, 1", "%69",
+                F3S_D64(d, 0), "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d))
   }
 };
 
-template <> struct Wgmma<256> {
+template <typename E> struct Wgmma<256, E> {
   // d[64 x 256] (+)= A[64 x 16] * B[16 x 256]; A from registers (fragment
   // layout of an m64nNk16 accumulator's 16 columns), B from shared memory,
   // MN-major
   static __device__ __forceinline__ void rs(float (&d)[128], uint32_t a0, uint32_t a1,
                                             uint32_t a2, uint32_t a3, uint64_t b,
                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+    F3S_WGMMA_E(E, "m64n256k16", F3S_R128, "{%128, %129, %130, %131}, %132, p, 1, 1, 1",
+                "%133", F3S_D128(d), "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d))
   }
 };
+
+#undef F3S_WGMMA_E
+#undef F3S_WGMMA
+#undef F3S_R128
+#undef F3S_R64
+#undef F3S_R32
+#undef F3S_R16
+#undef F3S_D128
+#undef F3S_D64
+#undef F3S_D32
+#undef F3S_D16
+#undef F3S_D8
 
 }  // namespace f3s

@@ -5,7 +5,8 @@
 //
 // Replaces the TPU kernel fusion3dseg_tpu/ops/attention.py `_nat_kernel`
 // (Pallas, reached through `neighborhood_attention`). For q, k, v
-// [B, N = height * width, H, D] of type T (bfloat16 or float32), per query:
+// [B, N = height * width, H, D] of type T (float32, bfloat16 or float16), per
+// query:
 //   qs = T(float(q) * scale)             scale = T(1 / sqrt(D)), given
 //   s_j = sum_d qs_d * k_jd              float32, over the keys j of the
 //                                        window that lie inside the image
@@ -34,9 +35,9 @@
 // softmax carry from chunk to chunk, as the TPU kernel's carry across its
 // rows of keys (`dy_step`). Where the whole clamped halo fits the budget
 // (`kBudget`, four blocks an SM) it is one chunk in one buffer, staged once:
-// window 7 at D <= 64 in bfloat16, as before. So any odd window runs, at
+// window 7 at D <= 64 in bfloat16 or float16, as before. So any odd window runs, at
 // any width, with at most kBudget bytes (or the 64 output rows of the
-// bfloat16 kernel's store, whichever is more) of shared memory a block;
+// two-byte kernel's store, whichever is more) of shared memory a block;
 // `nat_plan` chooses and ops/attention.py `_nat_plan` mirrors it. Each K/V
 // element is read from L2 once for every tile whose halo holds it, (1 +
 // 2r/8)^2 times in the interior (3.06 at window 7) instead of window^2
@@ -46,7 +47,8 @@
 // height % tile requirement: a ragged tile computes on zeros and does not
 // store.
 //
-// * bfloat16 (`nat_mma_kernel`): both products on the tensor cores, mma.sync
+// * bfloat16 and float16 (`nat_mma_kernel`, a template on the element type E
+//   with an instance for each): both products on the tensor cores, mma.sync
 //   m16n8k16. A warp owns 16 queries, two rows of the tile, and multiplies
 //   them against every key of a chunk on the rows its queries see (at most
 //   2 + 2r of them), each row cut into slots of 8 columns. Keys outside a
@@ -59,8 +61,10 @@
 //   position-major chunk by ldmatrix (V's transposed by the instruction),
 //   rows of D + 8 elements so that the eight rows of a matrix fall on
 //   different banks. The probabilities stay float32-grade: p is split into a
-//   bfloat16 high part and a bfloat16 remainder and the second product runs
-//   on both, so the plain version needs no rounding of p. The output goes
+//   high part and a remainder, both in E, and the second product runs on
+//   both, so the plain version needs no rounding of p. (In float16 the
+//   remainder of a p below about 0.12 is a subnormal, kept to 2^-24: p is
+//   still within 2^-24 of float32's, against output steps of 2^-11.) The output goes
 //   through the first buffer's room in shared memory, so that a lane stores
 //   16 bytes. The dense work (the chunk's width against every query of the
 //   warp) is 2.6 times the windowed work at window 7 and still far below the
@@ -77,8 +81,8 @@
 //   product plus two shuffles, softmax online per key. A warp is one tile
 //   row; it visits the chunk's columns that any of its queries' windows
 //   holds, each lane masking the keys outside its own.
-// * any D past 128: in bfloat16 `nat_mma_wide_kernel` on the tensor cores,
-//   eight warps a strip of 2 x 8 queries owning all of D up to 320 (the
+// * any D past 128: in bfloat16 and float16 `nat_mma_wide_kernel` on the
+//   tensor cores, eight warps a strip of 2 x 8 queries owning all of D up to 320 (the
 //   output in column blocks of 320 past it): q staged once, K, then V, in
 //   units of 64 columns through a cp.async ring, each score taken once and
 //   the softmax in shared memory (`mma_wide_plan`); in float32
@@ -92,7 +96,7 @@
 #include "attention_common.cuh"
 
 // Measurement builds (tools/kernel_parts.py): 1 leaves out the staging of K
-// and V in the bfloat16 kernels and the float32 wide kernel, 2 their
+// and V in the two-byte kernels and the float32 wide kernel, 2 their
 // products. Results are then wrong by design.
 #ifndef F3S_PARTS
 #define F3S_PARTS 0
@@ -207,17 +211,18 @@ __device__ __forceinline__ void stage_chunk(T* ks, T* vs, int ld, const T* kb, c
   cp_async_commit();
 }
 
-// ---- bfloat16: both products on the tensor cores
+// ---- bfloat16 and float16: both products on the tensor cores
 
 using BF = __nv_bfloat16;
+using F16 = __half;
 
 constexpr int kMmaThreads = kTile / 2 * 32;  // a warp per two tile rows
 constexpr int kSlots = 4;  // slots of 8 keys a softmax step
 
-template <int NK2>  // head dim padded to 32 * NK2
+template <typename E, int NK2>  // head dim padded to 32 * NK2
 __global__ void __launch_bounds__(kMmaThreads, NK2 <= 2 ? 4 : 1)
-nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
-               const BF* __restrict__ v, BF* __restrict__ o,
+nat_mma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v, E* __restrict__ o,
                int height, int width, int window, int H, int D, int tiles_x,
                Strides sq, Strides sk, Strides sv, Strides so, float scale,
                int band_rows, int band_cols, int bh0, bool vec, bool pairs, bool vec_out) {
@@ -229,19 +234,19 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   const int r = window / 2;
   // buffer s of the ring: K at base + 2 s * size, V after it
   const int size = band_rows * band_cols * LD;
-  BF* base = reinterpret_cast<BF*>(smem);
+  E* base = reinterpret_cast<E*>(smem);
 
   const int tid = threadIdx.x;
   const int b = (bh0 + blockIdx.y) / H;
   const int h = (bh0 + blockIdx.y) % H;
   const int ty0 = (blockIdx.x / tiles_x) * kTile;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  const BF* kb = k + b * sk.b + h * sk.h;
-  const BF* vb = v + b * sv.b + h * sv.h;
+  const E* kb = k + b * sk.b + h * sk.h;
+  const E* vb = v + b * sv.b + h * sv.h;
   const Walk walk(ty0, tx0, r, height, width, band_rows, band_cols);
   if (F3S_PARTS != 1)
-    stage_chunk<BF, Dp>(base, base + size, LD, kb, vb, sk.n, sv.n, walk[0], width, D, vec,
-                        tid, kMmaThreads);
+    stage_chunk<E, Dp>(base, base + size, LD, kb, vb, sk.n, sv.n, walk[0], width, D, vec,
+                       tid, kMmaThreads);
 
   const int lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -251,22 +256,22 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   const bool live0 = qx < width && qy0 < height, live1 = qx < width && qy0 + 1 < height;
   const int64_t tok0 = static_cast<int64_t>(qy0) * width + qx;
 
-  // q * scale, rounded to bfloat16, as A fragments (while the chunk lands)
+  // q * scale, rounded to E, as A fragments (while the chunk lands)
   uint32_t qa[NK][4];
   {
-    const BF* q0 = q + b * sq.b + h * sq.h + tok0 * sq.n;
-    const BF* q1 = q0 + width * sq.n;
-    auto ld2 = [&](const BF* row, bool live, int d) -> uint32_t {
+    const E* q0 = q + b * sq.b + h * sq.h + tok0 * sq.n;
+    const E* q1 = q0 + width * sq.n;
+    auto ld2 = [&](const E* row, bool live, int d) -> uint32_t {
       float x = 0.f, y = 0.f;
       if (live && pairs && d + 1 < D) {
-        const __nv_bfloat162 xy = *reinterpret_cast<const __nv_bfloat162*>(row + d);
-        x = __low2float(xy);
-        y = __high2float(xy);
+        const float2 xy = unpack2<E>(*reinterpret_cast<const uint32_t*>(row + d));
+        x = xy.x;
+        y = xy.y;
       } else if (live) {
-        if (d < D) x = to_f32<BF>(row[d]);
-        if (d + 1 < D) y = to_f32<BF>(row[d + 1]);
+        if (d < D) x = to_f32<E>(row[d]);
+        if (d + 1 < D) y = to_f32<E>(row[d + 1]);
       }
-      return pack_bf16(x * scale, y * scale);
+      return pack2<E>(x * scale, y * scale);
     };
 #pragma unroll
     for (int kc = 0; kc < NK; ++kc) {
@@ -287,10 +292,10 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
 
   for (int c = 0; c < walk.count; ++c) {
     if (c + 1 < walk.count) {  // the next chunk's copies fly under this one's products
-      BF* nk = base + 2 * ((c + 1) % 2) * size;
+      E* nk = base + 2 * ((c + 1) % 2) * size;
       if (F3S_PARTS != 1)
-        stage_chunk<BF, Dp>(nk, nk + size, LD, kb, vb, sk.n, sv.n, walk[c + 1], width, D,
-                            vec, tid, kMmaThreads);
+        stage_chunk<E, Dp>(nk, nk + size, LD, kb, vb, sk.n, sv.n, walk[c + 1], width, D,
+                           vec, tid, kMmaThreads);
       cp_async_wait_group<1>();
     } else {
       cp_async_wait_group<0>();
@@ -331,8 +336,8 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
         for (int kc2 = 0; kc2 < NK2; ++kc2) {
           uint32_t kb4[4];
           ldmatrix_x4(kb4, ka + kc2 * 64);
-          mma_bf16(s[j], qa[2 * kc2], kb4[0], kb4[1]);
-          mma_bf16(s[j], qa[2 * kc2 + 1], kb4[2], kb4[3]);
+          mma16816<E>(s[j], qa[2 * kc2], kb4[0], kb4[1]);
+          mma16816<E>(s[j], qa[2 * kc2 + 1], kb4[2], kb4[3]);
         }
         // to base 2, -inf where the key is not in the query's window: row y
         // against query rows qy0 and qy0 + 1, columns x, x + 1 against qx
@@ -383,16 +388,16 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
       }
 #pragma unroll
       for (int jp = 0; jp < kSlots; jp += 2) {  // 16 keys a product
-        // p = high + low, both bfloat16: the second product keeps float32-grade p
+        // p = high + low, both in E: the second product keeps float32-grade p
         uint32_t ph[4], pl[4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const float a = s[jp + j][2 * i], cc = s[jp + j][2 * i + 1];
-            const float ah = round_to<BF>(a), ch_ = round_to<BF>(cc);
-            ph[2 * j + i] = pack_bf16(ah, ch_);
-            pl[2 * j + i] = pack_bf16(a - ah, cc - ch_);
+            const float ah = round_to<E>(a), ch_ = round_to<E>(cc);
+            ph[2 * j + i] = pack2<E>(ah, ch_);
+            pl[2 * j + i] = pack2<E>(a - ah, cc - ch_);
           }
         const uint32_t va = vs_s + (((lane / 8) & 1 ? pos[jp + 1] : pos[jp]) * LD + (lane / 16) * 8) * 2;
 #pragma unroll
@@ -401,8 +406,8 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
           ldmatrix_x4_trans(vb4, va + dc2 * 32);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            mma_bf16(acc[2 * dc2 + e], ph, vb4[2 * e], vb4[2 * e + 1]);
-            mma_bf16(acc[2 * dc2 + e], pl, vb4[2 * e], vb4[2 * e + 1]);
+            mma16816<E>(acc[2 * dc2 + e], ph, vb4[2 * e], vb4[2 * e + 1]);
+            mma16816<E>(acc[2 * dc2 + e], pl, vb4[2 * e], vb4[2 * e + 1]);
           }
         }
       }
@@ -426,18 +431,18 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   if (vec_out) {
     // through shared memory (the first buffer's room), so that a lane stores
     // 16 bytes and eight lanes a query's whole row
-    BF* os = base;  // [64 queries][LD]
+    E* os = base;  // [64 queries][LD]
     const int m0q = (tid / 32) * 16 + g;  // tile row m / 8, column m % 8
 #pragma unroll
     for (int dc = 0; dc < ND; ++dc) {
       const int d = dc * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(os + m0q * LD + d) =
-          __floats2bfloat162_rn(acc[dc][0] * r0, acc[dc][1] * r0);
-      *reinterpret_cast<__nv_bfloat162*>(os + (m0q + 8) * LD + d) =
-          __floats2bfloat162_rn(acc[dc][2] * r1, acc[dc][3] * r1);
+      *reinterpret_cast<uint32_t*>(os + m0q * LD + d) =
+          pack2<E>(acc[dc][0] * r0, acc[dc][1] * r0);
+      *reinterpret_cast<uint32_t*>(os + (m0q + 8) * LD + d) =
+          pack2<E>(acc[dc][2] * r1, acc[dc][3] * r1);
     }
     __syncthreads();
-    BF* ob = o + b * so.b + h * so.h;
+    E* ob = o + b * so.b + h * so.h;
     for (int idx = tid; idx < kTile * kTile * ND; idx += kMmaThreads) {
       const int m = idx / ND, d = idx % ND * 8;
       const int oy = ty0 + m / kTile, ox = tx0 + m % kTile;
@@ -447,17 +452,17 @@ nat_mma_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
     }
     return;
   }
-  BF* o0 = o + b * so.b + h * so.h + tok0 * so.n;
-  BF* o1 = o0 + width * so.n;
+  E* o0 = o + b * so.b + h * so.h + tok0 * so.n;
+  E* o1 = o0 + width * so.n;
 #pragma unroll
   for (int dc = 0; dc < ND; ++dc) {
     const int d = dc * 8 + 2 * t;
-    auto st2 = [&](BF* row, bool live, float x, float y) {
+    auto st2 = [&](E* row, bool live, float x, float y) {
       if (live && pairs && d + 1 < D) {
-        *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(x, y);
+        *reinterpret_cast<uint32_t*>(row + d) = pack2<E>(x, y);
       } else if (live) {
-        if (d < D) row[d] = __float2bfloat16_rn(x);
-        if (d + 1 < D) row[d + 1] = __float2bfloat16_rn(y);
+        if (d < D) row[d] = from_f32<E>(x);
+        if (d + 1 < D) row[d + 1] = from_f32<E>(y);
       }
     };
     st2(o0, live0, acc[dc][0] * r0, acc[dc][1] * r0);
@@ -575,7 +580,8 @@ nat_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kMaxNarrowD = 128;  // past it, the wide kernels below
 
-// ---- bfloat16 past D = 128: one block owns all of D for a strip of queries
+// ---- bfloat16 and float16 past D = 128: one block owns all of D for a strip of
+// queries
 //
 // A block of eight warps owns a strip of 2 x 8 queries (two rows of a tile:
 // one mma.sync m16 tile) and kMmaWideOut columns of its output: all of D
@@ -592,12 +598,12 @@ constexpr int kMaxNarrowD = 128;  // past it, the wide kernels below
 // once a block.
 //
 // The eight warps share the chunk's slots of 8 keys on the strip's rows,
-// two each: mma.sync with q * scale rounded to bfloat16 as A fragments and
+// two each: mma.sync with q * scale rounded to E as A fragments and
 // K's, both by ldmatrix, the sums held in registers over the chunk's K
 // units, then written to the block's score rows in shared memory
 // (float32). Sixteen threads a query take the softmax there (base 2) and
-// write p of every slot of the chunk (0 outside the window) as a bfloat16
-// high part and remainder (the second product keeps p float32-grade, as in
+// write p of every slot of the chunk (0 outside the window) as a high part
+// and remainder in E (the second product keeps p float32-grade, as in
 // nat_mma_kernel), in rows of 16 slots x 8 keys that ldmatrix reads as A
 // fragments. Each warp adds P V for each V unit to its 8 of the unit's 64
 // columns (V by ldmatrix.trans, two slot pairs an instruction, into two
@@ -630,7 +636,7 @@ constexpr int kMmaWideLd = kMmaWideCols + 8;   // a staged row: 4 mod 8 words, a
 constexpr int kMmaWideUnits = 5;               // V units of a block's output
 constexpr int kMmaWideOut = kMmaWideUnits * kMmaWideCols;  // 320 output columns a block
 constexpr int kMmaWideSlots = 16;              // slots of 8 keys a chunk: two a warp
-constexpr int kPLd = kMmaWideSlots * 8 + 8;    // a row of p (bfloat16): 4 mod 8 words
+constexpr int kPLd = kMmaWideSlots * 8 + 8;    // a row of p (16-bit): 4 mod 8 words
 constexpr int kMmaWideStages = 4;              // the most buffers of the ring
 
 // floats a score row takes for n entries: 4 mod 8 words, so that the lanes
@@ -649,7 +655,7 @@ __host__ __device__ inline int fixed_bytes(int n, int D) {
   return kStripQueries * ((score_ld(n) + 1) * 4 + q_ld(D) * 2 + 2 * kPLd * 2);
 }
 
-// whether the bfloat16 wide kernel keeps each query's whole window of
+// whether the two-byte wide kernel keeps each query's whole window of
 // scores: its rows within a sixth of the budget
 bool window_scores(int window) {
   return kStripQueries * (score_ld(window * window) + 1) * 4 <= kBudget / 6;
@@ -675,10 +681,10 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   else cp_async_wait_group<3>();
 }
 
-template <bool kWin>
+template <typename E, bool kWin>
 __global__ void __launch_bounds__(kMmaWideThreads, 2)
-nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
-                    const BF* __restrict__ v, BF* __restrict__ o, int height, int width,
+nat_mma_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, E* __restrict__ o, int height, int width,
                     int window, int H, int D, int tiles_x, Strides sq, Strides sk, Strides sv,
                     Strides so, float scale, int band_rows, int band_cols, int bh0, int stages,
                     bool vec, bool pairs) {
@@ -688,10 +694,10 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   const int sld = score_ld(entries), qld = q_ld(D);
   float* sc = reinterpret_cast<float*>(smem);   // [16 queries][sld]: scores
   float* qrow = sc + kStripQueries * sld;       // [16]: a chunk's corrections; at the end 1 / l
-  BF* qs = reinterpret_cast<BF*>(qrow + kStripQueries);  // [16][qld]: q as stored
-  BF* p_hi = qs + kStripQueries * qld;          // [16][kPLd]: p's high parts, by slot and key
-  BF* p_lo = p_hi + kStripQueries * kPLd;       // [16][kPLd]: and remainders
-  BF* ring = p_lo + kStripQueries * kPLd;       // stages x [npos_max][kMmaWideLd]
+  E* qs = reinterpret_cast<E*>(qrow + kStripQueries);  // [16][qld]: q as stored
+  E* p_hi = qs + kStripQueries * qld;           // [16][kPLd]: p's high parts, by slot and key
+  E* p_lo = p_hi + kStripQueries * kPLd;        // [16][kPLd]: and remainders
+  E* ring = p_lo + kStripQueries * kPLd;        // stages x [npos_max][kMmaWideLd]
   const int unit_elems = npos_max * kMmaWideLd;
 
   const int r = window / 2;
@@ -704,8 +710,8 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   const int nv = (min(kMmaWideOut, D - c0) + kMmaWideCols - 1) / kMmaWideCols;  // V units
   const int ty0 = (blockIdx.x / tiles_x) * kStripRows;
   const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  const BF* kb = k + b * sk.b + h * sk.h;
-  const BF* vb = v + b * sv.b + h * sv.h;
+  const E* kb = k + b * sk.b + h * sk.h;
+  const E* vb = v + b * sv.b + h * sv.h;
   const int halo_rows = min(ty0 + kStripRows + r, height) - max(ty0 - r, 0);
   const int halo_cols = min(tx0 + kTile + r, width) - max(tx0 - r, 0);
   const Walk walk(ty0, tx0, r, height, width,
@@ -714,8 +720,8 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
 
   // 16 bytes of row `tok` of src from column d0 into dst: cp.async where
   // `vec` (zeros past D or where !live), else element by element
-  const BF zero = __float2bfloat16_rn(0.f);
-  auto piece = [&](BF* dst, const BF* src, int64_t tok, int d0, bool live) {
+  const E zero = from_f32<E>(0.f);
+  auto piece = [&](E* dst, const E* src, int64_t tok, int d0, bool live) {
     if (vec) {
       const bool in = live && d0 < D;
       cp_async16(dst, in ? src + tok + d0 : src, in ? 16 : 0);
@@ -726,7 +732,7 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   };
   // the strip's q, all of D (zeros past D and outside the image)
   if (!(F3S_PARTS & 1)) {
-    const BF* qb = q + b * sq.b + h * sq.h;
+    const E* qb = q + b * sq.b + h * sq.h;
     for (int i = tid; i < kStripQueries * (qld / 8); i += kMmaWideThreads) {
       const int m = i / (qld / 8), d = i % (qld / 8) * 8;
       const int y = ty0 + m / kTile, x = tx0 + m % kTile;
@@ -760,10 +766,10 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
       bool is_k;
       unit_of(u, c, is_k, dc);
       const Chunk ch = walk[c];
-      const BF* src = is_k ? kb : vb;
+      const E* src = is_k ? kb : vb;
       const int64_t stride = is_k ? sk.n : sv.n;
       const int d0 = (is_k ? 0 : c0) + dc * kMmaWideCols;
-      BF* dst = ring + (u % stages) * unit_elems;
+      E* dst = ring + (u % stages) * unit_elems;
       const int cols = ch.x1 - ch.x0, npos = (ch.y1 - ch.y0) * cols;
       // a thread keeps its 16 bytes of a position's columns and steps over
       // the positions kStep at a time (row and column carried)
@@ -839,15 +845,16 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
     }
     for (int kd = 0; kd < nk; ++kd) {
       const uint32_t kbase = begin();
-      // q * scale, rounded to bfloat16, as A fragments of columns 64 kd ..
+      // q * scale, rounded to E, as A fragments of columns 64 kd ..
       uint32_t qa[kMmaWideCols / 16][4];
 #pragma unroll
       for (int kc = 0; kc < kMmaWideCols / 16; ++kc) {
         ldmatrix_x4(qa[kc], qa_row + (kd * kMmaWideCols + kc * 16) * 2);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          qa[kc][e] = pack_bf16(__uint_as_float(qa[kc][e] << 16) * scale,
-                                __uint_as_float(qa[kc][e] & 0xffff0000u) * scale);
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack2<E>(qa[kc][e]);
+          qa[kc][e] = pack2<E>(f.x * scale, f.y * scale);
+        }
       }
 #pragma unroll
       for (int j = 0; j < (F3S_PARTS & 2 ? 0 : kMine); ++j) {
@@ -856,8 +863,8 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
         for (int kc2 = 0; kc2 < kMmaWideCols / 32; ++kc2) {
           uint32_t kb4[4];
           ldmatrix_x4(kb4, ka + kc2 * 64);
-          mma_bf16(s[j], qa[2 * kc2], kb4[0], kb4[1]);
-          mma_bf16(s[j], qa[2 * kc2 + 1], kb4[2], kb4[3]);
+          mma16816<E>(s[j], qa[2 * kc2], kb4[0], kb4[1]);
+          mma16816<E>(s[j], qa[2 * kc2 + 1], kb4[2], kb4[3]);
         }
       }
     }
@@ -914,9 +921,9 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
                         ? entry(ks.ch, mqy, mqx, ks.ch.y0 + ps / ks.nsx, x) : -1;
       const float p = e >= 0 ? ex2(row[e] * kLog2e - m_run) : 0.f;
       l_run += p;
-      const BF ph = __float2bfloat16_rn(p);
+      const E ph = from_f32<E>(p);
       p_hi[mq * kPLd + i] = ph;
-      p_lo[mq * kPLd + i] = __float2bfloat16_rn(p - __bfloat162float(ph));
+      p_lo[mq * kPLd + i] = from_f32<E>(p - to_f32<E>(ph));
     }
   };
 
@@ -953,8 +960,8 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
           uint32_t ph[4], pl[4];
           ldmatrix_x4(ph, pa + 32 * (2 * jq + e));
           ldmatrix_x4(pl, pa + p_lo_off + 32 * (2 * jq + e));
-          mma_bf16(acc[vi][e], ph, vb4[2 * e], vb4[2 * e + 1]);
-          mma_bf16(acc[vi][e], pl, vb4[2 * e], vb4[2 * e + 1]);
+          mma16816<E>(acc[vi][e], ph, vb4[2 * e], vb4[2 * e + 1]);
+          mma16816<E>(acc[vi][e], pl, vb4[2 * e], vb4[2 * e + 1]);
         }
       }
     }
@@ -1005,14 +1012,14 @@ nat_mma_wide_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
   if (sub == 0) qrow[mq] = 1.f / fmaxf(l_run, 1e-30f);
   __syncthreads();
   const float r0 = qrow[qi0], r1 = qrow[qi1];
-  BF* o0 = o + b * so.b + h * so.h + (static_cast<int64_t>(qy0) * width + qx) * so.n;
-  BF* o1 = o0 + width * so.n;
-  auto st2 = [&](BF* row, bool live, int d, float x, float y) {
+  E* o0 = o + b * so.b + h * so.h + (static_cast<int64_t>(qy0) * width + qx) * so.n;
+  E* o1 = o0 + width * so.n;
+  auto st2 = [&](E* row, bool live, int d, float x, float y) {
     if (live && pairs && d + 1 < D) {
-      *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(x, y);
+      *reinterpret_cast<uint32_t*>(row + d) = pack2<E>(x, y);
     } else if (live) {
-      if (d < D) row[d] = __float2bfloat16_rn(x);
-      if (d + 1 < D) row[d + 1] = __float2bfloat16_rn(y);
+      if (d < D) row[d] = from_f32<E>(x);
+      if (d + 1 < D) row[d + 1] = from_f32<E>(y);
     }
   };
 #pragma unroll
@@ -1344,11 +1351,11 @@ Plan f32_wide_plan(int window, int width) {
   return {rows, cols, stages, f32_wide_smem(rows * cols, stages)};
 }
 
-// The bfloat16 wide kernel's chunks: rows of the strip's clamped halo cut
-// into pieces of at most 64 columns (a multiple of 8, or the whole clamped
-// width), as many rows a chunk as keep it at kMmaWideSlots slots of 8
-// columns and two ring buffers of kMmaWideLd bfloat16 a position within
-// kBudget beside the score rows (of the window, or of the chunk's
+// The two-byte wide kernel's chunks (bfloat16 and float16): rows of the
+// strip's clamped halo cut into pieces of at most 64 columns (a multiple of
+// 8, or the whole clamped width), as many rows a chunk as keep it at
+// kMmaWideSlots slots of 8 columns and two ring buffers of kMmaWideLd
+// elements a position within kBudget beside the score rows (of the window, or of the chunk's
 // positions), q and p (`fixed_bytes`); then as many buffers as fit (at most
 // kMmaWideStages). Window 7 at D = 320: the strip's 8 x 14 halo in one
 // chunk, two buffers.
@@ -1427,17 +1434,17 @@ bool can_pair(const void* q, const void* o, const int64_t* st, int D) {
   return pairs;
 }
 
-template <int NK2>
+template <typename E, int NK2>
 int launch_mma(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
                const int64_t* st, float scale, cudaStream_t stream) {
   const bool pairs = can_pair(q, o, st, gm.D);
   // 16-byte stores of o: D and o's strides whole groups of 8, its base aligned
   bool vec_out = gm.D % 8 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
   for (int i = 9; i < 12; ++i) vec_out = vec_out && st[i] % 8 == 0;
-  return launch(nat_mma_kernel<NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width), 1, kTile,
-                static_cast<const BF*>(q), static_cast<const BF*>(k),
-                static_cast<const BF*>(v), static_cast<BF*>(o), gm, st, scale, stream,
-                can_vectorise(k, v, st, gm.D, sizeof(BF)), pairs, vec_out);
+  return launch(nat_mma_kernel<E, NK2>, kMmaThreads, mma_plan<NK2>(gm.window, gm.width), 1,
+                kTile, static_cast<const E*>(q), static_cast<const E*>(k),
+                static_cast<const E*>(v), static_cast<E*>(o), gm, st, scale, stream,
+                can_vectorise(k, v, st, gm.D, sizeof(E)), pairs, vec_out);
 }
 
 template <int DPL>
@@ -1449,35 +1456,51 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Geome
                 can_vectorise(k, v, st, gm.D, sizeof(float)));
 }
 
-// past D = 128: float32 and bfloat16 in column blocks of 320 (one block at
-// D <= 320)
-int launch_wide(int dtype, const void* q, const void* k, const void* v, void* o,
-                const Geometry& gm, const int64_t* st, float scale, cudaStream_t stream) {
-  if (dtype == 0) {
-    const Plan plan = f32_wide_plan(gm.window, gm.width);
-    // 16-byte copies of q too, and 16-byte stores of o
-    bool vec = can_vectorise(k, v, st, gm.D, sizeof(float)) &&
-               reinterpret_cast<uintptr_t>(q) % 16 == 0;
-    bool vec_out = gm.D % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
-    for (int i = 0; i < 3; ++i) {
-      vec = vec && st[i] % 4 == 0;
-      vec_out = vec_out && st[9 + i] % 4 == 0;
-    }
-    return launch(nat_f32_wide_kernel, kF32WideThreads, plan,
-                  (gm.D + kF32WideOut - 1) / kF32WideOut, kStripRows,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<float*>(o), gm, st, scale, stream,
-                  plan.stages, vec, vec_out);
+// past D = 128 in float32: column blocks of 320 (one block at D <= 320)
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
+                    const int64_t* st, float scale, cudaStream_t stream) {
+  const Plan plan = f32_wide_plan(gm.window, gm.width);
+  // 16-byte copies of q too, and 16-byte stores of o
+  bool vec = can_vectorise(k, v, st, gm.D, sizeof(float)) &&
+             reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  bool vec_out = gm.D % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  for (int i = 0; i < 3; ++i) {
+    vec = vec && st[i] % 4 == 0;
+    vec_out = vec_out && st[9 + i] % 4 == 0;
   }
+  return launch(nat_f32_wide_kernel, kF32WideThreads, plan,
+                (gm.D + kF32WideOut - 1) / kF32WideOut, kStripRows,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o), gm, st, scale, stream,
+                plan.stages, vec, vec_out);
+}
+
+// past D = 128 in bfloat16 or float16 (E): column blocks of 320 (one block at
+// D <= 320)
+template <typename E>
+int launch_mma_wide(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
+                    const int64_t* st, float scale, cudaStream_t stream) {
   const Plan plan = mma_wide_plan(gm.window, gm.D, gm.width);
   // 16-byte copies of q too: its base and strides whole 16-byte pieces
-  bool vec = can_vectorise(k, v, st, gm.D, sizeof(BF)) && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  bool vec = can_vectorise(k, v, st, gm.D, sizeof(E)) && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   for (int i = 0; i < 3; ++i) vec = vec && st[i] % 8 == 0;
-  return launch(window_scores(gm.window) ? nat_mma_wide_kernel<true> : nat_mma_wide_kernel<false>,
+  return launch(window_scores(gm.window) ? nat_mma_wide_kernel<E, true>
+                                         : nat_mma_wide_kernel<E, false>,
                 kMmaWideThreads, plan, (gm.D + kMmaWideOut - 1) / kMmaWideOut, kStripRows,
-                static_cast<const BF*>(q), static_cast<const BF*>(k), static_cast<const BF*>(v),
-                static_cast<BF*>(o), gm, st, scale, stream, plan.stages, vec,
+                static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+                static_cast<E*>(o), gm, st, scale, stream, plan.stages, vec,
                 can_pair(q, o, st, gm.D));
+}
+
+// the two-byte kernels of element type E at head dim D
+template <typename E>
+int launch_two_byte(const void* q, const void* k, const void* v, void* o, const Geometry& gm,
+                    const int64_t* st, float scale, cudaStream_t stream) {
+  if (gm.D > kMaxNarrowD) return launch_mma_wide<E>(q, k, v, o, gm, st, scale, stream);
+  if (gm.D <= 32) return launch_mma<E, 1>(q, k, v, o, gm, st, scale, stream);
+  if (gm.D <= 64) return launch_mma<E, 2>(q, k, v, o, gm, st, scale, stream);
+  if (gm.D <= 96) return launch_mma<E, 3>(q, k, v, o, gm, st, scale, stream);
+  return launch_mma<E, 4>(q, k, v, o, gm, st, scale, stream);
 }
 
 }  // namespace
@@ -1485,8 +1508,8 @@ int launch_wide(int dtype, const void* q, const void* k, const void* v, void* o,
 // Launches on `stream`. q, k, v, o: [B, height * width, H, D]; `strides`
 // holds the (batch, token, head) strides in elements of q, k, v, o in that
 // order (12 values); the last axis of each is contiguous. dtype: 0 float32,
-// 1 bfloat16. `window` is odd, of any size; any D, any B * H. `scale` is
-// 1/sqrt(D) already rounded to the dtype. Returns 0 on success,
+// 1 bfloat16, 2 float16. `window` is odd, of any size; any D, any B * H.
+// `scale` is 1/sqrt(D) already rounded to the dtype. Returns 0 on success,
 // cudaGetLastError() otherwise, -3 for an unknown dtype.
 extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
                                           const void* v, void* o, int dtype,
@@ -1497,36 +1520,33 @@ extern "C" int f3s_neighborhood_attention(const void* q, const void* k,
   if (B <= 0 || height <= 0 || width <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry gm{B, height, width, window, H, D};
-  if (D > kMaxNarrowD && (dtype == 0 || dtype == 1))
-    return launch_wide(dtype, q, k, v, o, gm, strides, scale, s);
+  if (dtype == 1) return launch_two_byte<BF>(q, k, v, o, gm, strides, scale, s);
+  if (dtype == 2) return launch_two_byte<F16>(q, k, v, o, gm, strides, scale, s);
   if (dtype == 0) {
+    if (D > kMaxNarrowD) return launch_f32_wide(q, k, v, o, gm, strides, scale, s);
     if (D <= 8) return launch_f32<2>(q, k, v, o, gm, strides, scale, s);
     if (D <= 16) return launch_f32<4>(q, k, v, o, gm, strides, scale, s);
     if (D <= 32) return launch_f32<8>(q, k, v, o, gm, strides, scale, s);
     if (D <= 64) return launch_f32<16>(q, k, v, o, gm, strides, scale, s);
     return launch_f32<32>(q, k, v, o, gm, strides, scale, s);
   }
-  if (dtype == 1) {
-    if (D <= 32) return launch_mma<1>(q, k, v, o, gm, strides, scale, s);
-    if (D <= 64) return launch_mma<2>(q, k, v, o, gm, strides, scale, s);
-    if (D <= 96) return launch_mma<3>(q, k, v, o, gm, strides, scale, s);
-    return launch_mma<4>(q, k, v, o, gm, strides, scale, s);
-  }
   return -3;
 }
 
 // The plan a launch of `f3s_neighborhood_attention` takes, for checking
-// ops/attention.py `_nat_plan`: plan = [rows, cols, stages, shared bytes].
-// Returns 0, or -3 as the launcher would.
+// ops/attention.py `_nat_plan`: plan = [rows, cols, stages, shared bytes]
+// (bfloat16 and float16 share theirs). Returns 0, or -3 as the launcher
+// would.
 extern "C" int f3s_nat_plan(int dtype, int window, int D, int width, int64_t* plan) {
   Plan p;
-  if (D > kMaxNarrowD && (dtype == 0 || dtype == 1)) {
-    p = dtype == 1 ? mma_wide_plan(window, D, width) : f32_wide_plan(window, width);
+  const bool two_byte = dtype == 1 || dtype == 2;
+  if (D > kMaxNarrowD && (dtype == 0 || two_byte)) {
+    p = two_byte ? mma_wide_plan(window, D, width) : f32_wide_plan(window, width);
   } else if (dtype == 0) {
     p = D <= 8 ? f32_plan<2>(window, width) : D <= 16 ? f32_plan<4>(window, width)
         : D <= 32 ? f32_plan<8>(window, width) : D <= 64 ? f32_plan<16>(window, width)
         : f32_plan<32>(window, width);
-  } else if (dtype == 1) {
+  } else if (two_byte) {
     p = D <= 32 ? mma_plan<1>(window, width) : D <= 64 ? mma_plan<2>(window, width)
         : D <= 96 ? mma_plan<3>(window, width) : mma_plan<4>(window, width);
   } else {
@@ -1541,18 +1561,33 @@ extern "C" int f3s_nat_plan(int dtype, int window, int D, int width, int64_t* pl
 
 // The resources of kernel `name` ("mma_wide", "mma_wide_online": bfloat16
 // past D = 128 with the window's or the chunk's score rows; "f32_wide";
-// "mma_<NK2>", "f32_<DPL>"): out = [registers a thread, local
-// (spilled) bytes a thread, static shared bytes, most threads a block].
-// Returns 0, -3 for an unknown name, or the CUDA error.
+// "mma_<NK2>", "f32_<DPL>"; a two-byte name with "_f16" for its float16
+// twin): out = [registers a thread, local (spilled) bytes a thread, static
+// shared bytes, most threads a block]. Returns 0, -3 for an unknown name,
+// or the CUDA error.
 extern "C" int f3s_nat_resources(const char* name, int* out) {
+  static const struct {
+    const char* name;
+    const void* fn;
+  } kKernels[] = {
+      {"mma_wide", reinterpret_cast<const void*>(nat_mma_wide_kernel<BF, true>)},
+      {"mma_wide_online", reinterpret_cast<const void*>(nat_mma_wide_kernel<BF, false>)},
+      {"mma_1", reinterpret_cast<const void*>(nat_mma_kernel<BF, 1>)},
+      {"mma_2", reinterpret_cast<const void*>(nat_mma_kernel<BF, 2>)},
+      {"mma_3", reinterpret_cast<const void*>(nat_mma_kernel<BF, 3>)},
+      {"mma_4", reinterpret_cast<const void*>(nat_mma_kernel<BF, 4>)},
+      {"mma_wide_f16", reinterpret_cast<const void*>(nat_mma_wide_kernel<F16, true>)},
+      {"mma_wide_online_f16", reinterpret_cast<const void*>(nat_mma_wide_kernel<F16, false>)},
+      {"mma_1_f16", reinterpret_cast<const void*>(nat_mma_kernel<F16, 1>)},
+      {"mma_2_f16", reinterpret_cast<const void*>(nat_mma_kernel<F16, 2>)},
+      {"mma_3_f16", reinterpret_cast<const void*>(nat_mma_kernel<F16, 3>)},
+      {"mma_4_f16", reinterpret_cast<const void*>(nat_mma_kernel<F16, 4>)},
+      {"f32_wide", reinterpret_cast<const void*>(nat_f32_wide_kernel)},
+      {"f32_16", reinterpret_cast<const void*>(nat_f32_kernel<16>)},
+  };
   const void* fn = nullptr;
-  if (!std::strcmp(name, "mma_wide")) fn = reinterpret_cast<const void*>(nat_mma_wide_kernel<true>);
-  if (!std::strcmp(name, "mma_wide_online"))
-    fn = reinterpret_cast<const void*>(nat_mma_wide_kernel<false>);
-  if (!std::strcmp(name, "f32_wide")) fn = reinterpret_cast<const void*>(nat_f32_wide_kernel);
-  if (!std::strcmp(name, "mma_2")) fn = reinterpret_cast<const void*>(nat_mma_kernel<2>);
-  if (!std::strcmp(name, "mma_4")) fn = reinterpret_cast<const void*>(nat_mma_kernel<4>);
-  if (!std::strcmp(name, "f32_16")) fn = reinterpret_cast<const void*>(nat_f32_kernel<16>);
+  for (const auto& kernel : kKernels)
+    if (!std::strcmp(name, kernel.name)) fn = kernel.fn;
   if (fn == nullptr) return -3;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel fusion3dseg_tpu/ops/attention.py `_attn_kernel`
 // (Pallas, reached through `sr_attention`). For q [B, N, H, D] and
-// k, v [B, M, H, D] of type T (bfloat16 or float32), per (b, n, h):
+// k, v [B, M, H, D] of type T (float32, bfloat16 or float16), per (b, n, h):
 //   qs  = T(float(q) * scale)            scale = T(1 / sqrt(D)), given
 //   s_m = sum_d qs_d * k_md              float32 accumulation
 //   p_m = T(exp(s_m - max_m s) / sum_m exp(s_m - max_m s))   softmax in f32
@@ -31,11 +31,18 @@
 // of the bound at 1024 keys, 33-37% at 256; at 64 keys the fixed cost of
 // launch, first loads and last stores.
 //
-// Three kernels; the caller (ops/attention._sr_route) names which.
+// Three kernels; the caller (ops/attention._sr_route) names which. The two
+// tensor-core kernels take bfloat16 and float16 alike: each is a template
+// on its element type E, with an instance for each (the same shapes,
+// registers and shared-memory plans; the products' and the TMA maps' type
+// and the roundings to E differ). In float16 a p below 2^-14 rounds to a
+// subnormal (kept, not flushed), as the plain version's p does; scores, the
+// softmax and the accumulators are float32 in both, so float16's range
+// (65504) binds only q * scale, K, V and the output, as in the TPU kernel.
 //
-// * bfloat16, `sr_attention_wgmma_kernel` (any M, D <= 320, tensors TMA can
-//   describe; D padded to DP = 64, 128, 192, 256 or 320): persistent
-//   blocks, at most one per SM, walk the 64-row query tiles in
+// * bfloat16 and float16, `sr_attention_wgmma_kernel` (any M, D <= 320,
+//   tensors TMA can describe; D padded to DP = 64, 128, 192, 256 or 320):
+//   persistent blocks, at most one per SM, walk the 64-row query tiles in
 //   (batch, head)-major order, each block a contiguous run of them
 //   (the number of blocks chosen so that the busiest one has the fewest
 //   item rounds). A run goes in items: up to C consecutive tiles of one
@@ -62,27 +69,28 @@
 //   A-operand registers only once that P V is done (packing it earlier, or
 //   a register touched between the products' issue and their wait, makes
 //   ptxas serialize every wgmma). Where p is rounded: the one-pass softmax
-//   rounds exp(s - m_running) to bfloat16 (the register A operand of
+//   rounds exp(s - m_running) to E (the register A operand of
 //   O += P V, V as stored, [keys][D], MN-major) and divides O by the row
 //   sum at the end, where the TPU kernel rounds the normalised p; the two
-//   differ by bfloat16 rounding steps of p, held to the same bar against the
+//   differ by rounding steps of p in E, held to the same bar against the
 //   plain version. A JAX-order second pass would take every exponential and
 //   Q K^T twice, and at 1024 keys the exponentials alone are about the
 //   bound. O goes through shared memory to a TMA store that overlaps the
 //   next item. Loads past N, M or D are zero-filled and stores past N or D
 //   clipped, so any N works; keys past M score 0 there and are masked to
 //   -inf. The scale: at D = 16 or 64, 1/sqrt(D) is a power of two, so
-//   T(q * scale) . k = scale * (q . k) bit for bit (barring subnormals) and
+//   T(q * scale) . k = scale * (q . k) bit for bit (barring subnormals,
+//   below 2^-14 in float16, where the kernel's product is the nearer) and
 //   the scale goes onto the float32 scores, q straight from TMA to wgmma;
-//   at other D the consumer rounds q * scale to bfloat16 in shared memory
+//   at other D the consumer rounds q * scale to E in shared memory
 //   first, as the TPU kernel does. Past D = 320, where a consumer's
 //   registers no longer hold O beside its scores, `sr_attention_wide_kernel`
 //   (one warpgroup, S summed over D in chunks of 64, the output in column
 //   blocks of 256; see its note) takes the wgmma route.
-// * bfloat16, `sr_attention_mma_kernel` (layouts TMA cannot describe, M up
-//   to what shared memory holds: 848 keys at D = 64, 432 at D = 128; the
-//   caller copies larger ones into a TMA layout for the wgmma kernel; D <=
-//   128, the route's domain):
+// * bfloat16 and float16, `sr_attention_mma_kernel` (layouts TMA cannot
+//   describe, M up to what shared memory holds: 848 keys at D = 64, 432 at
+//   D = 128; the caller copies larger ones into a TMA layout for the wgmma
+//   kernel; D <= 128, the route's domain):
 //   mma.sync m16n8k16, eight warps of 16 query rows a block, K and V of one
 //   (batch, head) staged per block, two passes over the keys (max and sum,
 //   then the normalised product).
@@ -94,7 +102,7 @@
 //   past D = 128 column blocks of 128, each taking every score again),
 //   which it beats 3.6-10.6x at D <= 128 and 37x at D = 320 (PERF.md).
 //
-// The bfloat16 kernels and the float32 tile kernel read F3S_PARTS: 1 leaves
+// The tensor-core kernels and the float32 tile kernel read F3S_PARTS: 1 leaves
 // the loads out, 2 the arithmetic (tools/kernel_parts.py times both; the
 // results are wrong).
 
@@ -535,9 +543,15 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, in
   }
 }
 
-// ---- bfloat16 on the tensor cores: mma.sync m16n8k16 (any layout)
+// ---- bfloat16 and float16 on the tensor cores: mma.sync m16n8k16 (any layout)
+//
+// Each kernel below takes its element type E (__nv_bfloat16 or __half) as a
+// template parameter: the two types share the products' shapes and fragment
+// layouts (only the instruction's type differs), the shared-memory plans and
+// the roundings (q * scale, p and the output rounded to E).
 
 using BF = __nv_bfloat16;
+using F16 = __half;
 
 constexpr int kMmaThreads = 256;
 constexpr int kMmaQueries = kMmaThreads / 32 * 16;  // eight warps of 16 query rows
@@ -546,20 +560,20 @@ constexpr float kMasked = -1e30f;  // score of a padding key: exp() of it is 0
 // Scores of this warp's 16 query rows against keys key0 .. key0 + 15, as two
 // m16n8 accumulator fragments: s[j][0..1] row g, s[j][2..3] row g + 8, keys
 // key0 + 8j + 2t, + 1 (g = lane / 4, t = lane % 4). Keys >= M are masked.
-template <int NK>
-__device__ __forceinline__ void scores16(const __nv_bfloat16* ks, int ldk,
+template <typename E, int NK>
+__device__ __forceinline__ void scores16(const E* ks, int ldk,
                                          const uint32_t (&qa)[NK][4], int key0,
                                          int M, int g, int t, float (&s)[2][4]) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-    const __nv_bfloat16* kr = ks + (key0 + 8 * j + g) * ldk + 2 * t;
+    const E* kr = ks + (key0 + 8 * j + g) * ldk + 2 * t;
 #pragma unroll
     for (int kc = 0; kc < NK; ++kc) {
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kc * 16);
       const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kc * 16 + 8);
-      mma_bf16(s[j], qa[kc], b0, b1);
+      mma16816<E>(s[j], qa[kc], b0, b1);
     }
     const int key = key0 + 8 * j + 2 * t;
     if (key >= M) s[j][0] = s[j][2] = kMasked;
@@ -571,16 +585,14 @@ __device__ __forceinline__ void scores16(const __nv_bfloat16* ks, int ldk,
 // g and g + 8. Pass 1 walks the keys once for each row's max and sum
 // (thread-local online softmax over the lane's own columns, combined across
 // the four lanes of a row at the end); pass 2 recomputes the scores,
-// normalises and rounds them to bfloat16 (the full-row softmax of the TPU
+// normalises and rounds them to E (the full-row softmax of the TPU
 // kernel) and feeds them as the A operand of the second product, whose B
 // operand is V staged transposed. Recomputing QK^T costs tensor-core time
 // that is small beside keeping a [16, M] score tile in registers.
-template <int NK>  // head dim padded to 16 * NK
+template <typename E, int NK>  // head dim padded to 16 * NK
 __global__ void __launch_bounds__(kMmaThreads)
-sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ o, int N, int M, int H, int D,
+sr_attention_mma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                        const E* __restrict__ v, E* __restrict__ o, int N, int M, int H, int D,
                         Strides sq, Strides sk, Strides sv, Strides so, float scale,
                         bool vec, int bh0) {
   constexpr int Dp = 16 * NK;
@@ -588,15 +600,15 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int ldk = Dp + 8;  // row strides of 4 mod 8 words: fragment loads
   const int ldv = Mp + 8;  // hit 32 distinct banks
   extern __shared__ __align__(16) unsigned char smem[];
-  BF* ks = reinterpret_cast<BF*>(smem);  // [Mp][ldk]
-  BF* vt = ks + Mp * ldk;               // [Dp][ldv], V transposed
+  E* ks = reinterpret_cast<E*>(smem);  // [Mp][ldk]
+  E* vt = ks + Mp * ldk;               // [Dp][ldv], V transposed
 
   const int tid = threadIdx.x;
   const int b = (bh0 + blockIdx.y) / H;
   const int h = (bh0 + blockIdx.y) % H;
   if (F3S_PARTS != 1) {
-    const BF* kb = k + b * sk.b + h * sk.h;
-    const BF* vb = v + b * sv.b + h * sv.h;
+    const E* kb = k + b * sk.b + h * sk.h;
+    const E* vb = v + b * sv.b + h * sv.h;
     if (vec) {  // 8 elements (16 bytes) a load: D, the strides and the bases allow it
       for (int idx = tid; idx < Mp * (Dp / 8); idx += kMmaThreads) {
         const int m = idx / (Dp / 8), d = idx % (Dp / 8) * 8;
@@ -605,12 +617,12 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const uint4 kv = in ? *reinterpret_cast<const uint4*>(kb + m * sk.n + d) : zero;
         const uint4 vv = in ? *reinterpret_cast<const uint4*>(vb + m * sv.n + d) : zero;
         *reinterpret_cast<uint4*>(ks + m * ldk + d) = kv;
-        const BF* ve = reinterpret_cast<const BF*>(&vv);
+        const E* ve = reinterpret_cast<const E*>(&vv);
 #pragma unroll
         for (int i = 0; i < 8; ++i) vt[(d + i) * ldv + m] = ve[i];
       }
     } else {
-      const BF zero = __float2bfloat16_rn(0.f);
+      const E zero = from_f32<E>(0.f);
       for (int idx = tid; idx < Mp * Dp; idx += kMmaThreads) {
         const int m = idx / Dp, d = idx % Dp;
         const bool in = m < M && d < D;
@@ -626,32 +638,32 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = blockIdx.x * kMmaQueries + (tid / 32) * 16 + g;
   const int row1 = row0 + 8;
 
-  // q * scale, rounded to bfloat16, as A fragments
+  // q * scale, rounded to E, as A fragments
   uint32_t qa[NK][4];
   {
-    const BF* qb = q + b * sq.b + h * sq.h;
+    const E* qb = q + b * sq.b + h * sq.h;
     auto ld = [&](int row, int d) -> float {
       return (F3S_PARTS != 1 && row < N && d < D)
-                 ? round_to<BF>(to_f32<BF>(qb[static_cast<int64_t>(row) * sq.n + d]) * scale)
+                 ? round_to<E>(to_f32<E>(qb[static_cast<int64_t>(row) * sq.n + d]) * scale)
                  : 0.f;
     };
 #pragma unroll
     for (int kc = 0; kc < NK; ++kc) {
       const int d = kc * 16 + 2 * t;
-      qa[kc][0] = pack_bf16(ld(row0, d), ld(row0, d + 1));
-      qa[kc][1] = pack_bf16(ld(row1, d), ld(row1, d + 1));
-      qa[kc][2] = pack_bf16(ld(row0, d + 8), ld(row0, d + 9));
-      qa[kc][3] = pack_bf16(ld(row1, d + 8), ld(row1, d + 9));
+      qa[kc][0] = pack2<E>(ld(row0, d), ld(row0, d + 1));
+      qa[kc][1] = pack2<E>(ld(row1, d), ld(row1, d + 1));
+      qa[kc][2] = pack2<E>(ld(row0, d + 8), ld(row0, d + 9));
+      qa[kc][3] = pack2<E>(ld(row1, d + 8), ld(row1, d + 9));
     }
   }
 
   // Softmax in base 2: exp(s - m) = exp2((s - m) * log2(e)), one
   // multiply and one ex2.approx each (a relative error of about 2^-22, far
-  // below the bfloat16 rounding of the probabilities).
+  // below the rounding of the probabilities to E).
   float s[2][4];
   float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
   for (int key0 = 0; key0 < (F3S_PARTS == 2 ? 0 : Mp); key0 += 16) {
-    scores16<NK>(ks, ldk, qa, key0, M, g, t, s);
+    scores16<E, NK>(ks, ldk, qa, key0, M, g, t, s);
     const float n0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
     const float n1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
     l0 = l0 * exp2f((m0 - n0) * kLog2e) + exp2f((s[0][0] - n0) * kLog2e) +
@@ -684,21 +696,21 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[dc][i] = 0.f;
   for (int key0 = 0; key0 < (F3S_PARTS == 2 ? 0 : Mp); key0 += 16) {
-    scores16<NK>(ks, ldk, qa, key0, M, g, t, s);
-    uint32_t pa[4];  // softmax probabilities, rounded to bfloat16, as A fragments
-    pa[0] = pack_bf16(exp2f(fmaf(s[0][0], kLog2e, -c0)) * r0, exp2f(fmaf(s[0][1], kLog2e, -c0)) * r0);
-    pa[1] = pack_bf16(exp2f(fmaf(s[0][2], kLog2e, -c1)) * r1, exp2f(fmaf(s[0][3], kLog2e, -c1)) * r1);
-    pa[2] = pack_bf16(exp2f(fmaf(s[1][0], kLog2e, -c0)) * r0, exp2f(fmaf(s[1][1], kLog2e, -c0)) * r0);
-    pa[3] = pack_bf16(exp2f(fmaf(s[1][2], kLog2e, -c1)) * r1, exp2f(fmaf(s[1][3], kLog2e, -c1)) * r1);
+    scores16<E, NK>(ks, ldk, qa, key0, M, g, t, s);
+    uint32_t pa[4];  // softmax probabilities, rounded to E, as A fragments
+    pa[0] = pack2<E>(exp2f(fmaf(s[0][0], kLog2e, -c0)) * r0, exp2f(fmaf(s[0][1], kLog2e, -c0)) * r0);
+    pa[1] = pack2<E>(exp2f(fmaf(s[0][2], kLog2e, -c1)) * r1, exp2f(fmaf(s[0][3], kLog2e, -c1)) * r1);
+    pa[2] = pack2<E>(exp2f(fmaf(s[1][0], kLog2e, -c0)) * r0, exp2f(fmaf(s[1][1], kLog2e, -c0)) * r0);
+    pa[3] = pack2<E>(exp2f(fmaf(s[1][2], kLog2e, -c1)) * r1, exp2f(fmaf(s[1][3], kLog2e, -c1)) * r1);
 #pragma unroll
     for (int dc = 0; dc < 2 * NK; ++dc) {
-      const BF* vr = vt + (dc * 8 + g) * ldv + key0 + 2 * t;
-      mma_bf16(acc[dc], pa, *reinterpret_cast<const uint32_t*>(vr),
+      const E* vr = vt + (dc * 8 + g) * ldv + key0 + 2 * t;
+      mma16816<E>(acc[dc], pa, *reinterpret_cast<const uint32_t*>(vr),
                *reinterpret_cast<const uint32_t*>(vr + 8));
     }
   }
 
-  BF* ob = o + b * so.b + h * so.h;
+  E* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int dc = 0; dc < 2 * NK; ++dc) {
     const int d = dc * 8 + 2 * t;
@@ -706,20 +718,20 @@ sr_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 4; ++i) {
       const int row = i < 2 ? row0 : row1;
       if (row < N && d + (i & 1) < D)
-        ob[static_cast<int64_t>(row) * so.n + d + (i & 1)] = __float2bfloat16_rn(acc[dc][i]);
+        ob[static_cast<int64_t>(row) * so.n + d + (i & 1)] = from_f32<E>(acc[dc][i]);
     }
   }
 }
 
-template <int NK>
+template <typename E, int NK>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int N,
                int M, int H, int D, const int64_t* st, float scale,
                cudaStream_t stream) {
   const int Mp = (M + 15) & ~15;
   const size_t smem = (static_cast<size_t>(Mp) * (16 * NK + 8) +
-                       static_cast<size_t>(16 * NK) * (Mp + 8)) * sizeof(BF);
+                       static_cast<size_t>(16 * NK) * (Mp + 8)) * sizeof(E);
   if (smem > static_cast<size_t>(kMaxSmem)) return -2;
-  auto kern = sr_attention_mma_kernel<NK>;
+  auto kern = sr_attention_mma_kernel<E, NK>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -734,28 +746,30 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
   return over_batch_heads(static_cast<int64_t>(B) * H, [&](int bh0, int count) {
     const dim3 grid((N + kMmaQueries - 1) / kMmaQueries, count);
     kern<<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const BF*>(q), static_cast<const BF*>(k), static_cast<const BF*>(v),
-        static_cast<BF*>(o), N, M, H, D, sq, sk, sv, so, scale, vec, bh0);
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<E*>(o), N, M, H, D, sq, sk, sv, so, scale, vec, bh0);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
+template <typename E>
 int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B, int N,
                  int M, int H, int D, const int64_t* st, float scale,
                  cudaStream_t stream) {
-  if (D <= 16) return launch_mma<1>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 32) return launch_mma<2>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 64) return launch_mma<4>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 128) return launch_mma<8>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 16) return launch_mma<E, 1>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 32) return launch_mma<E, 2>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 64) return launch_mma<E, 4>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 128) return launch_mma<E, 8>(q, k, v, o, B, N, M, H, D, st, scale, stream);
   return -1;  // the route's domain: D <= 128
 }
 
 
-// ---- bfloat16 on the tensor cores: wgmma fed by TMA, keys in tiles (any M)
+// ---- bfloat16 and float16 on the tensor cores: wgmma fed by TMA, keys in tiles
+// (any M)
 
 constexpr int kTileRows = 64;  // query rows of a consumer's tile: one wgmma's M
 constexpr int kMaxKvStages = 16;
-constexpr int kSwizzleTile = kTileRows * 128;  // bytes of [64 rows][64] bfloat16
+constexpr int kSwizzleTile = kTileRows * 128;  // bytes of [64 rows][64] 16-bit elements
 
 // Consumer warpgroups and the registers `setmaxnreg` gives each role. The
 // pool is the block's launch allocation, threads x the registers ptxas
@@ -815,30 +829,30 @@ template <> struct WgShape<320> {  // 128 x 24 + 2 x 128 x 240 <= 384 x 168
 // of oc, so oc keeps the layout of one m64nDP accumulator (columns 8j +
 // 2c, + 1 in oc[4j], oc[4j + 1]). `va`: V's first 64-column block at this
 // k step; `lbo`: the step between V's column blocks.
-template <int DP>
+template <typename E, int DP>
 __device__ __forceinline__ void pv_step(float (&oc)[DP / 2], uint32_t a0, uint32_t a1,
                                         uint32_t a2, uint32_t a3, uint32_t va, uint32_t lbo) {
   if constexpr (DP == 64 || DP == 128 || DP == 256) {
-    Wgmma<DP>::rs(oc, a0, a1, a2, a3, sw128_desc(va, lbo, 1024), 1);
+    Wgmma<DP, E>::rs(oc, a0, a1, a2, a3, sw128_desc(va, lbo, 1024), 1);
   } else {
     constexpr int kFirst = DP > 256 ? 256 : 128, kRest = DP - kFirst;
-    Wgmma<kFirst>::rs(reinterpret_cast<float(&)[kFirst / 2]>(oc[0]), a0, a1, a2, a3,
-                      sw128_desc(va, lbo, 1024), 1);
-    Wgmma<kRest>::rs(reinterpret_cast<float(&)[kRest / 2]>(oc[kFirst / 2]), a0, a1, a2, a3,
-                     sw128_desc(va + kFirst / 64 * lbo, lbo, 1024), 1);
+    Wgmma<kFirst, E>::rs(reinterpret_cast<float(&)[kFirst / 2]>(oc[0]), a0, a1, a2, a3,
+                         sw128_desc(va, lbo, 1024), 1);
+    Wgmma<kRest, E>::rs(reinterpret_cast<float(&)[kRest / 2]>(oc[kFirst / 2]), a0, a1, a2,
+                        a3, sw128_desc(va + kFirst / 64 * lbo, lbo, 1024), 1);
   }
 }
 
 struct WgParams {
   int N, M, H, tiles_per_bh, total_tiles, key_tiles, kv_stages;
-  float q_scale;      // > 0: q is rounded to bfloat16(q * q_scale) before the product
+  float q_scale;      // > 0: q is rounded to E(q * q_scale) before the product
   float score_scale;  // raw score -> log2 units of the softmax
 };
 
 // Shared memory, from a 1024-byte boundary: `kv_stages` x [K | V] tiles of
 // KT keys, each [KT keys][DP] as DP / 64 swizzled column blocks; kQStages x
 // C q tiles [64][DP]; two output tiles for each consumer (none with kOInQ).
-template <int DP, int KT>
+template <typename E, int DP, int KT>
 __global__ void __launch_bounds__(128 * (WgShape<DP>::kConsumers + 1), 1)
 sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -970,15 +984,16 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = li % kQStages;
       mbar_wait(&q_full[s], (li / kQStages) & 1);
       uint8_t* qt = q_s + (s * kConsumers + wg) * kQBytes;
-      if (live && p.q_scale > 0.f) {  // round q * scale to bfloat16 in place
+      if (live && p.q_scale > 0.f) {  // round q * scale to E in place
 #pragma unroll
         for (int x = tid; x < static_cast<int>(kQBytes / 16); x += 128) {
           uint4 w = reinterpret_cast<const uint4*>(qt)[x];
           uint32_t* e = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
-          for (int y = 0; y < 4; ++y)
-            e[y] = pack_bf16(__uint_as_float(e[y] << 16) * p.q_scale,
-                             __uint_as_float(e[y] & 0xffff0000u) * p.q_scale);
+          for (int y = 0; y < 4; ++y) {
+            const float2 f = unpack2<E>(e[y]);
+            e[y] = pack2<E>(f.x * p.q_scale, f.y * p.q_scale);
+          }
           reinterpret_cast<uint4*>(qt)[x] = w;
         }
         fence_async_shared();
@@ -1002,9 +1017,9 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t qa = smem_addr(qt), ka = smem_addr(kv_s + ks * 2 * kKvBytes);
 #pragma unroll
         for (int kd = 0; kd < DP / 16; ++kd)
-          Wgmma<kKeyTile>::ss(sc, sw128_desc(qa + kd / 4 * kSwizzleTile + kd % 4 * 32, 16, 1024),
-                              sw128_desc(ka + kd / 4 * kKeyTile * 128 + kd % 4 * 32, 16, 1024),
-                              kd > 0);
+          Wgmma<kKeyTile, E>::ss(
+              sc, sw128_desc(qa + kd / 4 * kSwizzleTile + kd % 4 * 32, 16, 1024),
+              sw128_desc(ka + kd / 4 * kKeyTile * 128 + kd % 4 * 32, 16, 1024), kd > 0);
         wgmma_commit();
       };
       // O += P V of the key tile in stage ks: V [keys][DP] is MN-major, 16
@@ -1013,7 +1028,7 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t va = smem_addr(kv_s + ks * 2 * kKvBytes + kKvBytes);
 #pragma unroll
         for (int kc = 0; kc < kKeyTile / 16; ++kc)
-          pv_step<DP>(oc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+          pv_step<E, DP>(oc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
                       va + kc * 2048, kKeyTile * 128);
         wgmma_commit();
       };
@@ -1068,15 +1083,15 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         l0 = fmaf(l0, corr0, e0);  // this lane's columns; summed across the quad at the end
         l1 = fmaf(l1, corr1, e1);
       };
-      // p in bfloat16 from the exponentials, 16 keys a k step, in the
+      // p in E from the exponentials, 16 keys a k step, in the
       // A-operand layout (once the P V that reads pa is done)
       auto pack_p = [&]() {
 #pragma unroll
         for (int kc = 0; kc < kKeyTile / 16; ++kc) {
-          pa[4 * kc] = pack_bf16(sc[8 * kc], sc[8 * kc + 1]);
-          pa[4 * kc + 1] = pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]);
-          pa[4 * kc + 2] = pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]);
-          pa[4 * kc + 3] = pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7]);
+          pa[4 * kc] = pack2<E>(sc[8 * kc], sc[8 * kc + 1]);
+          pa[4 * kc + 1] = pack2<E>(sc[8 * kc + 2], sc[8 * kc + 3]);
+          pa[4 * kc + 2] = pack2<E>(sc[8 * kc + 4], sc[8 * kc + 5]);
+          pa[4 * kc + 3] = pack2<E>(sc[8 * kc + 6], sc[8 * kc + 7]);
         }
       };
 
@@ -1155,9 +1170,9 @@ sr_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < DP / 8; ++j) {
           uint8_t* dst = ot + j / 8 * kSwizzleTile + row * 128 + c4 * 4;
           const int piece = ((j % 8) ^ (row % 8)) * 16;  // rows row and row + 8 swizzle alike
-          *reinterpret_cast<uint32_t*>(dst + piece) = pack_bf16(oc[4 * j] * r0, oc[4 * j + 1] * r0);
+          *reinterpret_cast<uint32_t*>(dst + piece) = pack2<E>(oc[4 * j] * r0, oc[4 * j + 1] * r0);
           *reinterpret_cast<uint32_t*>(dst + 8 * 128 + piece) =
-              pack_bf16(oc[4 * j + 2] * r1, oc[4 * j + 3] * r1);
+              pack2<E>(oc[4 * j + 2] * r1, oc[4 * j + 3] * r1);
         }
         fence_async_shared();
         named_bar_sync(1 + wg, 128);
@@ -1204,11 +1219,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bfloat16 [B, T, H, D] tensor with element strides st = (b, t, h), the
-// last axis contiguous, as a 4-d map (D, H, T, B) whose box is 64 columns
-// of `rows` tokens of one (batch, head), 128-byte swizzled. A stride of an axis
-// of extent 1 is never stepped; it gets a value TMA accepts (whole 16-byte
-// pieces).
+// An E [B, T, H, D] tensor (bfloat16 or float16) with element strides st =
+// (b, t, h), the last axis contiguous, as a 4-d map (D, H, T, B) whose box
+// is 64 columns of `rows` tokens of one (batch, head), 128-byte swizzled. A
+// stride of an axis of extent 1 is never stepped; it gets a value TMA
+// accepts (whole 16-byte pieces).
+template <typename E>
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int T, int H,
                 int D, const int64_t* st, int rows) {
   const int64_t sh = H > 1 ? st[2] : (D + 7) / 8 * 8;
@@ -1220,8 +1236,10 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, i
                                  static_cast<cuuint64_t>(sb * 2)};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type =
+      kIsHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1267,13 +1285,13 @@ struct WgPlan {
   int err;
 };
 
-template <int DP, int KT>
+template <typename E, int DP, int KT>
 WgPlan wgmma_plan() {
   using Shape = WgShape<DP>;
   constexpr int kThreadsWg = 128 * (Shape::kConsumers + 1);
   WgPlan plan{DP, KT, Shape::kConsumers, 0, 0, 0};
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, sr_attention_wgmma_kernel<DP, KT>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, sr_attention_wgmma_kernel<E, DP, KT>);
   if (err != cudaSuccess) {
     plan.err = static_cast<int>(err);
     return plan;
@@ -1295,7 +1313,7 @@ WgPlan wgmma_plan() {
   return plan;
 }
 
-template <int DP, int KT>
+template <typename E, int DP, int KT>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                  int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
   using Shape = WgShape<DP>;
@@ -1303,13 +1321,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -5;
   CUtensorMap tq, tk, tv, to;
-  if (!tensor_map(encode, &tq, q, B, N, H, D, st, kTileRows) ||
-      !tensor_map(encode, &tk, k, B, M, H, D, st + 3, KT) ||
-      !tensor_map(encode, &tv, v, B, M, H, D, st + 6, KT) ||
-      !tensor_map(encode, &to, o, B, N, H, D, st + 9, kTileRows))
+  if (!tensor_map<E>(encode, &tq, q, B, N, H, D, st, kTileRows) ||
+      !tensor_map<E>(encode, &tk, k, B, M, H, D, st + 3, KT) ||
+      !tensor_map<E>(encode, &tv, v, B, M, H, D, st + 6, KT) ||
+      !tensor_map<E>(encode, &to, o, B, N, H, D, st + 9, kTileRows))
     return -4;
-  auto kern = sr_attention_wgmma_kernel<DP, KT>;
-  const WgPlan plan = wgmma_plan<DP, KT>();
+  auto kern = sr_attention_wgmma_kernel<E, DP, KT>;
+  const WgPlan plan = wgmma_plan<E, DP, KT>();
   if (plan.err != 0) return plan.err;
   const int stages = plan.stages;
   const size_t smem = static_cast<size_t>(plan.smem);
@@ -1340,7 +1358,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bfloat16 at D > 320: wgmma over D in chunks, the output in column blocks
+// ---- bfloat16 and float16 at D > 320: wgmma over D in chunks, the output in
+// column blocks
 //
 // Past D = 320 a consumer of the kernel above cannot hold O beside its
 // scores (see WgShape<320>), so this kernel cuts the output into column
@@ -1363,15 +1382,16 @@ constexpr uint32_t kUnitBytes = 2 * kSwizzleTile;
 struct WideParams {
   int N, M, H, D, tiles_per_bh, col_blocks, d_chunks, key_tiles;
   int64_t item0;      // the first item of this launch
-  float q_scale;      // > 0: q is rounded to bfloat16(q * q_scale) before the product
+  float q_scale;      // > 0: q is rounded to E(q * q_scale) before the product
   float score_scale;  // raw score -> log2 units of the softmax
   Strides so;
 };
 
+template <typename E>
 __global__ void __launch_bounds__(128, 1)
 sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv, BF* __restrict__ o,
+                         const __grid_constant__ CUtensorMap tv, E* __restrict__ o,
                          WideParams p) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kWideStages];
@@ -1438,14 +1458,15 @@ sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
   for (int t = 0; t < p.key_tiles; ++t) {
     for (int c = 0; c < p.d_chunks; ++c) {
       uint8_t* st = wait_unit();
-      if (p.q_scale > 0.f) {  // round q * scale to bfloat16 in place
+      if (p.q_scale > 0.f) {  // round q * scale to E in place
         for (int x = tid; x < static_cast<int>(kSwizzleTile / 16); x += 128) {
           uint4 w = reinterpret_cast<const uint4*>(st)[x];
           uint32_t* e = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
-          for (int y = 0; y < 4; ++y)
-            e[y] = pack_bf16(__uint_as_float(e[y] << 16) * p.q_scale,
-                             __uint_as_float(e[y] & 0xffff0000u) * p.q_scale);
+          for (int y = 0; y < 4; ++y) {
+            const float2 f = unpack2<E>(e[y]);
+            e[y] = pack2<E>(f.x * p.q_scale, f.y * p.q_scale);
+          }
           reinterpret_cast<uint4*>(st)[x] = w;
         }
         fence_async_shared();
@@ -1455,8 +1476,8 @@ sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < 4; ++kd)
-        Wgmma<64>::ss(sc, sw128_desc(qa + kd * 32, 16, 1024), sw128_desc(ka + kd * 32, 16, 1024),
-                      c > 0 || kd > 0);
+        Wgmma<64, E>::ss(sc, sw128_desc(qa + kd * 32, 16, 1024),
+                         sw128_desc(ka + kd * 32, 16, 1024), c > 0 || kd > 0);
       wgmma_commit();
       wgmma_wait<0>();
       pin(sc);
@@ -1511,10 +1532,10 @@ sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      pa[4 * kc] = pack_bf16(sc[8 * kc], sc[8 * kc + 1]);
-      pa[4 * kc + 1] = pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]);
-      pa[4 * kc + 2] = pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]);
-      pa[4 * kc + 3] = pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7]);
+      pa[4 * kc] = pack2<E>(sc[8 * kc], sc[8 * kc + 1]);
+      pa[4 * kc + 1] = pack2<E>(sc[8 * kc + 2], sc[8 * kc + 3]);
+      pa[4 * kc + 2] = pack2<E>(sc[8 * kc + 4], sc[8 * kc + 5]);
+      pa[4 * kc + 3] = pack2<E>(sc[8 * kc + 6], sc[8 * kc + 7]);
     }
     // O += P V, 128 of the block's columns a unit: V [64 keys][128] is
     // MN-major, two 64-column blocks 8 KB apart, 16 keys (2048 bytes) a k step
@@ -1525,8 +1546,8 @@ sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < 4; ++kc)
-          Wgmma<128>::rs(oc[i], pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
-                         sw128_desc(va + kc * 2048, kSwizzleTile, 1024), 1);
+          Wgmma<128, E>::rs(oc[i], pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                            sw128_desc(va + kc * 2048, kSwizzleTile, 1024), 1);
         wgmma_commit();
         wgmma_wait<0>();
         pin(oc[i]);
@@ -1541,7 +1562,7 @@ sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float r0 = 1.f / l0, r1 = 1.f / l1;
-  BF* ob = o + b * p.so.b + h * p.so.h;
+  E* ob = o + b * p.so.b + h * p.so.h;
   const int row0 = n0 + 16 * warp + g, row1 = row0 + 8;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -1553,25 +1574,26 @@ sr_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
         if (col + e >= p.D) continue;
         if (row0 < p.N)
           ob[static_cast<int64_t>(row0) * p.so.n + col + e] =
-              __float2bfloat16_rn(oc[i][4 * j + e] * r0);
+              from_f32<E>(oc[i][4 * j + e] * r0);
         if (row1 < p.N)
           ob[static_cast<int64_t>(row1) * p.so.n + col + e] =
-              __float2bfloat16_rn(oc[i][4 * j + 2 + e] * r1);
+              from_f32<E>(oc[i][4 * j + 2 + e] * r1);
       }
     }
 }
 
+template <typename E>
 int launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                       int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -5;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(encode, &tq, q, B, N, H, D, st, kTileRows) ||
-      !tensor_map(encode, &tk, k, B, M, H, D, st + 3, 64) ||
-      !tensor_map(encode, &tv, v, B, M, H, D, st + 6, 64))
+  if (!tensor_map<E>(encode, &tq, q, B, N, H, D, st, kTileRows) ||
+      !tensor_map<E>(encode, &tk, k, B, M, H, D, st + 3, 64) ||
+      !tensor_map<E>(encode, &tv, v, B, M, H, D, st + 6, 64))
     return -4;
   const size_t smem = 1024 + kWideStages * static_cast<size_t>(kUnitBytes);
-  cudaError_t err = cudaFuncSetAttribute(sr_attention_wide_kernel,
+  cudaError_t err = cudaFuncSetAttribute(sr_attention_wide_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1593,37 +1615,39 @@ int launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, int 
   for (int64_t i0 = 0; i0 < total; i0 += 0x7fffffff) {  // gridDim.x's limit
     prm.item0 = i0;
     const unsigned grid = static_cast<unsigned>(std::min<int64_t>(total - i0, 0x7fffffff));
-    sr_attention_wide_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, static_cast<BF*>(o), prm);
+    sr_attention_wide_kernel<E><<<grid, 128, smem, stream>>>(tq, tk, tv, static_cast<E*>(o), prm);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
+template <typename E>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
                    int H, int D, const int64_t* st, float scale, cudaStream_t stream) {
   // at D <= 64 key tiles of 128 (the per-tile costs spread over more
   // keys), of 64 where there are no more keys than that; at D <= 128 tiles
   // of 64 (two stages of 128 would not fit beside the q and o tiles)
-  if (D <= 64 && M <= 64) return launch_wgmma<64, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 64) return launch_wgmma<64, 128>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 128) return launch_wgmma<128, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 192) return launch_wgmma<192, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 256) return launch_wgmma<256, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  if (D <= 320) return launch_wgmma<320, 32>(q, k, v, o, B, N, M, H, D, st, scale, stream);
-  return launch_wgmma_wide(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 64 && M <= 64) return launch_wgmma<E, 64, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 64) return launch_wgmma<E, 64, 128>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 128) return launch_wgmma<E, 128, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 192) return launch_wgmma<E, 192, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 256) return launch_wgmma<E, 256, 64>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  if (D <= 320) return launch_wgmma<E, 320, 32>(q, k, v, o, B, N, M, H, D, st, scale, stream);
+  return launch_wgmma_wide<E>(q, k, v, o, B, N, M, H, D, st, scale, stream);
 }
 
-// The instance `dispatch_wgmma` takes at head dim D and its plan; past D =
-// 320 the column-block kernel: its block's columns, key tile, one
+// The instance `dispatch_wgmma<E>` takes at head dim D and its plan; past D
+// = 320 the column-block kernel: its block's columns, key tile, one
 // warpgroup, its unit ring and shared bytes.
+template <typename E>
 WgPlan wgmma_shape(int D, int M) {
-  if (D <= 64 && M <= 64) return wgmma_plan<64, 64>();
-  if (D <= 64) return wgmma_plan<64, 128>();
-  if (D <= 128) return wgmma_plan<128, 64>();
-  if (D <= 192) return wgmma_plan<192, 64>();
-  if (D <= 256) return wgmma_plan<256, 64>();
-  if (D <= 320) return wgmma_plan<320, 32>();
+  if (D <= 64 && M <= 64) return wgmma_plan<E, 64, 64>();
+  if (D <= 64) return wgmma_plan<E, 64, 128>();
+  if (D <= 128) return wgmma_plan<E, 128, 64>();
+  if (D <= 192) return wgmma_plan<E, 192, 64>();
+  if (D <= 256) return wgmma_plan<E, 256, 64>();
+  if (D <= 320) return wgmma_plan<E, 320, 32>();
   return {kWideOut, 64, 1, kWideStages, 1024 + kWideStages * static_cast<int64_t>(kUnitBytes), 0};
 }
 
@@ -1633,13 +1657,28 @@ bool kernel_attributes(const char* name, cudaFuncAttributes* attr, cudaError_t* 
     const char* name;
     const void* fn;
   } kKernels[] = {
-      {"wgmma_64_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<64, 64>)},
-      {"wgmma_64_128", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<64, 128>)},
-      {"wgmma_128_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<128, 64>)},
-      {"wgmma_192_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<192, 64>)},
-      {"wgmma_256_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<256, 64>)},
-      {"wgmma_320_32", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<320, 32>)},
-      {"wide", reinterpret_cast<const void*>(sr_attention_wide_kernel)},
+      {"wgmma_64_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<BF, 64, 64>)},
+      {"wgmma_64_128", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<BF, 64, 128>)},
+      {"wgmma_128_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<BF, 128, 64>)},
+      {"wgmma_192_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<BF, 192, 64>)},
+      {"wgmma_256_64", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<BF, 256, 64>)},
+      {"wgmma_320_32", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<BF, 320, 32>)},
+      {"wide", reinterpret_cast<const void*>(sr_attention_wide_kernel<BF>)},
+      {"mma_16", reinterpret_cast<const void*>(sr_attention_mma_kernel<BF, 1>)},
+      {"mma_32", reinterpret_cast<const void*>(sr_attention_mma_kernel<BF, 2>)},
+      {"mma_64", reinterpret_cast<const void*>(sr_attention_mma_kernel<BF, 4>)},
+      {"mma_128", reinterpret_cast<const void*>(sr_attention_mma_kernel<BF, 8>)},
+      {"wgmma_64_64_f16", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<F16, 64, 64>)},
+      {"wgmma_64_128_f16", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<F16, 64, 128>)},
+      {"wgmma_128_64_f16", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<F16, 128, 64>)},
+      {"wgmma_192_64_f16", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<F16, 192, 64>)},
+      {"wgmma_256_64_f16", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<F16, 256, 64>)},
+      {"wgmma_320_32_f16", reinterpret_cast<const void*>(sr_attention_wgmma_kernel<F16, 320, 32>)},
+      {"wide_f16", reinterpret_cast<const void*>(sr_attention_wide_kernel<F16>)},
+      {"mma_16_f16", reinterpret_cast<const void*>(sr_attention_mma_kernel<F16, 1>)},
+      {"mma_32_f16", reinterpret_cast<const void*>(sr_attention_mma_kernel<F16, 2>)},
+      {"mma_64_f16", reinterpret_cast<const void*>(sr_attention_mma_kernel<F16, 4>)},
+      {"mma_128_f16", reinterpret_cast<const void*>(sr_attention_mma_kernel<F16, 8>)},
       {"f32_tile_64", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<1>)},
       {"f32_tile_128", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<2>)},
       {"f32_tile_192", reinterpret_cast<const void*>(sr_attention_f32_tile_kernel<3>)},
@@ -1658,26 +1697,33 @@ bool kernel_attributes(const char* name, cudaFuncAttributes* attr, cudaError_t* 
 
 // Launches on `stream`. q, o: [B, N, H, D]; k, v: [B, M, H, D]; `strides`
 // holds the (batch, token, head) strides in elements of q, k, v, o in that
-// order (12 values); the last axis of each is contiguous. kernel: 0 float32,
-// 1 bfloat16 on mma.sync, 2 bfloat16 on wgmma (16-byte aligned bases,
-// strides of whole 16-byte pieces). `scale` is 1/sqrt(D) already rounded to
-// the dtype.
+// order (12 values); the last axis of each is contiguous. kernel: 0 the
+// float32 tile kernel, 1 mma.sync, 2 wgmma (16-byte aligned bases, strides
+// of whole 16-byte pieces); dtype: 0 float32 (kernel 0 only), 1 bfloat16, 2
+// float16 (kernels 1 and 2). `scale` is 1/sqrt(D) already rounded to the
+// dtype.
 // Any B * H, any D. Returns 0 on success, cudaGetLastError() otherwise, -1
 // when D > 128 on mma.sync (that route's domain), -2 when what a block
 // stages exceeds the shared memory of an SM (mma.sync only), -3 for an
-// unknown kernel, -4 when TMA cannot describe a tensor, -5 when libcuda has
-// no cuTensorMapEncodeTiled, -6 when the wgmma kernel's register allocation
-// is smaller than its warpgroups ask for, -7 when the wgmma kernel's work
-// items overflow an int.
+// unknown kernel or a dtype it does not take, -4 when TMA cannot describe a
+// tensor, -5 when libcuda has no cuTensorMapEncodeTiled, -6 when the wgmma
+// kernel's register allocation is smaller than its warpgroups ask for, -7
+// when the wgmma kernel's work items overflow an int.
 extern "C" int f3s_sr_attention(const void* q, const void* k, const void* v,
-                                void* o, int kernel, int B, int N, int M, int H,
-                                int D, const int64_t* strides, float scale,
+                                void* o, int kernel, int dtype, int B, int N, int M,
+                                int H, int D, const int64_t* strides, float scale,
                                 void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kernel == 0) return dispatch_f32(q, k, v, o, B, N, M, H, D, strides, scale, s);
-  if (kernel == 1) return dispatch_mma(q, k, v, o, B, N, M, H, D, strides, scale, s);
-  if (kernel == 2) return dispatch_wgmma(q, k, v, o, B, N, M, H, D, strides, scale, s);
+  if (kernel == 0 && dtype == 0) return dispatch_f32(q, k, v, o, B, N, M, H, D, strides, scale, s);
+  if (kernel == 1 && dtype == 1)
+    return dispatch_mma<BF>(q, k, v, o, B, N, M, H, D, strides, scale, s);
+  if (kernel == 1 && dtype == 2)
+    return dispatch_mma<F16>(q, k, v, o, B, N, M, H, D, strides, scale, s);
+  if (kernel == 2 && dtype == 1)
+    return dispatch_wgmma<BF>(q, k, v, o, B, N, M, H, D, strides, scale, s);
+  if (kernel == 2 && dtype == 2)
+    return dispatch_wgmma<F16>(q, k, v, o, B, N, M, H, D, strides, scale, s);
   return -3;
 }
 
@@ -1695,11 +1741,13 @@ extern "C" int f3s_sr_f32_shape(int D, int64_t* shape) {
   return 0;
 }
 
-// The wgmma route's choice at head dim D and M keys, for checking
-// ops/attention.py `_sr_shape`: shape = [DP, KT, consumers, stages, shared
-// bytes]. Returns 0, or what the launcher would return instead of launching.
-extern "C" int f3s_sr_shape(int D, int M, int64_t* shape) {
-  const WgPlan p = wgmma_shape(D, M);
+// The wgmma route's choice at head dim D and M keys in dtype 1 (bfloat16)
+// or 2 (float16), for checking ops/attention.py `_sr_shape`: shape = [DP,
+// KT, consumers, stages, shared bytes]. Returns 0, -3 for another dtype, or
+// what the launcher would return instead of launching.
+extern "C" int f3s_sr_shape(int dtype, int D, int M, int64_t* shape) {
+  if (dtype != 1 && dtype != 2) return -3;
+  const WgPlan p = dtype == 1 ? wgmma_shape<BF>(D, M) : wgmma_shape<F16>(D, M);
   shape[0] = p.dp;
   shape[1] = p.kt;
   shape[2] = p.consumers;
@@ -1708,7 +1756,8 @@ extern "C" int f3s_sr_shape(int D, int M, int64_t* shape) {
   return p.err;
 }
 
-// The resources of kernel instance `name` ("wgmma_<DP>_<KT>", "wide"):
+// The resources of kernel instance `name` ("wgmma_<DP>_<KT>", "wide",
+// "mma_<16 NK>", each with "_f16" for its float16 twin; "f32_tile_<DP>"):
 // out = [registers a thread, local (spilled) bytes a thread, static shared
 // bytes, most threads a block]. Returns 0, -3 for an unknown name, or the
 // CUDA error.

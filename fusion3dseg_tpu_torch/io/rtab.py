@@ -101,17 +101,24 @@ def _normals_from_grid(points_cam: torch.Tensor) -> torch.Tensor:
 
 
 def frames_to_world(depth_m: torch.Tensor, Ks: torch.Tensor, quats_wxyz: torch.Tensor,
-                    translations: torch.Tensor):
+                    translations: torch.Tensor, height: int | None = None,
+                    width: int | None = None):
     """Whole-session back-projection: depth images -> world clouds + normals.
 
     Args:
       depth_m: [F, H, W] meters; Ks: [3, 3] depth-scaled intrinsics;
       quats_wxyz: [F, 4]; translations: [F, 3]. All float32 on one device.
+      height, width: the JAX package's call form names the image size; the
+      port reads it from depth_m, and raises ValueError where a given size
+      is not depth_m's.
 
     Returns (world_points [F, H*W, 3], world_normals [F, H*W, 3],
     cam_depth [F, H*W]).
     """
     nf, h, w = depth_m.shape
+    if (height is not None and height != h) or (width is not None and width != w):
+        raise ValueError(f"frames_to_world: height, width = {height}, {width} but the "
+                         f"depth images are {h} x {w}")
     pts_cam = camera.backproject_depth(depth_m, Ks)  # [F, H*W, 3]
     normals_cam = _normals_from_grid(pts_cam.reshape(nf, h, w, 3)).reshape(nf, h * w, 3)
     pts_w = camera.camera_to_world(pts_cam, quats_wxyz, translations)

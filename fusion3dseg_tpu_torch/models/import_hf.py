@@ -59,12 +59,13 @@ def load_hf_state_dict(path) -> dict:
     return dict(sd)
 
 
-def config_from_hf(hf_config, num_classes: int = 134, dtype=torch.bfloat16,
+def config_from_hf(hf_config, num_classes: int = 134, dtype=None,
                    with_head: bool = False) -> SegFormerConfig:
     """The port's SegFormerConfig mirroring an HF SegformerConfig's encoder
     geometry. num_classes stays the caller's (the classifier is not
     imported) unless `with_head`, which builds the full-transplant config:
-    head "hf" and the checkpoint's own `num_labels`."""
+    head "hf" and the checkpoint's own `num_labels`. `dtype=None` means
+    bfloat16, as in the JAX package."""
     if with_head:
         num_classes = int(hf_config.num_labels)
     return SegFormerConfig(
@@ -78,18 +79,18 @@ def config_from_hf(hf_config, num_classes: int = 134, dtype=torch.bfloat16,
         patch_strides=tuple(hf_config.strides),
         patch_sizes=tuple(hf_config.patch_sizes),
         head="hf" if with_head else "native",
-        dtype=dtype,
+        dtype=dtype if dtype is not None else torch.bfloat16,
     )
 
 
-def infer_config_from_state_dict(state_dict, num_classes: int = 134, dtype=torch.bfloat16,
+def infer_config_from_state_dict(state_dict, num_classes: int = 134, dtype=None,
                                  with_head: bool = False) -> SegFormerConfig:
     """The port's SegFormerConfig read off the checkpoint's tensors alone
     (a bare .pth has no config object): embed dims, depths, patch sizes, sr
     ratios, mlp ratio and decoder width come from weight shapes; attention
     head counts cannot, so the canonical MiT (1, 2, 5, 8) is assumed where
     it divides the stage width (every released b0-b5), else the largest
-    divisor below it."""
+    divisor below it. `dtype=None` means bfloat16, as in the JAX package."""
     sd = {k.removeprefix("segformer.").removeprefix("model."): v
           for k, v in state_dict.items()}
     dims, sizes = [], []
@@ -124,7 +125,8 @@ def infer_config_from_state_dict(state_dict, num_classes: int = 134, dtype=torch
         num_classes=num_classes, embed_dims=tuple(dims), depths=tuple(depths),
         num_heads=heads, sr_ratios=tuple(srs), mlp_ratio=mlp_ratio,
         decoder_dim=decoder_dim, patch_sizes=tuple(sizes), patch_strides=(4, 2, 2, 2),
-        head="hf" if with_head else "native", dtype=dtype,
+        head="hf" if with_head else "native",
+        dtype=dtype if dtype is not None else torch.bfloat16,
     )
 
 

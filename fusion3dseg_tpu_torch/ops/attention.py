@@ -13,9 +13,12 @@ version (`*_reference`) on CPU tensors. Nothing else selects between them: a
 CUDA tensor either launches a kernel or raises. Both take q pre-scaling on
 themselves (callers must not scale) and read `[B, tokens, H, D]` tensors
 through their strides. Their domain is the JAX kernels': any D, any number
-of queries and keys, any odd window, any B * H. In float32 both run on the
-CUDA cores, in bfloat16 on the tensor cores. K3 has two bfloat16 kernels,
-and `_sr_route` alone decides which one a call takes.
+of queries and keys, any odd window, any B * H, and the float dtypes the
+segmenter runs (float32, bfloat16, float16). In float32 both run on the
+CUDA cores; bfloat16 and float16 take the same tensor-core kernels, each
+built for both element types (two bytes an element, the same shared-memory
+plans). K3 has two such kernels, and `_sr_route` alone decides which one a
+call takes.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ import torch
 
 from fusion3dseg_tpu_torch import cuda
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# element-type codes of the C entry points; the two-byte types share the
+# tensor-core kernels and their plans
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
 _MMA_MAX_HEAD_DIM = 128  # the mma.sync kernel keeps a query's q in registers
 _ERRORS = {
     -1: f"the mma route takes D <= {_MMA_MAX_HEAD_DIM}",
@@ -49,7 +55,7 @@ def _check(q, k, v, name):
         raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
                          "on batch, heads or head dim")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"{name}: q, k, v must share float32 or bfloat16, got "
+        raise TypeError(f"{name}: q, k, v must share float32, bfloat16 or float16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v lie on {q.device}, {k.device}, {v.device}")
@@ -64,13 +70,15 @@ def _scale(q) -> float:
 
 def _scaled(q):
     """q / sqrt(D) in q's own dtype, the scale itself rounded to that dtype
-    first (what `q * scale` gives in the JAX package for a bfloat16 q)."""
+    first (what `(q * scale).astype(q.dtype)` gives in the JAX package for
+    a bfloat16 or float16 q)."""
     return q * _scale(q)
 
 
-def _launch(fn_name, lib_name, tensors, out, ints, kernel=None):
-    """One launch of a `csrc` attention kernel on the current stream;
-    `kernel` (default: the dtype's code) selects among a source's kernels."""
+def _launch(fn_name, lib_name, tensors, out, ints):
+    """One launch of a `csrc` attention kernel on the current stream: the
+    C function takes q, k, v, out, then `ints` (codes and sizes), the 12
+    strides, the scale and the stream."""
     q = tensors[0]
     strides = []
     for t in (*tensors, out):
@@ -78,14 +86,13 @@ def _launch(fn_name, lib_name, tensors, out, ints, kernel=None):
             raise ValueError(f"{fn_name}: the head-dim axis must be contiguous")
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     fn = getattr(cuda.load(lib_name), fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (1 + len(ints))
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * len(ints)
                    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                 _DTYPES[q.dtype] if kernel is None else kernel,
-                 *ints, (ctypes.c_int64 * 12)(*strides), _scale(q), stream)
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), *ints,
+                 (ctypes.c_int64 * 12)(*strides), _scale(q), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: " + _ERRORS.get(err, f"launch failed, cudaError {err}"))
     return out
@@ -97,19 +104,19 @@ def sr_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     """Plain PyTorch version of `sr_attention`, with the kernel's roundings:
     q scaled in its own dtype, scores accumulated in float32, softmax in
     float32, probabilities cast to v's dtype, the second product accumulated
-    in float32, output in q's dtype."""
+    in float32, output in q's dtype (the JAX kernel's, in each dtype)."""
     _check(q, k, v, "sr_attention")
     scores = torch.einsum("bnhd,bmhd->bhnm", _scaled(q).float(), k.float())
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
 
 
-# K3's kernels, by the code `f3s_sr_attention` takes
+# K3's kernels, by the code `f3s_sr_attention` takes beside the dtype's
 SR_ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
 
 
 def _tma_layout(t) -> bool:
-    """TMA can describe t [B, tokens, H, D] in bfloat16: a 16-byte aligned
+    """TMA can describe t [B, tokens, H, D] of a two-byte type: a 16-byte aligned
     base and positive strides of whole 16-byte pieces on every axis longer
     than 1 (the last axis is contiguous)."""
     return t.data_ptr() % 16 == 0 and all(
@@ -124,8 +131,9 @@ def _wgmma_direct(q, k, v) -> bool:
 
 def _mma_fits(M: int, D: int) -> bool:
     """The mma.sync kernel takes D <= 128 and stages K and V of one (batch,
-    head), [Mp, 16 NK + 8] and V transposed [16 NK, Mp + 8] in bfloat16, in
-    an SM's shared memory: 848 keys at D = 64, 432 at D = 128."""
+    head), [Mp, 16 NK + 8] and V transposed [16 NK, Mp + 8] of two-byte
+    elements (bfloat16 or float16), in an SM's shared memory: 848 keys at D
+    = 64, 432 at D = 128."""
     if D > _MMA_MAX_HEAD_DIM:
         return False
     nk = -(-D // 16)
@@ -137,12 +145,13 @@ def _mma_fits(M: int, D: int) -> bool:
 def _sr_route(q, k, v) -> str:
     """The kernel a CUDA call of `sr_attention` launches: "f32" for float32
     (the one-pass tile kernel at every D, `_sr_f32_shape`);
-    for bfloat16 "wgmma" (TMA-fed, keys streamed in tiles, any M, any D)
-    when TMA can describe q, k and v, else "mma" (`mma.sync`, any strides)
-    while D <= 128 and K and V of one (batch, head) fit its shared memory,
-    else "wgmma" again on copies of q, k and v in a TMA layout
-    (`_tma_copy`)."""
-    if q.dtype != torch.bfloat16:
+    for bfloat16 and float16 "wgmma" (TMA-fed, keys streamed in tiles, any
+    M, any D) when TMA can describe q, k and v, else "mma" (`mma.sync`, any
+    strides) while D <= 128 and K and V of one (batch, head) fit its shared
+    memory, else "wgmma" again on copies of q, k and v in a TMA layout
+    (`_tma_copy`). Each of these kernels has a bfloat16 and a float16
+    instance; the dtype picks it."""
+    if q.dtype == torch.float32:
         return "f32"
     if _wgmma_direct(q, k, v) or not _mma_fits(k.shape[1], q.shape[-1]):
         return "wgmma"
@@ -172,7 +181,7 @@ _SR_WIDE_OUT, _SR_WIDE_STAGES = 256, 4  # past D = 320: columns a block, units o
 
 def _sr_shape(D: int, M: int) -> SrShape:
     """The instance `csrc/sr_attention.cu` (`wgmma_shape`) takes for head dim
-    D and M keys in bfloat16: DP the smallest of 64, 128, 192, 256, 320
+    D and M keys in bfloat16 or float16: DP the smallest of 64, 128, 192, 256, 320
     that holds D, key tiles of 128 at DP = 64 past 64 keys, of 32 at DP =
     320, else 64; as many K, V stages (at most 16) as fit an SM's shared
     memory beside the q stages, the output tiles and the barriers. Past D =
@@ -243,8 +252,8 @@ def launch_sr_attention(q, k, v, route: str) -> torch.Tensor:
         width = -(-D // 8) * 8
         q, k, v = (_tma_copy(t, width) for t in (q, k, v))
     out = torch.empty((B, N, H, width), dtype=q.dtype, device=q.device)[..., :D]
-    _launch("f3s_sr_attention", "sr_attention", (q, k, v), out, (B, N, k.shape[1], H, D),
-            kernel=SR_ROUTES[route])
+    _launch("f3s_sr_attention", "sr_attention", (q, k, v), out,
+            (SR_ROUTES[route], _DTYPES[q.dtype], B, N, k.shape[1], H, D))
     sr_attention.launches += 1
     sr_attention.routes[route] += 1
     return out
@@ -254,8 +263,8 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     """Fused spatial-reduction attention: q [B, N, H, D] against k, v
     [B, M, H, D]; returns [B, N, H, D] in q's dtype. Scaling by 1/sqrt(D)
     happens here. Any N, any M, any D, any B * H (the JAX kernel's domain:
-    M and D up to what VMEM holds). bfloat16 runs on the tensor cores
-    (`_sr_route` picks the kernel; `_sr_shape` the wgmma instance: D
+    M and D up to what VMEM holds). bfloat16 and float16 run on the tensor
+    cores (`_sr_route` picks the kernel; `_sr_shape` the wgmma instance: D
     padded to 64, 128, 192, 256 or 320), float32 on the CUDA cores (one
     pass, `_sr_f32_shape`: D padded to 64 to 320); both stream the keys
     through shared memory in tiles, and above D = 320 take D in chunks,
@@ -312,22 +321,22 @@ _NAT_MAX_NARROW_D = 128  # past it, the wide kernels
 # positions a chunk, the ring's most buffers, the budget (half an SM)
 _NAT_F32_WIDE_COLS, _NAT_F32_WIDE_POS, _NAT_F32_WIDE_STAGES = 64, 128, 4
 _NAT_F32_WIDE_BUDGET = _MAX_SMEM // 2 - 1024
-# bfloat16 past D = 128: a block's query rows (a strip of 2 x 8), a unit's
-# columns (rows of 72 staged), slots of 8 keys a chunk, a row of p (16 slots
-# of 8 and 8), the ring's most buffers
+# bfloat16 and float16 past D = 128: a block's query rows (a strip of 2 x
+# 8), a unit's columns (rows of 72 staged), slots of 8 keys a chunk, a row of
+# p (16 slots of 8 and 8), the ring's most buffers
 _NAT_STRIP_ROWS, _NAT_MMA_WIDE_COLS, _NAT_MMA_WIDE_SLOTS = 2, 64, 16
 _NAT_P_LD, _NAT_MMA_WIDE_STAGES = 136, 4
 _NAT_STRIP = _NAT_STRIP_ROWS * _NAT_TILE  # queries a block
 
 
 def _score_ld(n: int) -> int:
-    """Floats a score row of the bfloat16 wide kernel takes for n entries:
+    """Floats a score row of the two-byte wide kernel takes for n entries:
     n rounded up to 4 mod 8."""
     return n + (12 - n % 8) % 8
 
 
 def _window_scores(window: int) -> bool:
-    """Whether the bfloat16 wide kernel keeps each query's whole window of
+    """Whether the two-byte wide kernel keeps each query's whole window of
     scores (its 16 rows of window^2 floats within a sixth of the budget:
     windows up to 11), else a chunk's, with the softmax online over the
     chunks."""
@@ -335,11 +344,11 @@ def _window_scores(window: int) -> bool:
 
 
 def _mma_wide_smem(window: int, D: int, npos: int, stages: int) -> int:
-    """The bfloat16 wide kernel's shared bytes for chunks of npos positions:
+    """The two-byte wide kernel's shared bytes for chunks of npos positions:
     16 score rows (of the window, or of the chunk's positions) and the
     corrections in float32, the strip's q (all of D in units of 64, and 8),
-    p's high parts and remainders, `stages` ring buffers of 72 bfloat16 a
-    position."""
+    p's high parts and remainders, `stages` ring buffers of 72 two-byte
+    elements a position."""
     entries = window * window if _window_scores(window) else npos
     q_ld = -(-D // _NAT_MMA_WIDE_COLS) * _NAT_MMA_WIDE_COLS + 8
     fixed = _NAT_STRIP * ((_score_ld(entries) + 1) * 4 + q_ld * 2 + 2 * _NAT_P_LD * 2)
@@ -365,7 +374,7 @@ def _nat_f32_rows(plan: NatPlan, halo_rows: int, halo_cols: int) -> int:
 
 
 def _nat_tile_rows(plan: NatPlan, halo_rows: int, halo_cols: int) -> int:
-    """The rows of a strip's chunks in the bfloat16 wide kernel
+    """The rows of a strip's chunks in the two-byte wide kernel
     (`tile_rows` in csrc/neighborhood_attention.cu): the plan's, or more
     where the strip's halo clamped to the image is narrower than the plan's
     pieces, as many as the ring's buffers hold within 16 slots."""
@@ -385,9 +394,10 @@ def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
     it fits `_NAT_BUDGET` it is one chunk staged once; else the block
     streams it through two buffers of half the budget each, in bands of
     whole rows, or of pieces of a row (a multiple of 8 positions) where one
-    row does not fit. The bfloat16 kernel also stores its 64 output rows
-    through shared memory. Above D = 128 the wide kernels cut rows into
-    pieces of at most 64 columns. bfloat16 (a block owns a strip of 2 x 8
+    row does not fit. The two-byte kernel (bfloat16 and float16 alike) also
+    stores its 64 output rows through shared memory. Above D = 128 the wide
+    kernels cut rows into pieces of at most 64 columns. Two-byte types (a
+    block owns a strip of 2 x 8
     queries, whose halo is 2 + window - 1 rows): as many rows a chunk as
     keep it at 16 slots of 8 columns and two ring buffers of 64 columns of
     K or V within the budget beside the score rows (of the window up to
@@ -403,7 +413,7 @@ def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
     if D > _NAT_MAX_NARROW_D:
         cols = min(wide, 64)
         nsx = -(-cols // 8)
-        if dtype == torch.bfloat16:
+        if dtype in _HALF:
             rows = min(_NAT_STRIP_ROWS + 2 * (window // 2), _NAT_MMA_WIDE_SLOTS // nsx)
             while rows > 1 and _mma_wide_smem(window, D, rows * cols, 2) > _NAT_BUDGET:
                 rows -= 1
@@ -416,7 +426,7 @@ def _nat_plan(window: int, D: int, dtype, width: int) -> NatPlan:
         while stages > 2 and _f32_wide_smem(rows * cols, stages) > _NAT_F32_WIDE_BUDGET:
             stages -= 1
         return NatPlan(rows, cols, stages, _f32_wide_smem(rows * cols, stages))
-    if dtype == torch.bfloat16:
+    if dtype in _HALF:
         # D padded to 32 n, and 8 more against bank conflicts
         ld = 32 * next(n for n in (1, 2, 3, 4) if D <= 32 * n) + 8
         elem, out = 2, _NAT_TILE * _NAT_TILE * ld * 2
@@ -436,9 +446,9 @@ def neighborhood_attention_reference(q, k, v, height: int, width: int, window: i
     """Plain PyTorch version of `neighborhood_attention` (gathers every
     query's window; differentiable, and the route of the kernel's backward).
     q, k, v: [B, N = height*width, H, D]. Roundings as in the kernel: q scaled
-    in its own dtype, everything else in float32 (the bfloat16 kernel feeds
-    the tensor cores each probability as a bfloat16 high part and a bfloat16
-    remainder, which keeps it float32-grade), output in q's dtype. The window
+    in its own dtype, everything else in float32 (the two-byte kernels feed
+    the tensor cores each probability as a high part and a remainder in q's
+    dtype, which keeps it float32-grade), output in q's dtype. The window
     is masked at the borders: a corner query sees only its in-image
     neighbours."""
     _check(q, k, v, "neighborhood_attention")
@@ -469,7 +479,7 @@ class _NeighborhoodAttention(torch.autograd.Function):
         B, N, H, D = q.shape
         out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
         _launch("f3s_neighborhood_attention", "neighborhood_attention", (q, k, v), out,
-                (B, height, width, window, H, D))
+                (_DTYPES[q.dtype], B, height, width, window, H, D))
         neighborhood_attention.launches += 1
         return out
 
@@ -491,8 +501,9 @@ def neighborhood_attention(q, k, v, height: int, width: int, window: int = 7):
     shared memory in chunks (`_nat_plan`), so no window is too wide for it;
     above D = 128 a block owns a strip of 2 x 8 queries and all of D up to
     320 (each score once; past 320 the output in column blocks of 320).
-    Head dims and strides that are multiples of 16 bytes (bfloat16) are
-    staged 16 bytes a copy, others an element at a time.
+    Head dims and strides that are multiples of 16 bytes are staged 16
+    bytes a copy, others an element at a time. float32 runs on the CUDA
+    cores, bfloat16 and float16 on the tensor cores.
 
     A CUDA tensor launches the kernel (and adds one to
     `neighborhood_attention.launches`), with its gradient taken through

@@ -22,10 +22,11 @@ from fusion3dseg_tpu_torch.io import rtab
 from fusion3dseg_tpu_torch.utils import timing
 
 
-def load_session(input_data_path, device="cuda") -> rtab.SessionData:
+def load_session(input_data_path, point_range=None, *, device="cuda") -> rtab.SessionData:
     """The session under `input_data_path`: the reference's pickle cache
     when PointcloudMergeResults holds one, else an rtabmap-export directory
-    (one with depth/). Its per-pixel arrays go to `device`."""
+    (one with depth/). Its per-pixel arrays go to `device`. `point_range` is
+    accepted and ignored, as in the JAX package (the fusion applies it)."""
     input_data_path = Path(input_data_path)
     merge = input_data_path / "PointcloudMergeResults"
     if merge.is_dir():

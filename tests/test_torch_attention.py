@@ -62,8 +62,10 @@ class TestSRAttention:
             tattn.sr_attention(q.requires_grad_(True), k, v)
         with torch.no_grad():
             tattn.sr_attention(q, k, v)
+        with pytest.raises(TypeError):  # float16 is taken (tests/test_torch_float16.py)
+            tattn.sr_attention(q.detach().double(), k.double(), v.double())
         with pytest.raises(TypeError):
-            tattn.sr_attention(q.detach().half(), k.half(), v.half())
+            tattn.sr_attention(q.detach().half(), k.float(), v.half())
         with pytest.raises(ValueError):
             tattn.sr_attention(q.detach(), k[..., :2], v[..., :2])
         assert tattn.sr_attention.launches == 0  # the CPU never counts a launch

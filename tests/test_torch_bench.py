@@ -38,6 +38,20 @@ SIZES = tbench.FusionSizes(frames=8, hw=(64, 48), vga_frames=3, vga_hw=(96, 128)
 PLATFORM_ONLY = {"loopclosure_saturated"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port on one CPU thread while this module runs. Its engine makes
+    hundreds of small torch calls a frame, and each opens an OpenMP region
+    over every core: with the other test workers on the same cores those
+    regions wait on descheduled threads (the engine ran at 0.5 frames/s
+    beside five busy processes on 8 cores, 22 frames/s on one thread), which
+    cost this module 286 s of its worker in a six-worker run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tmp_module(tmp_path_factory):
     """The temporary directory of both benches' workload and index caches."""

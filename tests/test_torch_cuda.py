@@ -522,6 +522,218 @@ def test_sr_attention_batch_heads_against_exact(cuda_device, route, N, M, D, see
     assert ((got - plain).abs() <= torch.maximum(2 * steps, torch.tensor(BF16_BAR))).all()
 
 
+# float16 takes the bfloat16 kernels' float16 instances. BF16_BAR assumes
+# outputs below 4, where a bfloat16 step is at most 2^-6 (the bar about 1.3
+# steps); float16 has three more bits, so F16_BAR is 1.3 float16 steps there
+# (2^-9 each): 2.5e-3. The one-pass wgmma kernel rounds p before dividing
+# by the row sum, the plain version the normalised p, and each rounds its
+# output once: the two may land on neighbouring float16 values, so they are
+# held within F16_BAR or two steps of the output's magnitude, and each
+# within the same of the exact attention of the same inputs (float64, q *
+# scale rounded as the kernels round it, p unrounded).
+F16_BAR = 2.5e-3
+
+
+def _f16_close(got, want):
+    """|got - want| within F16_BAR or two float16 steps of their magnitude,
+    everywhere."""
+    got, want = got.double(), want.double()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -14)
+    steps = torch.exp2(torch.floor(torch.log2(big)) - 10)
+    return bool(((got - want).abs() <= torch.maximum(2 * steps, torch.tensor(F16_BAR))).all())
+
+
+def _sr_exact(q, k, v):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
+    return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
+
+
+def _nat_exact(q, k, v, h, w, window):
+    """float64 windowed attention (dense, masked to the window)."""
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    r = window // 2
+    iy, ix = torch.arange(h, device=q.device), torch.arange(w, device=q.device)
+    near = ((iy[:, None] - iy[None, :]).abs() <= r)[:, None, :, None] & \
+        ((ix[:, None] - ix[None, :]).abs() <= r)[None, :, None, :]
+    scores = torch.einsum("bnhd,bmhd->bhnm", attn._scaled(q).double(), k.double())
+    scores = scores.masked_fill(~near.reshape(h * w, h * w), float("-inf"))
+    return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, -1), v.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,D,M,route", [
+    (8, 4096, 1, 64, 64, "wgmma"),  # B2 stage 0 at 256x256: wgmma on the tensors
+    (8, 1024, 2, 64, 64, "wgmma"),  # B2 stage 1
+    (1, 1000, 3, 32, 37, "wgmma"),  # ragged N, M; q rounded in shared memory
+    (2, 700, 2, 64, 257, "wgmma"),  # keys in tiles, the last masked
+    (1, 777, 2, 64, 2048, "wgmma"),  # key tiles streamed
+    (1, 300, 2, 20, 40, "mma"),  # rows not whole 16-byte pieces: mma.sync
+    (1, 300, 2, 20, 2000, "wgmma"),  # past mma.sync's keys: wgmma on copies
+    (8, 1024, 2, 160, 256, "wgmma"),  # DP = 192
+    (8, 4096, 1, 256, 64, "wgmma"),  # DP = 256
+    (8, 1024, 1, 320, 256, "wgmma"),  # DP = 320, key tiles of 32
+    (1, 999, 3, 384, 300, "wgmma"), (1, 600, 1, 512, 100, "wgmma"),  # past 320: column blocks
+])
+def test_sr_attention_float16_kernels(cuda_device, B, N, H, D, M, route):
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    q, k, v = _qkv((B, N, H, D), (B, M, H, D), torch.float16, cuda_device)
+    assert attn._sr_route(q, k, v) == route
+    before, on_route = attn.sr_attention.launches, attn.sr_attention.routes[route]
+    got = attn.sr_attention(q, k, v)
+    assert attn.sr_attention.launches == before + 1
+    assert attn.sr_attention.routes[route] == on_route + 1
+    plain, exact = attn.sr_attention_reference(q, k, v), _sr_exact(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and got.shape == plain.shape
+    assert torch.isfinite(got).all()
+    assert _f16_close(got, plain) and _f16_close(got, exact) and _f16_close(plain, exact)
+    if attn._mma_fits(M, D) and route == "wgmma":  # the mma.sync instance, named
+        assert _f16_close(attn.launch_sr_attention(q, k, v, "mma"), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,w,H,D,window", [
+    (8, 64, 64, 1, 64, 7),  # B2 stage 0 at 256x256: the halo staged once
+    (2, 64, 64, 1, 64, 23),  # the halo streamed in bands
+    (1, 12, 100, 1, 128, 63),  # rows cut into column pieces
+    (1, 9, 11, 3, 7, 3),  # element copies, no 4-byte accesses
+    (8, 16, 16, 1, 320, 7),  # the wide kernel, the window's score rows
+    (1, 30, 27, 1, 320, 23),  # the wide kernel, the chunk's scores online
+    (1, 33, 40, 2, 384, 11),  # two column blocks
+])
+def test_neighborhood_attention_float16_kernels(cuda_device, B, h, w, H, D, window):
+    # K2 keeps p float32-grade (a high part and a remainder, both float16):
+    # held to the plain version and to the exact attention as K3 is
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    q, k, v = _qkv((B, h * w, H, D), (B, h * w, H, D), torch.float16, cuda_device)
+    before = attn.neighborhood_attention.launches
+    got = attn.neighborhood_attention(q, k, v, h, w, window)
+    assert attn.neighborhood_attention.launches == before + 1
+    plain = attn.neighborhood_attention_reference(q, k, v, h, w, window)
+    exact = _nat_exact(q, k, v, h, w, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and torch.isfinite(got).all()
+    assert _f16_close(got, plain) and _f16_close(got, exact) and _f16_close(plain, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sr wgmma", "sr mma", "nat", "sr wide", "nat wide"])
+def test_float16_kernels_take_any_batch_heads(cuda_device, kernel):
+    # 65,537 (batch, head) pairs in float16: each kernel held to its plain
+    # version and to the exact attention, and a pair's output does not depend
+    # on how many pairs share the call. "wide": D = 320 (K3's DP = 320
+    # instance, K2's wide kernel) on a 2 x 2 image, where window 3 holds
+    # every token
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    if kernel.startswith("nat"):
+        hw, D = ((2, 2), 320) if kernel == "nat wide" else ((4, 4), 8)
+        q, k, v = _qkv((65537, hw[0] * hw[1], 1, D), (65537, hw[0] * hw[1], 1, D),
+                       torch.float16, cuda_device)
+        fn = lambda *t: attn.neighborhood_attention(*t, *hw, 3)
+        plain = attn.neighborhood_attention_reference(q, k, v, *hw, 3)
+        exact = _nat_exact(q, k, v, *hw, 3)
+    else:
+        shapes = ((65537, 4, 1, 320), (65537, 4, 1, 320)) if kernel == "sr wide" else \
+            ((65537, 16, 1, 16), (65537, 64, 1, 16))
+        q, k, v = _qkv(*shapes, torch.float16, cuda_device)
+        route = "mma" if kernel == "sr mma" else "wgmma"
+        fn = lambda *t: attn.launch_sr_attention(*t, route)
+        plain, exact = attn.sr_attention_reference(q, k, v), _sr_exact(q, k, v)
+    got = fn(q, k, v)
+    parts = torch.cat([fn(q[s], k[s], v[s]) for s in (slice(0, 65535), slice(65535, None))])
+    torch.cuda.synchronize()
+    assert torch.equal(got, parts)
+    assert _f16_close(got, plain) and _f16_close(got, exact)
+
+
+@pytest.mark.cuda
+def test_float16_launches_a_float16_kernel_only(cuda_device, monkeypatch):
+    # a float16 CUDA call launches a float16 kernel (dtype code 2, every
+    # tensor handed to it float16), adds one to its count, and never runs
+    # the plain version or casts to another dtype
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    plain_calls, launched = [], []
+    real = attn._launch
+
+    def spy(fn_name, lib, tensors, out, ints):
+        launched.append((fn_name, {t.dtype for t in (*tensors, out)}, ints))
+        return real(fn_name, lib, tensors, out, ints)
+
+    monkeypatch.setattr(attn, "_launch", spy)
+    monkeypatch.setattr(attn, "sr_attention_reference", lambda *a: plain_calls.append(a))
+    monkeypatch.setattr(attn, "neighborhood_attention_reference",
+                        lambda *a: plain_calls.append(a))
+    flat = torch.randn(4 + 300 * 64, device=cuda_device).half()
+    cases = [("wgmma", _qkv((1, 300, 2, 64), (1, 40, 2, 64), torch.float16, cuda_device)),
+             ("mma", (flat[4:].view(1, 300, 1, 64), *_qkv((1, 300, 1, 64), (1, 40, 1, 64),
+                                                        torch.float16, cuda_device)[1:])),
+             ("wgmma", _qkv((1, 300, 2, 20), (1, 2000, 2, 20), torch.float16, cuda_device)),
+             ("wgmma", _qkv((1, 300, 1, 320), (1, 40, 1, 320), torch.float16, cuda_device))]
+    for route, (q, k, v) in cases:
+        before, on_route = attn.sr_attention.launches, attn.sr_attention.routes[route]
+        assert attn._sr_route(q, k, v) == route
+        assert attn.sr_attention(q, k, v).dtype == torch.float16
+        assert (attn.sr_attention.launches, attn.sr_attention.routes[route]) == \
+            (before + 1, on_route + 1)
+    for D in (64, 320):
+        q, k, v = _qkv((1, 64, 1, D), (1, 64, 1, D), torch.float16, cuda_device)
+        before = attn.neighborhood_attention.launches
+        assert attn.neighborhood_attention(q, k, v, 8, 8, 7).dtype == torch.float16
+        assert attn.neighborhood_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert plain_calls == []
+    assert len(launched) == 6 and all(dts == {torch.float16} for _, dts, _ in launched)
+    codes = [ints[1] if name == "f3s_sr_attention" else ints[0] for name, _, ints in launched]
+    assert codes == [attn._DTYPES[torch.float16]] * 6 == [2] * 6
+
+
+@pytest.mark.cuda
+def test_float16_plans_and_registers(cuda_device):
+    # float16's wgmma instances equal bfloat16's, K2's plans likewise, and
+    # no float16 instance spills more than its bfloat16 twin
+    import ctypes
+
+    from fusion3dseg_tpu_torch import cuda
+    from fusion3dseg_tpu_torch.ops import attention as attn
+
+    shape_fn = cuda.load("sr_attention").f3s_sr_shape
+    shape_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int64)]
+    got = (ctypes.c_int64 * 5)()
+    for D in range(1, 513, 7):
+        for M in (1, 64, 65, 1024):
+            for code in (1, 2):
+                assert shape_fn(code, D, M, got) == 0
+                assert tuple(got) == tuple(attn._sr_shape(D, M)), (code, D, M)
+    assert shape_fn(0, 64, 64, got) == -3
+    plan_fn = cuda.load("neighborhood_attention").f3s_nat_plan
+    plan_fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int64)]
+    plan = (ctypes.c_int64 * 4)()
+    for D in (7, 64, 128, 129, 320, 512):
+        for window in range(1, 64, 2):
+            for width in (1, 5, 9, 16, 17, 64, 70, 256):
+                assert plan_fn(2, window, D, width, plan) == 0
+                assert tuple(plan) == tuple(attn._nat_plan(window, D, torch.float16, width))
+    for lib, fn_name, names in (
+            ("sr_attention", "f3s_sr_resources",
+             [f"wgmma_{s}" for s in ("64_64", "64_128", "128_64", "192_64", "256_64", "320_32")]
+             + ["wide", "mma_16", "mma_32", "mma_64", "mma_128"]),
+            ("neighborhood_attention", "f3s_nat_resources",
+             ["mma_wide", "mma_wide_online", "mma_1", "mma_2", "mma_3", "mma_4"])):
+        fn = getattr(cuda.load(lib), fn_name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+        for name in names:
+            bf, f16 = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+            assert fn(name.encode(), bf) == 0 and fn(f"{name}_f16".encode(), f16) == 0, name
+            assert f16[1] <= bf[1], f"{name}_f16: {f16[1]} bytes of local memory a thread"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_neighborhood_attention_backward(cuda_device, dtype):
@@ -623,6 +835,42 @@ def test_float32_reheaded_b2_segmenter_cuda_matches_cpu(cuda_device):
     lc = on_cpu._logits_sem_conf(x, 0.0, (48, 36))[0]
     lg = on_card._logits_sem_conf(x.cuda(), 0.0, (48, 36))[0].cpu()
     assert (lg - lc).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"use_pallas_attention": True}, {"nat_windows": (7, 0, 0, 0)}],
+                         ids=["sr_kernel", "nat_kernel"])
+def test_float16_snapshot_segmenter_on_card(cuda_device, tmp_path, kw):
+    # a snapshot whose metadata says "float16": the shipped B1's weights (less
+    # stage 0's reduction for the neighbourhood stage) with that config, at
+    # 128x128 (stage 0: 1024 tokens, two blocks). Segmenter2D reads the config
+    # from the file and runs K3 (or K2) on the card, two launches a forward;
+    # masks against the port on the CPU (which tests/test_torch_float16.py
+    # holds to the JAX package)
+    import dataclasses
+
+    from fusion3dseg_tpu_torch.io.synthetic import make_session
+    from fusion3dseg_tpu_torch.models import SegFormerConfig, convert
+    from fusion3dseg_tpu_torch.ops import attention as attn
+    from fusion3dseg_tpu_torch.pipeline.get2dseg import Segmenter2D
+
+    frames = make_session(nframes=2, depth_hw=(96, 72), appearance="textured").colors
+    flat = convert.flatten_params(convert.load_params_npz(convert.shipped_checkpoint("b1")))
+    if "nat_windows" in kw:
+        flat = {k: v for k, v in flat.items() if not (k.startswith("stage0_") and (
+            "/sr/" in k or "EfficientAttention_0/LayerNorm_0" in k))}
+    cfg = dataclasses.replace(SegFormerConfig.b1(), dtype=torch.float16, **kw)
+    path = tmp_path / "b1_float16.npz"
+    convert.save_params_npz(path, flat, input_hw=(128, 128), config=cfg)
+    on_card, on_cpu = (Segmenter2D(checkpoint_dir=path, batch_size=2, device=dev)
+                       for dev in ("cuda", "cpu"))
+    assert on_card.config == cfg and on_card.input_hw == (128, 128)
+    counter = attn.sr_attention if "use_pallas_attention" in kw else attn.neighborhood_attention
+    before = counter.launches
+    got = on_card.predict_batch(frames)
+    assert counter.launches == before + 2
+    agree = (got == on_cpu.predict_batch(frames)).mean()
+    assert agree >= 0.999, agree
 
 
 # ------------------------------------------------------------ fusion engine
