@@ -1724,7 +1724,7 @@ def files_phase(card, seg=None, vga=None):
         # ---- 10c. process3DSeg -> segment -> remove_classes, twice on the card
         def pipeline(out, device):
             stages = {}
-            timing.METRICS.spans.clear()
+            timing.METRICS.clear()
             t0 = time.perf_counter()
             sd = process3d.load_session(src, device=device)
             if device == "cuda":

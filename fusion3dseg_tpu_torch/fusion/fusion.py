@@ -55,6 +55,7 @@ from fusion3dseg_tpu_torch.geometry import camera, intersections, quaternion as 
 from fusion3dseg_tpu_torch.ops import sparsify, zbuffer
 from fusion3dseg_tpu_torch.ops.sparsify import segment_sum
 from fusion3dseg_tpu_torch.ops.zbuffer import INT32_MAX
+from fusion3dseg_tpu_torch.utils import timing
 
 
 class FusionState(NamedTuple):
@@ -272,48 +273,57 @@ def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fc
     gh, gw = -(-height // half), -(-width // half)
     ncells = gh * gw
     slot_ids = torch.arange(capacity, dtype=torch.int32, device=dev)
-
-    inter = intersections.points_inside_polyhedra(state.points, plane_pts, plane_ns)
-    inter = inter & (slot_ids < state.n)
     W = capacity if (window is None or window >= capacity) else int(window)
-    span, idx_w = _window(inter, slot_ids, capacity, W, window_policy)
 
-    def take(arr):
-        return arr if idx_w is None else arr[idx_w]
+    with timing.range("fuse.cull"):
+        inter = intersections.points_inside_polyhedra(state.points, plane_pts, plane_ns)
+        inter = inter & (slot_ids < state.n)
+        span, idx_w = _window(inter, slot_ids, capacity, W, window_policy)
 
-    pts_w, nrm_w = take(state.points), take(state.normals)
-    u_w, v_w, z_w = camera.project_with_matrices(pts_w, M, R, t)
-    ok_w = take(inter) & (z_w > 0) & (u_w >= 0) & (u_w < width) & (v_w >= 0) & (v_w < height)
+        def take(arr):
+            return arr if idx_w is None else arr[idx_w]
+
+        pts_w, nrm_w = take(state.points), take(state.normals)
+        u_w, v_w, z_w = camera.project_with_matrices(pts_w, M, R, t)
+        ok_w = (take(inter) & (z_w > 0) & (u_w >= 0) & (u_w < width) & (v_w >= 0)
+                & (v_w < height))
 
     # candidate z-buffer over window-local ids. W.bit_length() keeps one
     # spare id, so a packed entry never reaches INT32_MAX, the empty value
-    cell = (v_w // half) * gw + (u_w // half) if half > 1 else v_w * gw + u_w
-    cell = torch.where(ok_w, cell, ncells)  # ncells: the trash cell
-    cand1, cand2 = _cell_candidates(ok_w, z_w, cell, ncells, max(1, W.bit_length()), max_depth)
+    with timing.range("fuse.zbuffer"):
+        cell = (v_w // half) * gw + (u_w // half) if half > 1 else v_w * gw + u_w
+        cell = torch.where(ok_w, cell, ncells)  # ncells: the trash cell
+        cand1, cand2 = _cell_candidates(ok_w, z_w, cell, ncells, max(1, W.bit_length()),
+                                        max_depth)
 
-    cands = torch.stack([cand1, cand2], dim=1)  # [ncells, 2]
-    has = cands >= 0
-    cdata = torch.cat([pts_w, nrm_w], dim=1)[torch.where(has, cands, 0).long()]
-    grid = torch.where(has[..., None], cdata, 0.0).reshape(gh, gw, 12)
-    slotg = torch.where(has, cands, -1).reshape(gh, gw, 2)
-    match, matched = _match_pixels(grid, slotg, fpts, fnrm, fvalid, height=height, width=width,
-                                   half=half, radius=radius, min_cosine=min_cosine)
+    with timing.range("fuse.match"):
+        cands = torch.stack([cand1, cand2], dim=1)  # [ncells, 2]
+        has = cands >= 0
+        cdata = torch.cat([pts_w, nrm_w], dim=1)[torch.where(has, cands, 0).long()]
+        grid = torch.where(has[..., None], cdata, 0.0).reshape(gh, gw, 12)
+        slotg = torch.where(has, cands, -1).reshape(gh, gw, 2)
+        match, matched = _match_pixels(grid, slotg, fpts, fnrm, fvalid, height=height,
+                                       width=width, half=half, radius=radius,
+                                       min_cosine=min_cosine)
 
     # running-mean merge of this frame's matches into their slots
-    state = _merge_window(state, idx_w, pts_w, nrm_w,
-                          _match_sums(fpts, fnrm, fclr, matched, match, W))
-    if idx_w is not None:
-        match = torch.where(matched, idx_w.to(torch.int32)[match.clamp(min=0).long()], -1)
+    with timing.range("fuse.merge"):
+        state = _merge_window(state, idx_w, pts_w, nrm_w,
+                              _match_sums(fpts, fnrm, fclr, matched, match, W))
+        if idx_w is not None:
+            match = torch.where(matched, idx_w.to(torch.int32)[match.clamp(min=0).long()], -1)
 
     # leftover pixels: voxel-sparsify at the merge radius and append
-    sp = sparsify.patch_sparsify(fpts, fnrm, fclr, fvalid & ~matched, height, width, radius,
-                                 min_cosine, extent_cells=_frame_extent_cells(max_depth, radius),
-                                 const_radius=True)
-    state, cell2slot = _append_sparsified(state, sp, capacity)
-    lp = sp.cell_of_pixel
-    uv2pt = torch.where(matched, match, -1)
-    uv2pt = torch.where(~matched & (lp >= 0), cell2slot[lp.clamp(0, sp.num_cells - 1).long()],
-                        uv2pt)
+    with timing.range("fuse.append"):
+        sp = sparsify.patch_sparsify(fpts, fnrm, fclr, fvalid & ~matched, height, width,
+                                     radius, min_cosine,
+                                     extent_cells=_frame_extent_cells(max_depth, radius),
+                                     const_radius=True)
+        state, cell2slot = _append_sparsified(state, sp, capacity)
+        lp = sp.cell_of_pixel
+        uv2pt = torch.where(matched, match, -1)
+        uv2pt = torch.where(~matched & (lp >= 0),
+                            cell2slot[lp.clamp(0, sp.num_cells - 1).long()], uv2pt)
     return state, uv2pt.to(torch.int32), span
 
 
@@ -321,8 +331,11 @@ def _session_tensors(dev, Ks, quats_wxyz, translations, points, normals, colors,
     def f32(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    return (f32(Ks), f32(quats_wxyz), f32(translations), f32(points), f32(normals),
-            f32(colors), torch.as_tensor(valid, dtype=torch.bool, device=dev))
+    # the host arrays among them (the cameras, as a rule) are copied and
+    # waited for
+    with timing.wait("engine_upload"):
+        return (f32(Ks), f32(quats_wxyz), f32(translations), f32(points), f32(normals),
+                f32(colors), torch.as_tensor(valid, dtype=torch.bool, device=dev))
 
 
 @torch.no_grad()
@@ -355,8 +368,9 @@ def fuse_session(Ks, quats_wxyz, translations, points, normals, colors, valid, *
         dev, Ks, quats_wxyz, translations, points, normals, colors, valid)
     kw = dict(height=height, width=width, radius=radius, min_cosine=min_cosine,
               max_depth=max_depth, capacity=capacity)
-    state, uv0 = _seed_frame(_empty_state(capacity, dev), points[0], normals[0], colors[0],
-                             valid[0], **kw)
+    with timing.range("fuse.seed"):
+        state, uv0 = _seed_frame(_empty_state(capacity, dev), points[0], normals[0],
+                                 colors[0], valid[0], **kw)
     state, uv_rest, spans_rest = _fuse_frames(
         state, K, quats[1:], trans[1:], points[1:], normals[1:], colors[1:], valid[1:],
         candidate_px=candidate_px, window=window, window_policy=window_policy, **kw)
@@ -378,14 +392,18 @@ def _fuse_frames(state, K, quats, trans, points, normals, colors, valid, *, heig
     spans = torch.zeros(nf, dtype=torch.int32, device=dev)
     if nf == 0:
         return state, uv2pt, spans
-    M, R = camera.projection_matrices(K, quats)
-    plane_pts, plane_ns = camera.frustum_world_planes(K, width, height, quats, trans,
-                                                      kw["max_depth"])
+    # the cameras' constants are copied from the host, which waits for the
+    # card's queue
+    with timing.wait("cameras"):
+        M, R = camera.projection_matrices(K, quats)
+        plane_pts, plane_ns = camera.frustum_world_planes(K, width, height, quats, trans,
+                                                          kw["max_depth"])
     for f in range(nf):
-        state, uv2pt[f], spans[f] = _fuse_frame(
-            state, M[f], R[f], trans[f], plane_pts[f], plane_ns[f], points[f], normals[f],
-            colors[f], valid[f], height=height, width=width, candidate_px=candidate_px,
-            window=window, window_policy=window_policy, **kw)
+        with timing.range("fuse.frame"):
+            state, uv2pt[f], spans[f] = _fuse_frame(
+                state, M[f], R[f], trans[f], plane_pts[f], plane_ns[f], points[f], normals[f],
+                colors[f], valid[f], height=height, width=width, candidate_px=candidate_px,
+                window=window, window_policy=window_policy, **kw)
     return state, uv2pt, spans
 
 
@@ -433,7 +451,8 @@ def seed_cells_for_frame(points0, normals0, colors0, valid0, height: int, width:
     extent = _frame_extent_cells(max_depth, radius) if max_depth is not None else None
     sp0 = sparsify.patch_sparsify(points0, normals0, colors0, valid0, height, width, radius,
                                   min_cosine, extent_cells=extent)
-    return int((sp0.counts > 0).sum())
+    with timing.wait("seed_cells"):
+        return int((sp0.counts > 0).sum())
 
 
 def visible_span_from_uv2pt(uv2pt) -> np.ndarray:
@@ -448,6 +467,11 @@ def visible_span_from_uv2pt(uv2pt) -> np.ndarray:
     return spans
 
 
+def _shift_tensor(shift, dev) -> torch.Tensor:
+    with timing.wait("dedup_shift"):  # a copy from the host
+        return torch.tensor(shift, dtype=torch.float32, device=dev)
+
+
 def _dedup_pass(state: FusionState, radius: float, min_cosine: float, capacity: int, shift):
     """One voxel merge of the live buffer on a grid anchored `shift` off
     the valid-point minimum. New slots are ranked by each cell's minimum
@@ -458,7 +482,7 @@ def _dedup_pass(state: FusionState, radius: float, min_cosine: float, capacity: 
     live = slot_ids < state.n
     m = sparsify.voxel_merge(state.points, state.normals, state.colors, state.nmerges,
                              state.occurences, live, radius, min_cosine,
-                             origin_shift=torch.tensor(shift, dtype=torch.float32, device=dev))
+                             origin_shift=_shift_tensor(shift, dev))
     C = m.num_cells
     seg = torch.where(m.cell_of_input >= 0, m.cell_of_input, C)
     rep = zbuffer._segment_min(slot_ids, seg, C + 1, INT32_MAX)[:C]
@@ -494,12 +518,14 @@ def dedup_state(state: FusionState, radius: float, min_cosine: float, *, capacit
     shifts = ((0.0, 0.0, 0.0), (h, h, h), (h, 0.0, 0.0), (0.0, h, 0.0),
               (0.0, 0.0, h))[: max(1, min(passes, 5))]
     slot_map = None
-    for s in shifts:
-        state, m = _dedup_pass(state, radius, min_cosine, capacity, s)
-        if slot_map is None:
-            slot_map = m
-        else:
-            slot_map = torch.where(slot_map >= 0, m[slot_map.clamp(0, capacity - 1).long()], -1)
+    with timing.range("dedup"):
+        for s in shifts:
+            state, m = _dedup_pass(state, radius, min_cosine, capacity, s)
+            if slot_map is None:
+                slot_map = m
+            else:
+                slot_map = torch.where(slot_map >= 0,
+                                       m[slot_map.clamp(0, capacity - 1).long()], -1)
     return state, slot_map.to(torch.int32)
 
 

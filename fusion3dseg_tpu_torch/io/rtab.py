@@ -35,6 +35,7 @@ import torch
 from fusion3dseg_tpu_torch import cuda
 from fusion3dseg_tpu_torch.geometry import camera, quaternion as quat
 from fusion3dseg_tpu_torch.io import image
+from fusion3dseg_tpu_torch.utils import timing
 
 DEFAULT_CALIBRATION = Path(__file__).resolve().parent / "default_calibration.yaml"
 
@@ -236,14 +237,18 @@ class SessionData:
         if frame_numbers is None:
             frame_numbers = np.arange(nf)
 
-        def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        def f32(a):  # a copy from the host, which waits for the card's queue
+            with timing.range("wait.session_upload"):
+                return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-        pts, nrm, depth = frames_to_world(f32(depth_m), f32(Ks), f32(wxyz), f32(trans))
-        rgb = area_resize_uint8(torch.as_tensor(np.ascontiguousarray(rgbs), device=dev), (h, w))
-        # a 0-d device divisor: CUDA divides by a Python scalar as a product
-        # with its reciprocal, which rounds apart from the CPU
-        colors = rgb.float().reshape(nf, h * w, 3) / torch.tensor(255.0, device=dev)
+        with timing.range("session.from_arrays"):
+            pts, nrm, depth = frames_to_world(f32(depth_m), f32(Ks), f32(wxyz), f32(trans))
+            with timing.range("wait.session_upload"):
+                rgb = torch.as_tensor(np.ascontiguousarray(rgbs), device=dev)
+            rgb = area_resize_uint8(rgb, (h, w))
+            # a 0-d device divisor: CUDA divides by a Python scalar as a
+            # product with its reciprocal, which rounds apart from the CPU
+            colors = rgb.float().reshape(nf, h * w, 3) / f32(255.0)
         return cls(
             frame_numbers=np.asarray(frame_numbers), K=np.asarray(K_rgb), Ks=Ks,
             quats_wxyz=wxyz, translations=trans, rgb_hw=(hr, wr), depth_hw=(h, w),

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fusion3dseg_tpu_torch.ops import attention as attn_ops
+from fusion3dseg_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,6 +257,10 @@ class Block(nn.Module):
         return x + self.ffn(self.norm2(x), hw)
 
 
+# the profiler ranges of the encoder's stages
+_STAGE_RANGES = tuple(f"segformer.stage{s}" for s in range(4))
+
+
 class SegFormer(nn.Module):
     """Dense/Conv parameters held in `param_dtype` (default `config.dtype`)
     and cast to `config.dtype` at use; LayerNorm, the classifier and the
@@ -337,35 +342,37 @@ class SegFormer(nn.Module):
 
         feats = []
         for s in range(4):
-            x, hw = getattr(self, f"patch_embed{s}")(x)
-            for d in range(cfg.depths[s]):
-                x = getattr(self, f"stage{s}_block{d}")(x, hw)
-            x = getattr(self, f"stage_norm{s}")(x)
-            feats.append((x, hw))
-            x = x.transpose(1, 2).reshape(B, -1, *hw)
+            with timing.range(_STAGE_RANGES[s]):
+                x, hw = getattr(self, f"patch_embed{s}")(x)
+                for d in range(cfg.depths[s]):
+                    x = getattr(self, f"stage{s}_block{d}")(x, hw)
+                x = getattr(self, f"stage_norm{s}")(x)
+                feats.append((x, hw))
+                x = x.transpose(1, 2).reshape(B, -1, *hw)
 
-        # all-MLP decoder: project every stage to decoder_dim, upsample to
-        # the stride-4 grid, concatenate (deepest first), fuse, classify
-        hw4 = feats[0][1]
-        ups = []
-        for s, (f, hw) in enumerate(feats):
-            f = getattr(self, f"linear_c{s}")(f)
-            if hw[0] != hw4[0]:
-                f = f.transpose(1, 2).reshape(B, -1, *hw)
-                f = F.interpolate(f, size=hw4, mode="bilinear", align_corners=False)
-                f = f.flatten(2).transpose(1, 2)
-            ups.append(f)
-        x = self.fuse(torch.cat(ups[::-1], dim=-1))
-        if cfg.head == "hf":
-            x = (x.float() - self.bn_mean) * (
-                self.bn_scale * torch.rsqrt(self.bn_var + 1e-5)) + self.bn_bias
-            x = F.relu(x).to(cfg.dtype)
-        else:
-            x = F.gelu(self.decoder_norm(x), approximate="tanh")
-        logits = self.classifier(x.float())  # [B, h4*w4, classes] float32
-        logits = logits.transpose(1, 2).reshape(B, -1, *hw4)
-        logits = F.interpolate(logits, size=(H, W), mode="bilinear", align_corners=False)
-        return logits.permute(0, 2, 3, 1)
+        with timing.range("segformer.decoder"):
+            # all-MLP decoder: project every stage to decoder_dim, upsample to
+            # the stride-4 grid, concatenate (deepest first), fuse, classify
+            hw4 = feats[0][1]
+            ups = []
+            for s, (f, hw) in enumerate(feats):
+                f = getattr(self, f"linear_c{s}")(f)
+                if hw[0] != hw4[0]:
+                    f = f.transpose(1, 2).reshape(B, -1, *hw)
+                    f = F.interpolate(f, size=hw4, mode="bilinear", align_corners=False)
+                    f = f.flatten(2).transpose(1, 2)
+                ups.append(f)
+            x = self.fuse(torch.cat(ups[::-1], dim=-1))
+            if cfg.head == "hf":
+                x = (x.float() - self.bn_mean) * (
+                    self.bn_scale * torch.rsqrt(self.bn_var + 1e-5)) + self.bn_bias
+                x = F.relu(x).to(cfg.dtype)
+            else:
+                x = F.gelu(self.decoder_norm(x), approximate="tanh")
+            logits = self.classifier(x.float())  # [B, h4*w4, classes] float32
+            logits = logits.transpose(1, 2).reshape(B, -1, *hw4)
+            logits = F.interpolate(logits, size=(H, W), mode="bilinear", align_corners=False)
+            return logits.permute(0, 2, 3, 1)
 
 
 def create_model(config: SegFormerConfig = SegFormerConfig(), seed: int = 0,

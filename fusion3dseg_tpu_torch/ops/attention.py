@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from fusion3dseg_tpu_torch import cuda
+from fusion3dseg_tpu_torch.utils import timing
 
 # element-type codes of the C entry points; the two-byte types share the
 # tensor-core kernels and their plans
@@ -279,10 +280,11 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("sr_attention is forward only; run it under torch.no_grad() "
                            "or train with use_pallas_attention=False")
-    if q.device.type == "cuda":
-        return launch_sr_attention(q, k, v, _sr_route(q, k, v))
-    if q.device.type == "cpu":
-        return sr_attention_reference(q, k, v)
+    with timing.range("k3.sr_attention"):
+        if q.device.type == "cuda":
+            return launch_sr_attention(q, k, v, _sr_route(q, k, v))
+        if q.device.type == "cpu":
+            return sr_attention_reference(q, k, v)
     raise ValueError(f"unsupported device {q.device}")
 
 

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from fusion3dseg_tpu_torch import cuda
+from fusion3dseg_tpu_torch.utils import timing
 
 INVALID = 255
 MAX_ROWS = 65535  # the kernel's per-column counters are 16-bit
@@ -115,10 +116,11 @@ def histogram_classify(C: torch.Tensor, nclasses: int, threshold: float = 0.5):
     base or pitch. A CPU tensor runs `histogram_classify_reference`.
     """
     _check(C, nclasses)
-    if C.device.type == "cuda":
-        return _launch(C, nclasses, float(threshold))
-    if C.device.type == "cpu":
-        return histogram_classify_reference(C, nclasses, threshold)
+    with timing.range("k1.histogram_classify"):
+        if C.device.type == "cuda":
+            return _launch(C, nclasses, float(threshold))
+        if C.device.type == "cpu":
+            return histogram_classify_reference(C, nclasses, threshold)
     raise ValueError(f"unsupported device {C.device}")
 
 

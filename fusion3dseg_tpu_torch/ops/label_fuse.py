@@ -34,6 +34,7 @@ from fusion3dseg_tpu_torch.ops.zbuffer import (
     packed_pmin,
     packed_pmin_gid_sharded,
 )
+from fusion3dseg_tpu_torch.utils import timing
 
 INVALID = 255
 
@@ -239,10 +240,11 @@ class _Session:
     projection matrices built in one batched product."""
 
     def __init__(self, K, quats, trans, masks, dev):
-        K = _dev(K, dev, torch.float32)
-        quats = _dev(quats, dev, torch.float32)
-        self.trans = _dev(trans, dev, torch.float32)
-        self.masks = _dev(masks, dev, torch.uint8)
+        with timing.range("wait.lift_upload"):  # the host arrays among them
+            K = _dev(K, dev, torch.float32)
+            quats = _dev(quats, dev, torch.float32)
+            self.trans = _dev(trans, dev, torch.float32)
+            self.masks = _dev(masks, dev, torch.uint8)
         self.M, self.R = camera.projection_matrices(K, quats)
         self.nframes = len(quats)
 
@@ -316,15 +318,18 @@ def tpu_label_fuse_cells(npts, nclasses, hw, Ks, sizes, threshold=0.5,
         for Kb, sz in zip(Ks, sizes):
             Kb = min(Kb, lists.shape[1])  # bucket round-up can pass Kmax
             for f in range(o, o + sz):
-                cl = lists[f, :Kb]
-                win, has = sess.winners(f, xyz[cl].reshape(-1, 3), ids[cl].reshape(-1),
-                                        hw, nsub, id_bits, z_bits)
-                _set_row(C, f, win, has, sess.masks[f], npts)
+                with timing.range("lift.frame"):
+                    cl = lists[f, :Kb]
+                    win, has = sess.winners(f, xyz[cl].reshape(-1, 3), ids[cl].reshape(-1),
+                                            hw, nsub, id_bits, z_bits)
+                    _set_row(C, f, win, has, sess.masks[f], npts)
             o += sz
         return C
 
     def run(*args):
-        return _histogram_classify(winners(*args)[:, :npts], nclasses, threshold, use_cuda_hist)
+        C = winners(*args)
+        with timing.range("lift.classify"):
+            return _histogram_classify(C[:, :npts], nclasses, threshold, use_cuda_hist)
 
     run.winners = winners
     return run

@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from fusion3dseg_tpu_torch import cuda
+from fusion3dseg_tpu_torch.utils import timing
 
 
 def _keys(uv2pt, mask, npts, nc1):
@@ -43,12 +44,13 @@ def vote_frame(votes: torch.Tensor, uv2pt: torch.Tensor, mask: torch.Tensor,
     npts, nc1 = votes.shape
     key = _keys(uv2pt, mask, npts, nc1)
     flat = votes.view(-1)
-    if dedup:
-        key = torch.unique(key)
+    with timing.wait("vote_keys"):  # the host reads each output's size
+        if dedup:
+            key = torch.unique(key)
         key = key[key < npts * nc1]
+    if dedup:
         flat[key] += 1  # distinct keys: a plain indexed add is exact
     else:
-        key = key[key < npts * nc1]
         flat.index_add_(0, key, torch.ones_like(key, dtype=votes.dtype))
     return votes
 
@@ -72,11 +74,12 @@ def vote_all_frames(uv2pt, masks, npts: int, nclasses: int, dedup: bool = True,
     nc1 = nclasses + 1
     trash = npts * nc1
     key = _keys(uv2pt, masks, npts, nc1)
-    if dedup:
-        # distinct (frame, point, class) triples: one sort for the session
-        frame = torch.arange(len(key), device=dev)[:, None]
-        key = torch.unique(frame * (trash + 1) + key) % (trash + 1)
-    key = key[key < trash]
+    with timing.wait("vote_keys"):  # the host reads each output's size
+        if dedup:
+            # distinct (frame, point, class) triples: one sort for the session
+            frame = torch.arange(len(key), device=dev)[:, None]
+            key = torch.unique(frame * (trash + 1) + key) % (trash + 1)
+        key = key[key < trash]
     votes = torch.zeros(trash, dtype=torch.int32, device=dev)
     votes.index_add_(0, key.reshape(-1), torch.ones(key.numel(), dtype=torch.int32, device=dev))
     return votes.view(npts, nc1)
@@ -98,7 +101,8 @@ def classify(votes: torch.Tensor, threshold: float, nclasses: int,
     votes = votes.float()
     total = votes.sum(dim=-1)
     if filter_classes is not None:
-        fc = torch.as_tensor(list(filter_classes), dtype=torch.int64, device=votes.device)
+        with timing.wait("filter_upload"):
+            fc = torch.as_tensor(list(filter_classes), dtype=torch.int64, device=votes.device)
         vmax, arg = votes[:, fc].max(dim=-1)
         cls = fc[arg]
     else:
@@ -111,5 +115,6 @@ def vote_and_classify(uv2pt, masks, npts: int, nclasses: int, threshold: float =
                       filter_classes: Optional[Tuple[int, ...]] = None,
                       dedup: bool = True, device="cuda"):
     """Vote + classify for a whole session: (votes, classes) on `device`."""
-    votes = vote_all_frames(uv2pt, masks, npts, nclasses, dedup, device)
-    return votes, classify(votes, threshold, nclasses, filter_classes)
+    with timing.range("vote"):
+        votes = vote_all_frames(uv2pt, masks, npts, nclasses, dedup, device)
+        return votes, classify(votes, threshold, nclasses, filter_classes)

@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import tempfile
-import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -32,7 +31,7 @@ from fusion3dseg_tpu_torch.ops import components
 from fusion3dseg_tpu_torch.ops.obb import HOST_OBB_MAX_KN
 from fusion3dseg_tpu_torch.pipeline.merge_bb import merge_bb
 from fusion3dseg_tpu_torch.pipeline.streaming import stream_segment
-from fusion3dseg_tpu_torch.utils import taxonomy as tax
+from fusion3dseg_tpu_torch.utils import taxonomy as tax, timing
 
 
 @dataclasses.dataclass
@@ -56,9 +55,10 @@ class FastSegmentation:
     # repair ran (0: the scan appended no window duplicates)
     overflow_frames: int = 0
     spans: Optional[np.ndarray] = None  # [F] per-frame visible slot span
-    # wall seconds of the stages, each ending where the host reads the
-    # device anyway: "fuse_vote" (masks) or "fuse" + "stream" (segmenter),
-    # "repair", "split", "merge"
+    # wall seconds of the stages (`utils.timing` spans), each ending where
+    # the host reads the device anyway: "fuse_vote" (masks) or "fuse" +
+    # "stream" (segmenter), "repair", "split", "merge"; each with its
+    # ".wait" (the host blocked on the card) and ".dispatch" (the rest)
     stage_seconds: dict = dataclasses.field(default_factory=dict)
 
     @functools.cached_property
@@ -111,94 +111,95 @@ def segment_session_fast(
         # would silently differ from the masks path's semantics
         raise ValueError("dedup=False is only supported on the masks path")
     dev = cuda.resolve_device(device)
-    seconds = {}
-    t0 = time.perf_counter()
+    with timing.record() as seconds:
+        with timing.span("fuse_vote" if masks is not None else "fuse"):
+            hd, wd = session.depth_hw
+            if valid is None:
+                depth = torch.as_tensor(session.depth, device=dev)
+                valid = (depth > min_depth) & (depth <= max_depth)
+            fargs = (session.Ks.astype(np.float32), session.quats_wxyz, session.translations,
+                     torch.as_tensor(session.points, device=dev),
+                     torch.as_tensor(session.normals, device=dev),
+                     torch.as_tensor(session.colors, device=dev),
+                     torch.as_tensor(valid, device=dev))
+            min_cosine = float(np.cos(np.deg2rad(angle)))
+            kw = dict(height=hd, width=wd, radius=radius, min_cosine=min_cosine,
+                      max_depth=max_depth, capacity=capacity)
+            fclasses = tuple(filter_classes) if filter_classes is not None else None
 
-    hd, wd = session.depth_hw
-    if valid is None:
-        depth = torch.as_tensor(session.depth, device=dev)
-        valid = (depth > min_depth) & (depth <= max_depth)
-    fargs = (session.Ks.astype(np.float32), session.quats_wxyz, session.translations,
-             torch.as_tensor(session.points, device=dev),
-             torch.as_tensor(session.normals, device=dev),
-             torch.as_tensor(session.colors, device=dev),
-             torch.as_tensor(valid, device=dev))
-    min_cosine = float(np.cos(np.deg2rad(angle)))
-    kw = dict(height=hd, width=wd, radius=radius, min_cosine=min_cosine, max_depth=max_depth,
-              capacity=capacity)
-    fclasses = tuple(filter_classes) if filter_classes is not None else None
+            if window == "auto":
+                window = fusion_engine.auto_window(
+                    fusion_engine.seed_cells_for_frame(fargs[3][0], fargs[4][0], fargs[5][0],
+                                                       fargs[6][0], hd, wd, radius, min_cosine,
+                                                       max_depth=max_depth),
+                    capacity)
 
-    if window == "auto":
-        window = fusion_engine.auto_window(
-            fusion_engine.seed_cells_for_frame(fargs[3][0], fargs[4][0], fargs[5][0],
-                                               fargs[6][0], hd, wd, radius, min_cosine,
-                                               max_depth=max_depth),
-            capacity)
+            if masks is not None:
+                with timing.wait("masks_upload"):
+                    fmasks = torch.as_tensor(masks, device=dev).reshape(session.nframes, -1)
+                state, uv2pt, _votes, classes_d, spans = fused_pipeline.fuse_session_and_vote(
+                    *fargs, fmasks, nclasses=nclasses, threshold=threshold,
+                    filter_classes=fclasses, window=window, window_policy=window_policy,
+                    dedup=dedup, with_stats=True, device=dev, **kw)
+            else:
+                state, uv2pt, spans = fusion_engine.fuse_session(
+                    *fargs, window=window, window_policy=window_policy, with_stats=True,
+                    device=dev, **kw)
+            overflow_frames, spans_h = _overflow(spans, window)
 
-    if masks is not None:
-        fmasks = torch.as_tensor(masks, device=dev).reshape(session.nframes, -1)
-        state, uv2pt, _votes, classes_d, spans = fused_pipeline.fuse_session_and_vote(
-            *fargs, fmasks, nclasses=nclasses, threshold=threshold, filter_classes=fclasses,
-            window=window, window_policy=window_policy, dedup=dedup, with_stats=True,
-            device=dev, **kw)
-        overflow_frames, spans_h = _overflow(spans, window)
-        seconds["fuse_vote"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if overflow_frames and auto_dedup:
-            state, uv2pt, _votes, classes_d = fused_pipeline.dedup_and_revote(
-                state, uv2pt, fmasks, radius, min_cosine, capacity=capacity,
-                nclasses=nclasses, threshold=threshold, filter_classes=fclasses, dedup=dedup)
-        n = int(state.n)
-        points = state.points[:n].cpu().numpy()
-        classes = classes_d[:n].cpu().numpy().astype(np.int32)
-        seconds["repair"] = time.perf_counter() - t0
-    else:
-        state, uv2pt, spans = fusion_engine.fuse_session(
-            *fargs, window=window, window_policy=window_policy, with_stats=True, device=dev,
-            **kw)
-        overflow_frames, spans_h = _overflow(spans, window)
-        seconds["fuse"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if overflow_frames and auto_dedup:
-            state, slot_map = fusion_engine.dedup_state(state, radius, min_cosine,
-                                                        capacity=capacity)
-            uv2pt = fusion_engine.remap_uv2pt(uv2pt, slot_map)
-        n = int(state.n)
-        seconds["repair"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        _votes, classes = stream_segment(session, segmenter, uv2pt.cpu().numpy(), npts=capacity,
-                                         nclasses=nclasses, threshold=threshold,
-                                         conf_threshold=conf_threshold, filter_classes=fclasses)
-        classes = np.asarray(classes)[:n].astype(np.int32)
-        points = state.points[:n].cpu().numpy()
-        seconds["stream"] = time.perf_counter() - t0
+        with timing.span("repair"):
+            if overflow_frames and auto_dedup and masks is not None:
+                state, uv2pt, _votes, classes_d = fused_pipeline.dedup_and_revote(
+                    state, uv2pt, fmasks, radius, min_cosine, capacity=capacity,
+                    nclasses=nclasses, threshold=threshold, filter_classes=fclasses,
+                    dedup=dedup)
+            elif overflow_frames and auto_dedup:
+                state, slot_map = fusion_engine.dedup_state(state, radius, min_cosine,
+                                                            capacity=capacity)
+                uv2pt = fusion_engine.remap_uv2pt(uv2pt, slot_map)
+            with timing.wait("n"):
+                n = int(state.n)
+            if masks is not None:
+                points = _read_points(state, n)
+                with timing.wait("classes"):
+                    classes = classes_d[:n].cpu().numpy().astype(np.int32)
 
-    t0 = time.perf_counter()
-    _, ids, info, _ = components.split_into_instances_by_radius(
-        classes, points, split_radius or 2 * radius, nclasses, None, min_pts_per_inst)
-    taxonomy = taxonomy or tax.Taxonomy()
-    parent_of = dict(zip(*taxonomy.as_load_csv_tuple()[:3:2]))
-    for inf in info:
-        # out-of-taxonomy categories get parent None: merge_bb maps None to
-        # -1 (never merged), so a raw category id cannot pose as a parent
-        inf["parent_id"] = parent_of.get(int(inf["category_id"]))
-    seconds["split"] = time.perf_counter() - t0
+        if segmenter is not None:
+            with timing.span("stream"):
+                with timing.wait("uv2pt_to_host"):
+                    uv2pt_h = uv2pt.cpu().numpy()
+                _votes, classes = stream_segment(session, segmenter, uv2pt_h, npts=capacity,
+                                                 nclasses=nclasses, threshold=threshold,
+                                                 conf_threshold=conf_threshold,
+                                                 filter_classes=fclasses)
+                classes = np.asarray(classes)[:n].astype(np.int32)
+                points = _read_points(state, n)
 
-    t0 = time.perf_counter()
-    n_premerge = len(info)
-    if merge_obbs and info:
-        # the device backend (above HOST_OBB_MAX_KN) takes the points
-        # already on the device
-        pts_dev = state.points[:n] if len(info) * n > HOST_OBB_MAX_KN else None
-        if outdir is None:
-            with tempfile.TemporaryDirectory() as td:
-                info, ids = merge_bb(td, info, ids, points, verbose=False, points_dev=pts_dev,
-                                     device=dev)
-        else:
-            Path(outdir).mkdir(parents=True, exist_ok=True)
-            info, ids = merge_bb(outdir, info, ids, points, verbose=False, points_dev=pts_dev,
-                                 device=dev)
-    seconds["merge"] = time.perf_counter() - t0
+        with timing.span("split"):
+            _, ids, info, _ = components.split_into_instances_by_radius(
+                classes, points, split_radius or 2 * radius, nclasses, None, min_pts_per_inst)
+            taxonomy = taxonomy or tax.Taxonomy()
+            parent_of = dict(zip(*taxonomy.as_load_csv_tuple()[:3:2]))
+            for inf in info:
+                # out-of-taxonomy categories get parent None: merge_bb maps None
+                # to -1 (never merged), so a raw category id cannot pose as a
+                # parent
+                inf["parent_id"] = parent_of.get(int(inf["category_id"]))
+
+        with timing.span("merge"):
+            n_premerge = len(info)
+            if merge_obbs and info:
+                # the device backend (above HOST_OBB_MAX_KN) takes the points
+                # already on the device
+                pts_dev = state.points[:n] if len(info) * n > HOST_OBB_MAX_KN else None
+                if outdir is None:
+                    with tempfile.TemporaryDirectory() as td:
+                        info, ids = merge_bb(td, info, ids, points, verbose=False,
+                                             points_dev=pts_dev, device=dev)
+                else:
+                    Path(outdir).mkdir(parents=True, exist_ok=True)
+                    info, ids = merge_bb(outdir, info, ids, points, verbose=False,
+                                         points_dev=pts_dev, device=dev)
 
     return FastSegmentation(
         points=points, classes=classes, instance_ids=np.asarray(ids),
@@ -206,10 +207,17 @@ def segment_session_fast(
         uv2pt=uv2pt, overflow_frames=overflow_frames, spans=spans_h, stage_seconds=seconds)
 
 
+def _read_points(state, n: int) -> np.ndarray:
+    """The live prefix of the fused cloud, on the host."""
+    with timing.wait("points"):
+        return state.points[:n].cpu().numpy()
+
+
 def _overflow(spans, window) -> Tuple[int, np.ndarray]:
     """Read the per-frame span telemetry; count the frames past the window
     (none when unwindowed)."""
-    spans_h = spans.cpu().numpy()
+    with timing.wait("spans"):
+        spans_h = spans.cpu().numpy()
     if window is None:
         return 0, spans_h
     return int((spans_h > int(window)).sum()), spans_h

@@ -18,6 +18,7 @@ import torch
 from fusion3dseg_tpu_torch import cuda
 from fusion3dseg_tpu_torch.io import artifacts
 from fusion3dseg_tpu_torch.ops import obb as obb_ops
+from fusion3dseg_tpu_torch.utils import timing
 
 
 def merge_bb(dir_name, info_sem: List[dict], id_info_per_point, pcd_points,
@@ -59,10 +60,12 @@ def merge_bb(dir_name, info_sem: List[dict], id_info_per_point, pcd_points,
         intersect, centers, axes, half, cnts = obb_ops.obb_intersection_matrix_np(points, dense, K)
     else:
         dev = cuda.resolve_device(device)
-        pts_d = points_dev if points_dev is not None else torch.as_tensor(points, device=dev)
-        out = obb_ops.obb_intersection_matrix(pts_d, torch.as_tensor(dense, device=pts_d.device),
-                                              K)
-        intersect, centers, axes, half, cnts = (t.cpu().numpy() for t in out)
+        with timing.wait("obb_upload"):
+            pts_d = points_dev if points_dev is not None else torch.as_tensor(points, device=dev)
+            dense_d = torch.as_tensor(dense, device=pts_d.device)
+        out = obb_ops.obb_intersection_matrix(pts_d, dense_d, K)
+        with timing.wait("obbs"):
+            intersect, centers, axes, half, cnts = (t.cpu().numpy() for t in out)
 
     parents = np.asarray([i.get("parent_id") if i.get("parent_id") is not None else -1
                           for i in info_sem])

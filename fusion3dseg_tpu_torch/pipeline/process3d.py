@@ -73,7 +73,7 @@ def process3DSeg(
 
     fuser = Fusion(session, point_range=point_range, decimation=decimation, capacity=capacity,
                    save_lookups=True, out_dir=output_path)
-    with timing.span("fusion", verbose=verbose, frames=session.nframes):
+    with timing.span("fusion", verbose=verbose):
         pts, norms, clrs, nmerges, occurences = fuser.fuse(
             radius, angle, stride, max_depth=point_range[1], skip=1, verbose=verbose)
     if verbose:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from fusion3dseg_tpu_torch.ops import voting as voting_ops
 from fusion3dseg_tpu_torch.pipeline.get2dseg import resize_bilinear
+from fusion3dseg_tpu_torch.utils import timing
 
 
 def _vote_logits(votes, logits, uv2pt, depth_hw, nclasses, conf_threshold):
@@ -61,15 +62,25 @@ def stream_segment(
     hd, wd = session.depth_hw
     nf = session.nframes
     rgb = torch.as_tensor(session.colors, device=dev).reshape(nf, hd, wd, 3)  # [0,1] float
-    uv2pt = torch.as_tensor(np.asarray(uv2pt, np.int32), device=dev)
+    with timing.wait("uv2pt_upload"):
+        uv2pt = torch.as_tensor(np.asarray(uv2pt, np.int32), device=dev)
     votes = torch.zeros((npts, nclasses + 1), dtype=torch.int32, device=dev)
 
     for i in range(0, nf, batch_size):
-        imgs = resize_bilinear(rgb[i:i + batch_size].float(), segmenter.input_hw)
-        _vote_logits(votes, segmenter.model(imgs), uv2pt[i:i + batch_size], (hd, wd),
-                     nclasses, conf_threshold)
+        with timing.range("stream.resize"):
+            imgs = resize_bilinear(rgb[i:i + batch_size].float(), segmenter.input_hw)
+        with timing.range("stream.model"):
+            logits = segmenter.model(imgs)
+        with timing.range("stream.vote"):
+            _vote_logits(votes, logits, uv2pt[i:i + batch_size], (hd, wd), nclasses,
+                         conf_threshold)
         if verbose:
             print(f"streamed {min(i + batch_size, nf)}/{nf} frames")
 
-    classes = voting_ops.classify(votes, threshold, nclasses, filter_classes)
-    return votes.cpu().numpy(), classes.cpu().numpy()
+    with timing.range("stream.classify"):
+        classes = voting_ops.classify(votes, threshold, nclasses, filter_classes)
+    with timing.wait("votes"):
+        votes_h = votes.cpu().numpy()
+    with timing.wait("classes"):
+        classes_h = classes.cpu().numpy()
+    return votes_h, classes_h

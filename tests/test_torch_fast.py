@@ -40,6 +40,15 @@ def _hold(j, t):
     assert t.uv2pt.dtype == torch.int32
 
 
+def _hold_stages(t, *stages):
+    """Each stage's seconds with its ".dispatch" and ".wait", which add up
+    to it."""
+    sec = t.stage_seconds
+    assert set(sec) == {s + part for s in stages for part in ("", ".dispatch", ".wait")}
+    for s in stages:
+        assert sec[s + ".dispatch"] + sec[s + ".wait"] == pytest.approx(sec[s], abs=1e-9)
+
+
 @pytest.mark.parametrize("F,window,policy", [(6, None, "split"), (16, 1024, "split"),
                                              (16, 1024, "newest")],
                          ids=["F6_unwindowed", "F16_split", "F16_newest"])
@@ -57,7 +66,7 @@ def test_masks_branch_matches_jax(tmp_path, F, window, policy):
     assert (tmp_path / "port" / "panoptic_segmentation" / "final_info.json").exists()
     np.testing.assert_array_equal(t.normals, t.state.normals[: t.n].numpy())
     assert t.colors.shape == (t.n, 3)
-    assert set(t.stage_seconds) == {"fuse_vote", "repair", "split", "merge"}
+    _hold_stages(t, "fuse_vote", "repair", "split", "merge")
 
 
 def test_auto_window_and_no_obb_merge():
@@ -80,7 +89,7 @@ def test_segmenter_branch_matches_jax(tmp_path):
     # random float32 weights: a few near-tied argmaxes flip (the streaming
     # tests' bar)
     assert _pixel_agreement(j, t) >= 0.98
-    assert set(t.stage_seconds) == {"fuse", "repair", "stream", "split", "merge"}
+    _hold_stages(t, "fuse", "repair", "stream", "split", "merge")
 
 
 def test_overflow_autodedup_on_revisit():
