@@ -18,15 +18,20 @@ lookup `uv2pt`. One frame step:
 
 The session is a Python loop over frames on fixed shapes: the state is
 `[capacity]` tensors and its fill `n` a 0-d tensor on the device, the
-window is chosen by index gathers (`a0 + arange(Wa)`) and written back
-with `index_copy`, so a frame step never waits for the device. The host
-reads the device only in `seed_cells_for_frame`, the span telemetry and
-the final `n`.
+window is chosen by index gathers (`a0 + arange(Wa)`), so a frame step
+never waits for the device. The host reads the device only in
+`seed_cells_for_frame`, the span telemetry and the final `n`.
 
-Scatters that the reference routes out of bounds (`mode="drop"`) go to one
-trash row past the end of their table here, sliced off after. Float sums
-go through `ops/sparsify.segment_sum`, which adds in one fixed order, so a
-run on the card repeats bit for bit.
+The loop works on a buffer of its own (`_buffer`): the state's fields with
+one more row, the trash row that appends past capacity land in, written in
+place by the step (`index_put_` for the append, `index_copy_` for the
+window merge). On the card the step is one CUDA graph (`_FrameGraph`),
+captured once per shape and window and replayed once a frame on static
+buffers; on the CPU the same step runs eagerly. Other scatters that the
+reference routes out of bounds (`mode="drop"`) go to a trash row past the
+end of their table, sliced off after. Float sums go through
+`ops/sparsify.segment_sum`, which adds in one fixed order, so a run on the
+card repeats bit for bit.
 
 `fuse_chunk` continues the loop from a state (any chunking gives the same
 bits), on which `fuse_session_checkpointed` commits a state file after
@@ -39,10 +44,12 @@ repair, uv2pt artifacts, `dump_data` / `load_data`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
 import warnings
+from collections import OrderedDict
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -95,12 +102,18 @@ def state_to_arrays(state: FusionState) -> dict:
     return {k: v.cpu().numpy() for k, v in state._asdict().items()}
 
 
-def _set_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """`dst` with rows `idx` set to `vals`; rows sent to index len(dst) are
-    dropped (they land in a trash row that is sliced off)."""
-    out = torch.cat([dst, dst.new_zeros((1, *dst.shape[1:]))])
-    out[idx.long()] = vals
-    return out[:-1]
+def _buffer(state: FusionState) -> FusionState:
+    """A copy of `state` for the frame loop to write in place: each row
+    field with one more row, the trash row that appends past capacity land
+    in (`_live` gives the state's view of it)."""
+    return FusionState(*(torch.cat([v, v.new_zeros((1, *v.shape[1:]))]) for v in state[:5]),
+                       state.n.clone())
+
+
+def _live(buf: FusionState) -> FusionState:
+    """The state held by a `_buffer`: its row fields less the trash row
+    (views), and its `n`."""
+    return FusionState(*(v[:-1] for v in buf[:5]), buf.n)
 
 
 def _dot3_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -112,24 +125,22 @@ def _dot3_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., 2].double() * b[..., 2].double() + acc).float()
 
 
-def _append_sparsified(state: FusionState, sp: sparsify.SparsifyResult,
-                       capacity: int) -> Tuple[FusionState, torch.Tensor]:
-    """Append occupied cells at [n, n + new), dropping what passes capacity.
-    Returns (state, cell -> slot map [C], -1 for empty or dropped cells)."""
+def _append_sparsified(buf: FusionState, sp: sparsify.SparsifyResult,
+                       capacity: int) -> torch.Tensor:
+    """Append occupied cells at [n, n + new) of a `_buffer`, in place;
+    what passes capacity lands in the trash row. Returns the cell -> slot
+    map [C], -1 for empty or dropped cells."""
     dest_rank, total_new = sparsify.compact_slots(sp.counts)
     occupied = sp.counts > 0
-    dest = torch.where(occupied, state.n + dest_rank, capacity)
+    dest = torch.where(occupied, buf.n + dest_rank, capacity)
     write = occupied & (dest < capacity)
     dest = torch.where(write, dest, capacity)
-    state = FusionState(
-        _set_rows(state.points, dest, sp.points),
-        _set_rows(state.normals, dest, sp.normals),
-        _set_rows(state.colors, dest, sp.colors),
-        _set_rows(state.nmerges, dest, sp.counts),
-        _set_rows(state.occurences, dest, torch.ones_like(sp.counts)),
-        torch.clamp(state.n + total_new, max=capacity).to(torch.int32),
-    )
-    return state, torch.where(write, dest, -1).to(torch.int32)
+    rows = (dest.long(),)
+    for dst, vals in zip(buf[:5], (sp.points, sp.normals, sp.colors, sp.counts,
+                                   torch.ones_like(sp.counts))):
+        dst.index_put_(rows, vals)
+    buf.n.copy_(torch.clamp(buf.n + total_new, max=capacity))
+    return torch.where(write, dest, -1).to(torch.int32)
 
 
 def _frame_extent_cells(max_depth: float, radius: float) -> int:
@@ -145,10 +156,11 @@ def _seed_frame(state, fpts, fnrm, fclr, fvalid, *, height, width, radius, min_c
     sp = sparsify.patch_sparsify(fpts, fnrm, fclr, fvalid, height, width, radius, min_cosine,
                                  extent_cells=_frame_extent_cells(max_depth, radius),
                                  const_radius=True)
-    state, cell2slot = _append_sparsified(state, sp, capacity)
+    buf = _buffer(state)
+    cell2slot = _append_sparsified(buf, sp, capacity)
     lp = sp.cell_of_pixel
     uv2pt = torch.where(lp >= 0, cell2slot[lp.clamp(0, sp.num_cells - 1).long()], -1)
-    return state, uv2pt.to(torch.int32)
+    return _live(buf), uv2pt.to(torch.int32)
 
 
 def _match_pixels(grid, slotg, fpts, fnrm, fvalid, *, height, width, half, radius,
@@ -239,11 +251,11 @@ def _match_sums(fpts, fnrm, fclr, merge, seg, W: int) -> torch.Tensor:
     return segment_sum(torch.cat([ones, fpts, fclr, fnrm], dim=1), torch.where(merge, seg, W), W)
 
 
-def _merge_window(state: FusionState, idx_w, pts_w, nrm_w, acc: torch.Tensor) -> FusionState:
-    """The state with `acc`'s sums (`_match_sums`) merged into the window's
-    slots `idx_w` (None: the whole buffer; `pts_w`, `nrm_w` their points
-    and normals) as running means: position and colour (sum + old) /
-    (count + 1), the normal renormalised."""
+def _merge_window(state: FusionState, idx_w, pts_w, nrm_w, acc: torch.Tensor) -> None:
+    """Merge `acc`'s sums (`_match_sums`) into the window's slots `idx_w`
+    of the state, in place (None: the whole buffer; `pts_w`, `nrm_w` their
+    points and normals) as running means: position and colour (sum + old)
+    / (count + 1), the normal renormalised."""
     def take(arr):
         return arr if idx_w is None else arr[idx_w]
 
@@ -257,17 +269,20 @@ def _merge_window(state: FusionState, idx_w, pts_w, nrm_w, acc: torch.Tensor) ->
            torch.where(touched, (acc[:, 4:7] + clr_w) / denom, clr_w),
            take(state.nmerges) + cnt.to(torch.int32),
            take(state.occurences) + touched[:, 0].to(torch.int32))
-    if idx_w is not None:
-        new = tuple(dst.index_copy(0, idx_w, v) for dst, v in zip(state[:5], new))
-    return FusionState(*new, state.n)
+    for dst, v in zip(state[:5], new):
+        if idx_w is None:
+            dst.copy_(v)
+        else:
+            dst.index_copy_(0, idx_w, v)
 
 
-def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fclr, fvalid, *,
+def _fuse_frame(buf: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fclr, fvalid, *,
                 height, width, radius, min_cosine, max_depth, capacity, candidate_px,
                 window: Optional[int] = None, window_policy: str = "newest"):
-    """One fusion step: merge a frame into the buffer.
-    Returns (state, uv2pt [H*W] int32, span 0-d int32: the frame's
+    """One fusion step: merge a frame into a `_buffer`, in place.
+    Returns (uv2pt [H*W] int32, span 0-d int32: the frame's
     frustum-visible slot span, the window-overflow telemetry)."""
+    state = _live(buf)
     dev = fpts.device
     half = candidate_px
     gh, gw = -(-height // half), -(-width // half)
@@ -308,8 +323,7 @@ def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fc
 
     # running-mean merge of this frame's matches into their slots
     with timing.range("fuse.merge"):
-        state = _merge_window(state, idx_w, pts_w, nrm_w,
-                              _match_sums(fpts, fnrm, fclr, matched, match, W))
+        _merge_window(state, idx_w, pts_w, nrm_w, _match_sums(fpts, fnrm, fclr, matched, match, W))
         if idx_w is not None:
             match = torch.where(matched, idx_w.to(torch.int32)[match.clamp(min=0).long()], -1)
 
@@ -319,12 +333,12 @@ def _fuse_frame(state: FusionState, M, R, t, plane_pts, plane_ns, fpts, fnrm, fc
                                      radius, min_cosine,
                                      extent_cells=_frame_extent_cells(max_depth, radius),
                                      const_radius=True)
-        state, cell2slot = _append_sparsified(state, sp, capacity)
+        cell2slot = _append_sparsified(buf, sp, capacity)
         lp = sp.cell_of_pixel
         uv2pt = torch.where(matched, match, -1)
         uv2pt = torch.where(~matched & (lp >= 0),
                             cell2slot[lp.clamp(0, sp.num_cells - 1).long()], uv2pt)
-    return state, uv2pt.to(torch.int32), span
+    return uv2pt.to(torch.int32), span
 
 
 def _session_tensors(dev, Ks, quats_wxyz, translations, points, normals, colors, valid):
@@ -380,12 +394,91 @@ def fuse_session(Ks, quats_wxyz, translations, points, normals, colors, valid, *
     return state, uv2pt
 
 
+def _camera_rows(M, R, trans, plane_pts, plane_ns) -> torch.Tensor:
+    """Each frame's camera as one float32 row [F, 51]: M, R, the
+    translation, the frustum planes' points and normals."""
+    return torch.cat([M.reshape(-1, 9), R.reshape(-1, 9), trans, plane_pts.reshape(-1, 15),
+                      plane_ns.reshape(-1, 15)], dim=1)
+
+
+def _camera_views(row: torch.Tensor):
+    """(M, R, t, plane_pts, plane_ns) of one `_camera_rows` row, as views."""
+    M, R, t, pp, pn = torch.split(row, (9, 9, 3, 15, 15))
+    return M.view(3, 3), R.view(3, 3), t, pp.view(5, 3), pn.view(5, 3)
+
+
+class _FrameGraph:
+    """The frame step captured as one CUDA graph over static buffers: the
+    state (`_buffer`), a frame's inputs (its camera row, points, normals,
+    colors, valid) and outputs (uv2pt row, span). A replay steps whatever
+    the inputs hold. The capture follows a warm-up of the step on the same
+    side stream, which writes the buffer; `load` sets it before replays.
+    The graphs of a device share one memory pool: it holds only the step's
+    temporaries, and the graphs replay one at a time on one stream."""
+
+    def __init__(self, step, state: FusionState, cam: torch.Tensor, frames):
+        dev = cam.device
+        self.step = step
+        self.buf = _buffer(state)
+        self.cam = cam[0].clone()
+        self.frames = tuple(x[0].clone() for x in frames)
+        self.uv2pt = torch.empty(frames[0].shape[1], dtype=torch.int32, device=dev)
+        self.span = torch.zeros((), dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with timing.wait("fuse_graph_capture"):  # the capture starts on an idle card
+            torch.cuda.synchronize(dev)
+        if dev not in _GRAPH_POOLS:
+            _GRAPH_POOLS[dev] = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=_GRAPH_POOLS[dev], stream=side,
+                              capture_error_mode="thread_local"):
+            self._step()
+
+    def _step(self) -> None:
+        uv2pt, span = self.step(self.buf, *_camera_views(self.cam), *self.frames)
+        self.uv2pt.copy_(uv2pt)
+        self.span.copy_(span)
+
+    def load(self, state: FusionState) -> None:
+        for dst, src in zip(_live(self.buf), state):
+            dst.copy_(src)
+
+    def replay(self, cam_row: torch.Tensor, frame) -> None:
+        self.cam.copy_(cam_row)
+        for dst, src in zip(self.frames, frame):
+            dst.copy_(src)
+        self.graph.replay()
+
+    def state(self) -> FusionState:
+        """A copy of the state: the next replays overwrite the buffer."""
+        return FusionState(*(v.clone() for v in _live(self.buf)))
+
+
+# frame-step graphs by shape and window key, least recently used first; a
+# process meets a few keys (each room of a pool may get its own window)
+_GRAPHS: "OrderedDict[tuple, _FrameGraph]" = OrderedDict()
+_GRAPHS_KEPT = 8
+_GRAPH_POOLS: dict = {}
+# frames of card work the replay loop keeps queued: enough to ride out the
+# host's pauses, few enough to stay short of the launch queue's depth
+_FRAMES_AHEAD = 4
+
+
+@torch.no_grad()
 def _fuse_frames(state, K, quats, trans, points, normals, colors, valid, *, height, width,
                  candidate_px, window, window_policy, **kw):
     """The frame loop over F frames from `state`: (state, uv2pt [F, H*W],
     spans [F]). The frames' matrices and frustums come from one batched
     call; each frame's entries do not depend on the batch, so any split of
-    a session into calls gives the same bits."""
+    a session into calls gives the same bits. On the card each frame is a
+    replay of the step's graph (`_replay_frames`), on the CPU an eager
+    step (`_step_frames`); the counters `fuse_graph.frames` and
+    `fuse_graph.captures` say how many frames replayed and graphs were
+    captured. The returned state is the loop's own."""
     dev = points.device
     nf = points.shape[0]
     uv2pt = torch.empty((nf, height * width), dtype=torch.int32, device=dev)
@@ -398,13 +491,62 @@ def _fuse_frames(state, K, quats, trans, points, normals, colors, valid, *, heig
         M, R = camera.projection_matrices(K, quats)
         plane_pts, plane_ns = camera.frustum_world_planes(K, width, height, quats, trans,
                                                           kw["max_depth"])
-    for f in range(nf):
-        with timing.range("fuse.frame"):
-            state, uv2pt[f], spans[f] = _fuse_frame(
-                state, M[f], R[f], trans[f], plane_pts[f], plane_ns[f], points[f], normals[f],
-                colors[f], valid[f], height=height, width=width, candidate_px=candidate_px,
-                window=window, window_policy=window_policy, **kw)
+    cam = _camera_rows(M, R, trans, plane_pts, plane_ns)
+    frames = (points, normals, colors, valid)
+    step = functools.partial(_fuse_frame, height=height, width=width, candidate_px=candidate_px,
+                             window=window, window_policy=window_policy, **kw)
+    if dev.type == "cuda":
+        cap = kw["capacity"]
+        key = (dev, height, width, cap, cap if window is None else min(int(window), cap),
+               window_policy, candidate_px, kw["radius"], kw["min_cosine"], kw["max_depth"])
+        with torch.cuda.device(dev):
+            state = _replay_frames(key, step, state, cam, frames, uv2pt, spans)
+    else:
+        state = _step_frames(step, state, cam, frames, uv2pt, spans)
     return state, uv2pt, spans
+
+
+def _step_frames(step, state, cam, frames, uv2pt, spans) -> FusionState:
+    """The frame loop run eagerly: each frame stepped into a `_buffer` of
+    `state`, its uv2pt row and span written to row f. Returns the state."""
+    buf = _buffer(state)
+    for f in range(len(cam)):
+        with timing.range("fuse.frame"):
+            uv2pt[f], spans[f] = step(buf, *_camera_views(cam[f]), *(x[f] for x in frames))
+    timing.count("fuse_graph.frames", 0)
+    timing.count("fuse_graph.captures", 0)
+    return _live(buf)
+
+
+def _replay_frames(key, step, state, cam, frames, uv2pt, spans) -> FusionState:
+    """`_step_frames` on the card: each frame one replay of the step's
+    graph for `key`, captured at the key's first call. The host runs up to
+    `_FRAMES_AHEAD` frames ahead of the card, then waits for the oldest in
+    the wait "fuse_frames" (not unseen, in a full launch queue). Returns a
+    copy of the state."""
+    graph = _GRAPHS.pop(key, None)
+    captured = graph is None
+    if captured:
+        with timing.range("fuse.capture"):
+            graph = _FrameGraph(step, state, cam, frames)
+        while len(_GRAPHS) >= _GRAPHS_KEPT:
+            _GRAPHS.popitem(last=False)
+    _GRAPHS[key] = graph
+    graph.load(state)
+    issued = [torch.cuda.Event() for _ in range(_FRAMES_AHEAD)]
+    for f in range(len(cam)):
+        done = issued[f % _FRAMES_AHEAD]
+        if f >= _FRAMES_AHEAD:
+            with timing.wait("fuse_frames"):
+                done.synchronize()  # frame f - _FRAMES_AHEAD
+        with timing.range("fuse.frame"):
+            graph.replay(cam[f], tuple(x[f] for x in frames))
+            uv2pt[f] = graph.uv2pt
+            spans[f] = graph.span
+        done.record()
+    timing.count("fuse_graph.frames", len(cam))
+    timing.count("fuse_graph.captures", int(captured))
+    return graph.state()
 
 
 @torch.no_grad()

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from fusion3dseg_tpu_torch.fusion import fusion
-from fusion3dseg_tpu_torch.fusion.fusion import FusionState, _set_rows
+from fusion3dseg_tpu_torch.fusion.fusion import FusionState
 from fusion3dseg_tpu_torch.geometry import camera, intersections
 from fusion3dseg_tpu_torch.geometry.camera import _floor_to_int32
 from fusion3dseg_tpu_torch.ops import sparsify, zbuffer
@@ -56,9 +56,13 @@ def _gather_state(state: FusionState, group):
 def _compact(cells, cell_slot, cap_out: int, total) -> FusionState:
     """A FusionState of `cap_out` slots from per-cell rows (points, normals,
     colors, nmerges, occurences), cell c landing in slot `cell_slot[c]`
-    (cap_out: dropped)."""
-    return FusionState(*(_set_rows(v.new_zeros((cap_out, *v.shape[1:])), cell_slot, v)
-                         for v in cells), total.to(torch.int32))
+    (cap_out: dropped, into a trash row sliced off)."""
+    def rows(v):
+        out = v.new_zeros((cap_out + 1, *v.shape[1:]))
+        out[cell_slot.long()] = v
+        return out[:-1]
+
+    return FusionState(*(rows(v) for v in cells), total.to(torch.int32))
 
 
 def _remap(uv2pt: torch.Tensor, slot_of_row: torch.Tensor) -> torch.Tensor:
@@ -172,14 +176,18 @@ def fuse_session_spatial_sharded(mesh, Ks, quats_wxyz, translations, points, nor
     lw = torch.arange(W, dtype=torch.int32, device=dev)
     ranks = torch.arange(ndev, dtype=torch.int32, device=dev)
 
-    def append_owned(state, sp):
+    # this rank's buffer, written in place by the steps; `state` its view
+    buf = fusion._buffer(fusion._empty_state(capacity, dev))
+    state = fusion._live(buf)
+
+    def append_owned(sp):
         """Append the leftover cells this rank owns; the global cell -> slot
         map [C] through one psum."""
         owned = (_owner_hash(sp.points, region, ndev) == r) & (sp.counts > 0)
-        state, c2s = fusion._append_sparsified(
-            state, sp._replace(counts=torch.where(owned, sp.counts, 0)), capacity)
+        c2s = fusion._append_sparsified(
+            buf, sp._replace(counts=torch.where(owned, sp.counts, 0)), capacity)
         gslot = torch.where(c2s >= 0, r * capacity + c2s + 1, 0)
-        return state, comm.psum(gslot, group) - 1
+        return comm.psum(gslot, group) - 1
 
     def pixel_slots(sp, c2s, matched, matched_slot):
         """uv2pt of a frame: a matched pixel's slot, else its leftover
@@ -193,7 +201,7 @@ def fuse_session_spatial_sharded(mesh, Ks, quats_wxyz, translations, points, nor
                                        min_cosine, extent_cells=extent, const_radius=True)
 
     sp = sparsify_frame(0, fvs[0])
-    state, c2s = append_owned(fusion._empty_state(capacity, dev), sp)
+    c2s = append_owned(sp)
     uv2pt = torch.empty((len(quats), height * width), dtype=torch.int32, device=dev)
     uv2pt[0] = pixel_slots(sp, c2s, torch.zeros_like(fvs[0]), -1)
 
@@ -235,13 +243,12 @@ def fuse_session_spatial_sharded(mesh, Ks, quats_wxyz, translations, points, nor
 
         # 4. merge this rank's matches into its window
         mine = matched & (match // W == r)
-        state = fusion._merge_window(state, idx_w, pts_w, nrm_w,
-                                     fusion._match_sums(fps[f], fns[f], fcs[f], mine,
-                                                        match % W, W))
+        fusion._merge_window(state, idx_w, pts_w, nrm_w,
+                             fusion._match_sums(fps[f], fns[f], fcs[f], mine, match % W, W))
 
         # 5. leftovers: replicated sparsify, owned append
         sp = sparsify_frame(f, fvs[f] & ~matched)
-        state, c2s = append_owned(state, sp)
+        c2s = append_owned(sp)
 
         # window-global candidate id -> global slot, from every rank's
         # window bases (a0, b0) through one psum

@@ -58,7 +58,9 @@ class FastSegmentation:
     # wall seconds of the stages (`utils.timing` spans), each ending where
     # the host reads the device anyway: "fuse_vote" (masks) or "fuse" +
     # "stream" (segmenter), "repair", "split", "merge"; each with its
-    # ".wait" (the host blocked on the card) and ".dispatch" (the rest)
+    # ".wait" (the host blocked on the card) and ".dispatch" (the rest);
+    # and the engine's counters "fuse_graph.frames" (frames replayed from
+    # a CUDA graph) and "fuse_graph.captures" (graphs captured)
     stage_seconds: dict = dataclasses.field(default_factory=dict)
 
     @functools.cached_property

@@ -17,6 +17,8 @@ Counterpart of `fusion3dseg_tpu/utils/timing.py`.
   `.wait` of the record's open stage.
 - `range(name)` only names a block in a profile: no stamps, no record.
   A read outside any record is `range("wait.<name>")`.
+- `count(name, k)` adds `k` to a counter: in `METRICS.counts`, and inside
+  `record()` to the record's `<name>` (a float, as every value there).
 
 While a `torch.profiler` records, every span, wait and range is also the
 profiler range `f3s.<name>` (waits: `f3s.wait.<name>`), so the trace tells
@@ -41,10 +43,11 @@ _NULL = contextlib.nullcontext()
 
 
 class Metrics:
-    """Process-wide aggregates of the spans: seconds per name."""
+    """Process-wide aggregates: seconds per span name, counts per counter."""
 
     def __init__(self):
         self.seconds: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
 
     def add(self, name: str, seconds: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds
@@ -54,6 +57,7 @@ class Metrics:
 
     def clear(self) -> None:
         self.seconds.clear()
+        self.counts.clear()
 
 
 METRICS = Metrics()
@@ -80,7 +84,8 @@ _RECORD: contextvars.ContextVar[Optional[_Record]] = contextvars.ContextVar(
 @contextlib.contextmanager
 def record():
     """Open the record of one call; yields its dict of seconds, which the
-    spans inside the block fill (see the module's docstring)."""
+    spans inside the block fill, and of counts (see the module's
+    docstring)."""
     rec = _Record()
     token = _RECORD.set(rec)
     try:
@@ -140,6 +145,14 @@ def span(name: str, verbose: bool = False) -> Span:
 def wait(name: str) -> Span:
     """Time the block as the host waiting on the card (`wait.<name>`)."""
     return Span("wait." + name, is_wait=True)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add `k` to the counter `name` (see the module's docstring)."""
+    METRICS.counts[name] = METRICS.counts.get(name, 0) + k
+    rec = _RECORD.get()
+    if rec is not None:
+        rec.seconds[name] = rec.seconds.get(name, 0.0) + float(k)
 
 
 def range(name: str):  # noqa: A001 (the module's name for a profiler range)

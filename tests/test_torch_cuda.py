@@ -1310,3 +1310,142 @@ def test_one_rank_nccl_group_equals_one_device(cuda_device):
     assert got["backend"] == "nccl" and got["device"] == "cuda:0", got
     assert got["k1_launches"] == 1, got
     assert got["votes"] and got["points"] and got["label"] and got["fusion"], got
+
+
+# ------------------------------------------------------- fusion frame graph
+
+FRAMES, FHW = 12, (96, 128)
+FKW = dict(height=FHW[0], width=FHW[1], radius=0.08, min_cosine=float(np.cos(np.deg2rad(20.0))),
+           max_depth=8.0, capacity=1 << 15)
+
+
+def _fusion_args(device, seed):
+    """A synthetic room session's engine arguments, its frames on `device`."""
+    from fusion3dseg_tpu_torch.io import rtab, synthetic
+
+    sess = synthetic.make_session(nframes=FRAMES, depth_hw=FHW, appearance="textured",
+                                  room=synthetic.RoomSpec(seed=seed))
+    sd = rtab.SessionData.from_arrays(sess.colors, sess.depth, sess.K,
+                                      sess.quats_wxyz[:, [1, 2, 3, 0]], sess.translations,
+                                      device=device)
+    valid = (sd.depth > 0.1) & (sd.depth <= 8.0)
+    return (sd.Ks.astype(np.float32), sd.quats_wxyz, sd.translations, sd.points, sd.normals,
+            sd.colors, valid)
+
+
+def _tensors(out):
+    """The state's fields, uv2pt and (where present) spans of an engine call."""
+    return (*out[0], *out[1:])
+
+
+def _assert_equal_outputs(a, b):
+    for x, y in zip(_tensors(a), _tensors(b), strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,policy", [(None, "newest"), (1024, "split")],
+                         ids=["unwindowed", "split_1024"])
+@pytest.mark.parametrize("px", [1, 2], ids=["px1", "px2"])
+def test_frame_graph_matches_eager_step(cuda_device, monkeypatch, window, policy, px):
+    """The frame loop replayed from a CUDA graph gives the eager step's bits
+    on the card; the windowed run overflows its window."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+    from fusion3dseg_tpu_torch.utils import timing
+
+    args = _fusion_args(cuda_device, 5)
+    kw = dict(FKW, window=window, window_policy=policy, candidate_px=px, with_stats=True,
+              device=cuda_device)
+    with timing.record() as rec:
+        graphed = tf.fuse_session(*args, **kw)
+    assert rec["fuse_graph.frames"] == FRAMES - 1
+    monkeypatch.setattr(tf, "_replay_frames", lambda key, *a: tf._step_frames(*a))
+    eager = tf.fuse_session(*args, **kw)
+    _assert_equal_outputs(graphed, eager)
+    assert 0 < int(graphed[0].n) < FKW["capacity"]
+    if window is not None:
+        assert int(graphed[2].max()) > window
+
+
+@pytest.mark.cuda
+def test_frame_graphs_cached_per_window(cuda_device):
+    """Two windows in one process are two cached graphs; the first replays
+    again, uncaptured, with its first bits."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+    from fusion3dseg_tpu_torch.utils import timing
+
+    tf._GRAPHS.clear()
+    args = _fusion_args(cuda_device, 7)
+    kw_a = dict(FKW, window=1024, window_policy="split", with_stats=True, device=cuda_device)
+    kw_b = dict(FKW, window=2048, window_policy="newest", with_stats=True, device=cuda_device)
+    with timing.record() as rec:
+        a1 = tf.fuse_session(*args, **kw_a)
+        b = tf.fuse_session(*args, **kw_b)
+    assert rec["fuse_graph.captures"] == 2 and len(tf._GRAPHS) == 2
+    with timing.record() as rec:
+        a2 = tf.fuse_session(*args, **kw_a)
+    assert rec["fuse_graph.captures"] == 0 and rec["fuse_graph.frames"] == FRAMES - 1
+    _assert_equal_outputs(a1, a2)
+    assert not torch.equal(a1[1], b[1])
+
+
+@pytest.mark.cuda
+def test_repeated_call_captures_nothing(cuda_device):
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+    from fusion3dseg_tpu_torch.utils import timing
+
+    args = _fusion_args(cuda_device, 9)
+    kw = dict(FKW, window=4096, window_policy="newest", device=cuda_device)
+    counts = []
+    for _ in range(2):
+        with timing.record() as rec:
+            tf.fuse_session(*args, **kw)
+        counts.append((rec["fuse_graph.captures"], rec["fuse_graph.frames"]))
+    assert counts[1] == (0, FRAMES - 1) and counts[0][1] == FRAMES - 1
+
+
+@pytest.mark.cuda
+def test_fuse_chunk_on_the_card_equals_one_shot(cuda_device):
+    """Three chunks from the seed frame give the one-shot session's bits."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+
+    args = _fusion_args(cuda_device, 11)
+    kw = dict(FKW, window=1024, window_policy="split")
+    one = tf.fuse_session(*args, with_stats=True, device=cuda_device, **kw)
+    frame_kw = {k: kw[k] for k in ("height", "width", "radius", "min_cosine", "max_depth",
+                                   "capacity")}
+    state, uv0 = tf._seed_frame(tf._empty_state(kw["capacity"], cuda_device),
+                                *(torch.as_tensor(a[0], device=cuda_device) for a in args[3:]),
+                                **frame_kw)
+    uvs, spans = [uv0[None]], [torch.zeros(1, dtype=torch.int32, device=cuda_device)]
+    for rows in (slice(1, 5), slice(5, 9), slice(9, FRAMES)):
+        state, uv, sp = tf.fuse_chunk(state, args[0], *(a[rows] for a in args[1:]),
+                                      with_stats=True, **kw)
+        uvs.append(uv)
+        spans.append(sp)
+    _assert_equal_outputs(one, (state, torch.cat(uvs), torch.cat(spans)))
+
+
+@pytest.mark.cuda
+def test_returned_state_outlives_the_next_session(cuda_device):
+    """A session's returned tensors share no storage with the next
+    session's or with any graph's buffers, and the next session's replays
+    leave them as they were."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+
+    kw = dict(FKW, window=1024, window_policy="split", with_stats=True, device=cuda_device)
+    first = tf.fuse_session(*_fusion_args(cuda_device, 13), **kw)
+    kept = [t.clone() for t in _tensors(first)]
+    second = tf.fuse_session(*_fusion_args(cuda_device, 17), **kw)
+    for t, k in zip(_tensors(first), kept):
+        assert torch.equal(t, k)
+    assert not torch.equal(first[1], second[1])
+
+    def ptrs(tensors):
+        return {t.untyped_storage().data_ptr() for t in tensors}
+
+    graph_ptrs = set()
+    for g in tf._GRAPHS.values():
+        graph_ptrs |= ptrs((*g.buf, g.cam, *g.frames, g.uv2pt, g.span))
+    a, b = ptrs(_tensors(first)), ptrs(_tensors(second))
+    assert not a & b and not (a | b) & graph_ptrs

@@ -42,9 +42,11 @@ def _hold(j, t):
 
 def _hold_stages(t, *stages):
     """Each stage's seconds with its ".dispatch" and ".wait", which add up
-    to it."""
+    to it, beside the engine's graph counters (0 on the CPU)."""
     sec = t.stage_seconds
-    assert set(sec) == {s + part for s in stages for part in ("", ".dispatch", ".wait")}
+    counters = {"fuse_graph.frames", "fuse_graph.captures"}
+    assert set(sec) == {s + part for s in stages for part in ("", ".dispatch", ".wait")} | counters
+    assert all(sec[c] == 0 for c in counters)
     for s in stages:
         assert sec[s + ".dispatch"] + sec[s + ".wait"] == pytest.approx(sec[s], abs=1e-9)
 

@@ -18,6 +18,7 @@ from fusion3dseg_tpu.io import synthetic
 from fusion3dseg_tpu.ops import voting as jv
 from fusion3dseg_tpu_torch.fusion import fusion as tf
 from fusion3dseg_tpu_torch.ops import voting as tv
+from fusion3dseg_tpu_torch.utils import timing
 from torch_sessions import H, W, session_arrays
 
 RADIUS = 0.1
@@ -87,6 +88,76 @@ def test_runs_merge_across_frames_and_overflow(runs):
     n = int(ts.n)
     assert (ts.occurences[:n] > 1).float().mean() > 0.3  # points merged across frames
     assert int(runs["split"][1][0].n) != int(runs["newest"][1][0].n)
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_state_and_lookups_equal_jax(runs, name):
+    """The frame loop writes its own buffer in place, appends past capacity
+    into its trash row (`full_buffer` fills up), and still gives the JAX
+    package's state and lookups exactly."""
+    (js, juv, jsp), (ts, tuv, tsp) = runs[name]
+    cap = RUNS[name][2]
+    n = int(js.n)
+    assert int(ts.n) == n and all(v.shape[0] == cap for v in ts[:5])
+    np.testing.assert_array_equal(tuv.numpy(), np.asarray(juv))
+    for field in ("points", "normals", "colors", "nmerges", "occurences"):
+        np.testing.assert_array_equal(getattr(ts, field)[:n].numpy(),
+                                      np.asarray(getattr(js, field))[:n], err_msg=field)
+
+
+def _chunk_kw(name):
+    window, policy, cap, px = RUNS[name]
+    return dict(KW, capacity=cap, window=window, window_policy=policy, candidate_px=px)
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_fuse_chunk_keeps_its_input_state(session, runs, name):
+    """`fuse_chunk` from the seed frame, in two chunks, inside a record: the
+    state it is given is left as it was, the chunks give the one-shot
+    session's bits, and the CPU replays no graph."""
+    args, _ = session
+    kw = _chunk_kw(name)
+    seed, _ = tf._seed_frame(tf._empty_state(kw["capacity"], "cpu"),
+                             *(torch.from_numpy(a[0]) for a in args[3:]),
+                             **{k: kw[k] for k in ("height", "width", "radius", "min_cosine",
+                                                   "max_depth", "capacity")})
+    before = [v.clone() for v in seed]
+    rows = [slice(1, 9), slice(9, 16)]
+    with timing.record() as rec:
+        state, uv_a, sp_a = tf.fuse_chunk(seed, args[0], *(a[rows[0]] for a in args[1:]),
+                                          with_stats=True, **kw)
+        for v, b in zip(seed, before):
+            assert torch.equal(v, b)
+        mid = [v.clone() for v in state]
+        state, uv_b, sp_b = tf.fuse_chunk(state, args[0], *(a[rows[1]] for a in args[1:]),
+                                          with_stats=True, **kw)
+    for v, b in zip(seed, before):
+        assert torch.equal(v, b)
+    assert not any(torch.equal(v, m) for v, m in zip(state[:3], mid[:3]))
+    _, (ts, tuv, tsp) = runs[name]
+    for a, b in zip(state, ts):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.cat([uv_a, uv_b]), tuv[1:])
+    assert torch.equal(torch.cat([sp_a, sp_b]), tsp[1:])
+    assert rec["fuse_graph.frames"] == 0 and rec["fuse_graph.captures"] == 0
+
+
+def _storages(*tensors):
+    return [t.untyped_storage().data_ptr() for t in tensors]
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_calls_share_no_storage(session, runs, name):
+    """Two calls back to back return the same bits in tensors of their
+    own: no state or lookup of one call is a view of another's."""
+    args, _ = session
+    kw = dict(_chunk_kw(name), with_stats=True, device="cpu")
+    first = tf.fuse_session(*args, **kw)
+    second = tf.fuse_session(*args, **kw)
+    ptrs = [_storages(*out[0], out[1], out[2]) for out in (first, second, runs[name][1])]
+    assert not set(ptrs[0]) & set(ptrs[1]) and not set(ptrs[1]) & set(ptrs[2])
+    for a, b in zip((*first[0], first[1], first[2]), (*second[0], second[1], second[2])):
+        assert torch.equal(a, b)
 
 
 def test_seed_frame_matches_jax(session):

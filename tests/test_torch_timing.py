@@ -27,6 +27,8 @@ KW = dict(radius=0.1, angle=25.0, min_pts_per_inst=20, capacity=1 << 14, window=
           window_policy="split", device="cpu")
 STAGES = {"masks": ("fuse_vote", "repair", "split", "merge"),
           "segmenter": ("fuse", "repair", "stream", "split", "merge")}
+# the counters each path records beside its stages
+COUNTERS = ("fuse_graph.frames", "fuse_graph.captures")
 # the waits each path passes through, whatever the data
 WAITS = {"masks": ("spans", "n", "points", "classes", "masks_upload", "engine_upload",
                    "cameras", "vote_keys"),
@@ -72,7 +74,10 @@ def runs():
 def test_stage_seconds_add_up(runs, path):
     res, seconds = runs[path]
     sec = res.stage_seconds
-    assert set(sec) == {s + part for s in STAGES[path] for part in ("", ".dispatch", ".wait")}
+    assert set(sec) == ({s + part for s in STAGES[path] for part in ("", ".dispatch", ".wait")}
+                        | set(COUNTERS))
+    # the engine's graph counters: the CPU steps its frames eagerly
+    assert all(sec[c] == 0 for c in COUNTERS)
     for s in STAGES[path]:
         assert sec[s] > 0
         assert sec[s + ".wait"] >= 0 and sec[s + ".dispatch"] >= 0
@@ -291,6 +296,24 @@ def test_registry_stays_bounded():
             pass
     assert set(timing.METRICS.seconds) == {"bounded", "wait.bounded"}
     assert timing.METRICS.total("bounded") >= timing.METRICS.total("wait.bounded") > 0
+
+
+def test_counters_add_to_metrics_and_the_record():
+    timing.METRICS.clear()
+    timing.count("graphs")
+    with timing.record() as rec:
+        with timing.span("stage"):
+            timing.count("frames", 3)
+        timing.count("frames", 2)
+        timing.count("graphs", 0)
+    assert rec["frames"] == 5.0 and rec["graphs"] == 0.0
+    assert all(type(rec[k]) is float for k in ("frames", "graphs"))
+    assert {"stage", "stage.wait", "stage.dispatch"} <= set(rec)
+    assert timing.METRICS.counts == {"graphs": 1, "frames": 5}
+    timing.count("frames")  # no record open: the aggregates only
+    assert rec["frames"] == 5.0 and timing.METRICS.counts["frames"] == 6
+    timing.METRICS.clear()
+    assert not timing.METRICS.counts
 
 
 def test_total_and_clear_as_chip_smoke_reads_them(capsys):
