@@ -10,9 +10,13 @@ over the class logits; pixels whose softmax confidence falls below
 `conf_threshold` (default 0.017) become class 133 "unclassified";
 `filter_classes` skips frames containing none of the requested classes.
 
-`Segmenter2D` runs the SegFormer (`models/segformer.py`) over batches of
-frames on its device. `predict(image)` additionally gives the reference
-predictor's full output contract: a dict unpacking as
+`Segmenter2D` runs either segmenter family over batches of frames on its
+device: a SegFormer (`models/segformer.py`, logits with a trailing
+"unclassified" channel) or a Mask2Former (`models/mask2former.py`, the
+semantic scores of its classes alone), chosen by the config's type. The
+unclassified id is the model's class count either way (133 for both).
+`predict(image)` additionally gives the reference predictor's full output
+contract: a dict unpacking as
 `sem, pan, inst = outputs.values()` with [133, H, W] logits, a panoptic
 (idimage, info) pair and an instances record, the segments derived from
 connected components of the thresholded semantic mask
@@ -36,7 +40,7 @@ import torch.nn.functional as F
 
 from fusion3dseg_tpu_torch import cuda
 from fusion3dseg_tpu_torch.io import image
-from fusion3dseg_tpu_torch.models import convert
+from fusion3dseg_tpu_torch.models import convert, mask2former
 from fusion3dseg_tpu_torch.models.segformer import SegFormer, SegFormerConfig, create_model
 from fusion3dseg_tpu_torch.ops import components2d
 from fusion3dseg_tpu_torch.utils import palette as pal
@@ -55,9 +59,11 @@ def resize_bilinear(images: torch.Tensor, out_hw, antialias: bool = False) -> to
 
 
 class Segmenter2D:
-    """Batched semantic-inference wrapper around a SegFormer on one device."""
+    """Batched semantic inference on one device, around a SegFormer or a
+    Mask2Former."""
 
-    def __init__(self, config: SegFormerConfig | None = None, checkpoint_dir=None,
+    def __init__(self, config: SegFormerConfig | mask2former.Mask2FormerConfig | None = None,
+                 checkpoint_dir=None,
                  input_hw=None, batch_size: int = 8, seed: int = 0, device="cuda",
                  use_cuda_attention: bool = True):
         """`checkpoint_dir` is an npz snapshot or a trainer's run directory
@@ -67,18 +73,32 @@ class Segmenter2D:
         `config=None` resolves to the architecture recorded the same way,
         else the default SegFormerConfig(). Without a checkpoint the weights
         are random, drawn from `seed`. `use_cuda_attention=False` runs the
-        attention kernels' plain PyTorch versions instead (for comparisons)."""
+        attention kernels' plain PyTorch versions instead (for comparisons).
+
+        A `Mask2FormerConfig` builds a Mask2Former with random weights from
+        `seed` (no checkpoint loads into it); its `input_hw=None` is
+        detectron2's test resize of a 480 x 640 frame, (800, 1067)."""
         self.device = cuda.resolve_device(device)
-        if config is None and checkpoint_dir is not None:
-            config = convert.checkpoint_config(checkpoint_dir)
-        self.config = config = config if config is not None else SegFormerConfig()
-        if input_hw is None and checkpoint_dir is not None:
-            input_hw = convert.checkpoint_input_hw(checkpoint_dir)
-        self.input_hw = tuple(input_hw) if input_hw is not None else (512, 512)
         self.batch_size = batch_size
         # a 0-d device divisor: CUDA divides by a Python scalar as a product
         # with its reciprocal, which would round apart from the CPU and JAX
         self._255 = torch.tensor(255.0, device=self.device)
+        if isinstance(config, mask2former.Mask2FormerConfig):
+            if checkpoint_dir is not None:
+                raise ValueError("checkpoints load into a SegFormer only; a Mask2Former "
+                                 "runs seeded random weights")
+            self.config, self.nclasses = config, config.num_classes
+            self.input_hw = tuple(input_hw) if input_hw is not None \
+                else mask2former.test_resize_hw(480, 640)
+            self.model = mask2former.create_model(config, seed, self.device)
+            return
+        if config is None and checkpoint_dir is not None:
+            config = convert.checkpoint_config(checkpoint_dir)
+        self.config = config = config if config is not None else SegFormerConfig()
+        self.nclasses = config.num_classes - 1  # the trailing unclassified channel
+        if input_hw is None and checkpoint_dir is not None:
+            input_hw = convert.checkpoint_input_hw(checkpoint_dir)
+        self.input_hw = tuple(input_hw) if input_hw is not None else (512, 512)
         if checkpoint_dir is not None:
             state = convert.from_flax_params(convert.load_params_npz(checkpoint_dir), config)
             with torch.device("meta"):
@@ -102,9 +122,8 @@ class Segmenter2D:
         logits = resize_bilinear(self.model(images), out_hw, antialias=True)
         sem = logits.argmax(dim=-1)
         conf = torch.softmax(logits, dim=-1).amax(dim=-1)
-        nclasses = logits.shape[-1] - 1
         # the threshold as a float32, compared in float32 (no device copy)
-        sem = torch.where(conf < float(np.float32(conf_threshold)), nclasses, sem)
+        sem = torch.where(conf < float(np.float32(conf_threshold)), self.nclasses, sem)
         return logits, sem.to(torch.uint8), conf
 
     def predict_batch(self, images: np.ndarray, conf_threshold: float = 0.017) -> np.ndarray:
@@ -126,9 +145,8 @@ class Segmenter2D:
         return tuple(t.cpu().numpy() for t in (logits, sem, conf, comp))
 
     def _panoptic(self, sem, conf, comp):
-        nclasses = self.config.num_classes - 1  # trailing unclassified channel
         pan = components2d.panoptic_from_semantic(
-            sem, n_thing=tax.N_THING_CLASSES, unclassified=nclasses, components=comp)
+            sem, n_thing=tax.N_THING_CLASSES, unclassified=self.nclasses, components=comp)
         return pan, components2d.instances_from_panoptic(pan[0], pan[1], conf)
 
     def predict_batch_full(self, images: np.ndarray, conf_threshold: float = 0.017,
@@ -167,9 +185,8 @@ class Segmenter2D:
         logits, sem, conf, comp = self._full(image[None, :, :, ::-1], conf_threshold,
                                              split_color_jump)
         pan, inst = self._panoptic(sem[0], conf[0], comp[0])
-        nclasses = self.config.num_classes - 1
         return {
-            "sem_seg": logits[0, :, :, :nclasses].transpose(2, 0, 1),
+            "sem_seg": logits[0, :, :, :self.nclasses].transpose(2, 0, 1),
             "panoptic_seg": pan,
             "instances": inst,
         }
@@ -225,7 +242,7 @@ def SegmentImage(
     if batch_size is None:
         batch_size = segmenter.batch_size
 
-    viz_palette = (pal.random_palette(segmenter.config.num_classes, seed=0) * 255).astype(np.uint8)
+    viz_palette = (pal.random_palette(segmenter.nclasses + 1, seed=0) * 255).astype(np.uint8)
 
     def load(path):
         try:

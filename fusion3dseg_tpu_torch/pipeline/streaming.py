@@ -23,8 +23,9 @@ from fusion3dseg_tpu_torch.utils import timing
 def _vote_logits(votes, logits, uv2pt, depth_hw, nclasses, conf_threshold):
     """Threshold + resize + vote a batch of logits into `votes`, in place.
 
-    votes [npts, nclasses+1] int32; logits [B, H, W, nclasses+1] float32;
-    uv2pt [B, Hd*Wd] int. Returns `votes`."""
+    votes [npts, nclasses+1] int32; logits [B, H, W, C] float32 (a
+    SegFormer's nclasses+1 with its unclassified channel, a Mask2Former's
+    nclasses semantic scores); uv2pt [B, Hd*Wd] int. Returns `votes`."""
     # argmax class + softmax confidence -> the unclassified rule
     sem = logits.argmax(dim=-1)
     conf = torch.softmax(logits, dim=-1).amax(dim=-1)

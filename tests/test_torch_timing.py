@@ -17,6 +17,7 @@ from torch.overrides import TorchFunctionMode
 
 from fusion3dseg_tpu_torch.io import rtab, synthetic
 from fusion3dseg_tpu_torch.models import SegFormerConfig
+from fusion3dseg_tpu_torch.models.mask2former import Mask2FormerConfig
 from fusion3dseg_tpu_torch.ops import obb
 from fusion3dseg_tpu_torch.pipeline import fast
 from fusion3dseg_tpu_torch.pipeline.fast import segment_session_fast
@@ -45,17 +46,26 @@ def _session(F=6):
     return sess, sd
 
 
-def _segmenter():
+def _segmenter(family="segformer"):
+    if family == "mask2former":
+        cfg = Mask2FormerConfig(num_classes=133, embed_dim=16, depths=(2, 2, 2, 2),
+                                num_heads=(1, 2, 4, 8), window_size=4, conv_dim=32, mask_dim=32,
+                                norm_groups=8, enc_layers=1, enc_heads=4, enc_ffn_dim=64,
+                                num_queries=8, hidden_dim=32, dec_heads=4, dec_ffn_dim=64,
+                                dec_layers=1, dtype=torch.float32)
+        return Segmenter2D(config=cfg, input_hw=(70, 90), batch_size=4, device="cpu")
     cfg = SegFormerConfig(num_classes=134, embed_dims=(8, 16, 24, 32), depths=(1, 1, 1, 1),
                           num_heads=(1, 2, 3, 4), decoder_dim=32, dtype=torch.float32)
     return Segmenter2D(config=cfg, input_hw=(64, 64), batch_size=4, device="cpu")
 
 
 def _run(path, sess, sd, **kw):
+    """`path`: "masks", "segmenter" (a tiny SegFormer) or "mask2former"."""
     kw = {**KW, **kw}
     if path == "masks":
         return segment_session_fast(sd, masks=sess.gt_mask, **kw)
-    return segment_session_fast(sd, segmenter=_segmenter(), conf_threshold=0.0, **kw)
+    family = "mask2former" if path == "mask2former" else "segformer"
+    return segment_session_fast(sd, segmenter=_segmenter(family), conf_threshold=0.0, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +165,7 @@ def open_waits(monkeypatch):
     return depth
 
 
-@pytest.mark.parametrize("path", list(STAGES))
+@pytest.mark.parametrize("path", [*STAGES, "mask2former"])
 @pytest.mark.parametrize("repair", [False, True], ids=["plain", "repair_device_obb"])
 def test_every_device_read_sits_in_a_wait(monkeypatch, open_waits, path, repair):
     """On the card each of these operations blocks the host until the
