@@ -108,12 +108,18 @@ Phases (each prints its own lines; any failure exits non-zero):
             48-frame 256x192 session (capacity 2^17, auto window, split
             policy): timed by stage, two runs bit-identical, held to the
             port on the CPU (n within 1%, pixel classes >= 0.999, the same
-            instance categories). Loop closure (two turns): the window
+            instance categories); the match kernel's launches in a
+            profiled run equal to the run's `fuse_match.kernel_frames` and
+            to the frames stepped. Loop closure (two turns): the window
             overflows and the repair lands within 1.02x of the full merge.
             Scale: fusion alone at capacity 2^20, and 12 VGA frames.
             Segmenter branch with phase 7's shipped B2 on its 16 frames:
             the spatial-reduction kernel's launches counted, classes held
-            to the masks branch fed predict_batch's masks.
+            to the masks branch fed predict_batch's masks. The match kernel
+            (9e) on the last frame's inputs of an eager VGA engine run at
+            the scan cells' settings: `match` and `matched` equal to the
+            plain version's on the same card tensors and on the CPU, timed
+            in a CUDA graph beside its byte bound and the plain version.
 10. files   the file-artifact path on the 48-frame 256x192 textured
             session: written as an rtabmap-export directory by the port's
             own codec and read back (depth and masks exact, JPEG PSNR >= 35
@@ -232,12 +238,20 @@ FUSION_KW = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 17, windo
 # are less decisive, so more near-ties flip between kernel and plain version
 NAT_MASK_AGREE_BAR = 0.995
 LOGIT_DIFF_BAR = 0.25  # bfloat16 through 16 blocks, kernel path vs plain versions
-KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention"]
+KERNEL_SOURCES = ["histogram", "sr_attention", "neighborhood_attention", "match_pixels"]
 ALL_PHASES = ["label", "attention", "segmenter", "stream", "soak", "loop", "fusion", "files",
               "hf", "train", "post", "parallel", "bench"]
 K1_ENTRY = {"name": "histogram_classify", "route": "cuda",
             "source": "fusion3dseg_tpu_torch/csrc/histogram.cu",
             "replaces": "fusion3dseg_tpu/ops/histogram.py:33"}
+MATCH_ENTRY = {"name": "match_pixels", "route": "cuda",
+               "source": "fusion3dseg_tpu_torch/csrc/match_pixels.cu",
+               "replaces": "fusion3dseg_tpu/fusion/fusion.py:233 (XLA array code, no TPU kernel)",
+               "kernels": ["match_pixels_kernel"]}
+# phase 9e: the scan cells' engine on a VGA room lap, 3.6 degrees a frame
+MATCH_ENGINE = dict(radius=0.05, angle=10.0, max_depth=8.0, capacity=1 << 20, window=1 << 15,
+                    window_policy="split", candidate_px=1)
+MATCH_FRAMES = 8
 # phase 15: the bench's sizes cut to about 90 s (nsub 3 at 2.5M ids)
 BENCH_ARGV = ["--npts", "200000", "--frames", "60", "--tenm-npts", "2500000",
               "--tenm-frames", "20"]
@@ -293,6 +307,7 @@ def fail(msg):
 
 
 K3_ROUTES = {"wgmma": 0, "mma": 0, "f32": 0}  # K3's main-path launches by kernel
+MATCH_COUNTER = "fuse_match.kernel_frames"  # the engine's frames matched by the kernel
 
 
 def k3_counted(where, route="wgmma"):
@@ -1470,7 +1485,9 @@ def _same_run(a, b):
 
 def fusion_phase(card, seg_session=None, seg=None):
     """Phase 9: the main path `segment_session_fast` on the card. Returns
-    the spatial-reduction kernel's launches inside it (segmenter branch)."""
+    the spatial-reduction kernel's launches inside it (segmenter branch),
+    the VGA session of 9c and the match kernel's entry for the kernels
+    line."""
     import numpy as np
     import torch
 
@@ -1478,6 +1495,7 @@ def fusion_phase(card, seg_session=None, seg=None):
     from fusion3dseg_tpu_torch.io import synthetic
     from fusion3dseg_tpu_torch.ops import attention as attn
     from fusion3dseg_tpu_torch.pipeline.fast import segment_session_fast
+    from fusion3dseg_tpu_torch.utils import timing
 
     nframes, hw = 48, (256, 192)
     t0 = time.perf_counter()
@@ -1499,6 +1517,7 @@ def fusion_phase(card, seg_session=None, seg=None):
         torch.cuda.synchronize()
         return out
 
+    timing.METRICS.counts.pop(MATCH_COUNTER, None)  # count the main path's frames only
     masks_run()
     runs, times = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1518,6 +1537,23 @@ def fusion_phase(card, seg_session=None, seg=None):
         f"{peak / 2**20:.1f} MiB")
     if not _same_run(runs[-2], runs[-1]):
         fail("segment_session_fast: two runs on the card are not bit-identical")
+    # the match kernel: one launch a frame stepped (the seed frame aside),
+    # replayed from the frame graph, so the host never sees it. The run's
+    # record against the kernels a profiled run launched
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        counted = masks_run()
+    traced = sum(e.count for e in prof.key_averages() if "match_pixels_kernel" in e.key)
+    recorded = counted.stage_seconds[MATCH_COUNTER]
+    match_launches = timing.METRICS.counts.get(MATCH_COUNTER, 0)
+    log(f"fusion: match kernel launches in a profiled masks-branch run {traced}, its record's "
+        f"{MATCH_COUNTER} {recorded:g} (fuse_graph.frames "
+        f"{counted.stage_seconds['fuse_graph.frames']:g}), {nframes - 1} frames stepped; "
+        f"{match_launches} counted in the phase's {len(runs) + 2} runs")
+    if not traced == recorded == nframes - 1 or match_launches != (len(runs) + 2) * traced:
+        fail(f"match kernel: {traced} launches traced, {recorded} recorded, "
+             f"{match_launches} counted, for {nframes - 1} frames a run")
+    del counted
     if res.uv2pt.device.type != "cuda" or res.state.points.device.type != "cuda":
         fail("segment_session_fast did not run on the card")
     t0 = time.perf_counter()
@@ -1633,7 +1669,75 @@ def fusion_phase(card, seg_session=None, seg=None):
         fail(f"segmenter branch: the spatial-reduction kernel launched {launches} times")
     if agree <= STREAM_AGREE_BAR:
         fail(f"segmenter branch agreement {agree} not above {STREAM_AGREE_BAR}")
-    return launches, vsess
+    return launches, vsess, dict(match_row(card), launches=match_launches)
+
+
+def _match_frame_inputs():
+    """The (tensors, keywords) of the last frame's `_match_pixels` call in
+    an eager engine run on the card over `MATCH_FRAMES` frames of a VGA
+    room lap: the main path's own match inputs."""
+    from unittest import mock
+
+    import numpy as np
+
+    from fusion3dseg_tpu_torch.fusion import fusion as fe
+    from fusion3dseg_tpu_torch.io import synthetic
+
+    sess = synthetic.make_session(nframes=MATCH_FRAMES, depth_hw=(480, 640),
+                                  appearance="textured", turns=MATCH_FRAMES / 100,
+                                  room=synthetic.RoomSpec(seed=3))
+    sd = _session_on(sess, "cuda")
+    valid = (sd.depth > 0.1) & (sd.depth <= 4.0)
+    seen = {}
+    match = fe._match_pixels
+
+    def keep(*args, **kw):
+        seen["args"], seen["kw"] = tuple(a.clone() for a in args), kw
+        return match(*args, **kw)
+
+    kw = dict(MATCH_ENGINE)
+    min_cos = float(np.cos(np.deg2rad(kw.pop("angle"))))
+    with mock.patch.object(fe, "_match_pixels", keep), \
+            mock.patch.object(fe, "_replay_frames", lambda key, *a: fe._step_frames(*a)):
+        fe.fuse_session(sd.Ks, sd.quats_wxyz, sd.translations, sd.points, sd.normals, sd.colors,
+                        valid, height=480, width=640, min_cosine=min_cos, device="cuda", **kw)
+    return seen["args"], seen["kw"]
+
+
+def match_row(card):
+    """Phase 9e: the match kernel on a real frame's inputs, equal to its
+    plain version on the same card tensors and on the CPU, timed in a CUDA
+    graph beside its byte bound and the plain version. Returns its entry
+    for the kernels line (`launches` set by the caller)."""
+    import torch
+
+    from fusion3dseg_tpu_torch.fusion import fusion as fe
+    from fusion3dseg_tpu_torch.tools.profiling import bound_ms, graph_ms
+
+    args, kw = _match_frame_inputs()
+    got = fe._match_kernel(*args, **kw)
+    want = fe._match_pixels_plain(*args, **kw)
+    on_cpu = fe._match_pixels_plain(*(a.cpu() for a in args), **kw)
+    equal = [all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, ref)) for ref in (want, on_cpu)]
+    if not all(equal):
+        fail(f"match kernel against its plain version on the card / on the CPU: equal {equal}")
+    P = kw["height"] * kw["width"]
+    # read once: the grid, its ids, the pixels' points, normals and valid
+    # flags; written once: match and matched
+    nbytes = sum(a.numel() * a.element_size() for a in args) + P * (4 + 1)
+    k_ms = graph_ms(lambda: fe._match_kernel(*args, **kw), iters=50)
+    p_ms = graph_ms(lambda: fe._match_pixels_plain(*args, **kw), iters=5)
+    b_ms, by = bound_ms(nbytes, 0.0)
+    matched = got[1].float().mean().item()
+    shape = f"[{kw['height']}, {kw['width']}] half {kw['half']}, frame {MATCH_FRAMES - 1} of a lap"
+    log(f"kernels: match_pixels {shape} {card}: {matched:.4f} of pixels matched; equal to the "
+        f"plain version on the card and on the CPU; kernel {k_ms:.4f} ms (in a CUDA graph), "
+        f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+        f"{100 * b_ms / k_ms:.1f}% of bound; plain version {p_ms:.4f} ms ({p_ms / k_ms:.0f}x)")
+    return {**MATCH_ENTRY, "launches": 0, "max_abs_err": 0, "shape": shape, "dtype": "f32",
+            "ms": k_ms, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by,
+            "share_of_bound": b_ms / k_ms, "plain_ms": p_ms, "library_ms": None,
+            "matched_share": matched}
 
 
 def _read_tree(out, nframes):
@@ -3124,7 +3228,8 @@ def main():
                 entry["launches"] += n
     vga = None
     if "fusion" in phases:
-        n, vga = fusion_phase(card, session, seg)
+        n, vga, match = fusion_phase(card, session, seg)
+        kernels.append(match)
         for entry in kernels:
             if entry["name"] == "sr_attention":
                 entry["launches"] += n

@@ -11,7 +11,7 @@ lookup `uv2pt`. One frame step:
   3. a packed depth+slot z-buffer into the pixel-cell grid (two
      depth-ordered candidates a cell); every pixel matches the nearest of
      its 3x3 cells' 18 candidates passing dist < radius and
-     cos > min_cosine;
+     cos > min_cosine (on the card one kernel, `csrc/match_pixels.cu`);
   4. a running-mean merge of the matched pixels into their slots;
   5. the leftover pixels voxel-sparsified at the merge radius and appended
      (dropped once the buffer is full).
@@ -43,6 +43,7 @@ repair, uv2pt artifacts, `dump_data` / `load_data`).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -171,7 +172,61 @@ def _match_pixels(grid, slotg, fpts, fnrm, fvalid, *, height, width, half, radiu
     where absent; slotg [gh, gw, 2] their ids, -1 absent. The candidate
     axis is candidate-major, then the 3x3 offsets row-major: that order
     breaks argmin's ties. Returns (match [P] id or -1, matched [P] bool).
+    CUDA tensors go through the kernel `csrc/match_pixels.cu`
+    (`_match_kernel`), CPU tensors through `_match_pixels_plain`; both give
+    the same bits.
     """
+    kw = dict(height=height, width=width, half=half, radius=radius, min_cosine=min_cosine)
+    if grid.device.type == "cuda":
+        return _match_kernel(grid, slotg, *(x.contiguous() for x in (fpts, fnrm, fvalid)), **kw)
+    return _match_pixels_plain(grid, slotg, fpts, fnrm, fvalid, **kw)
+
+
+def _match_kernel(grid, slotg, fpts, fnrm, fvalid, *, height, width, half, radius, min_cosine):
+    """`_match_pixels` in one launch of `csrc/match_pixels.cu` on the
+    tensors' card, on its current stream; raises for a layout the kernel
+    does not take (dtype, shape, device, a non-contiguous input) or a
+    refused launch. Adds one to `_match_kernel.launches`."""
+    P = height * width
+    gh, gw = grid.shape[:2]
+    dev = grid.device
+    if dev.type != "cuda":
+        raise ValueError(f"match kernel: grid must be on a CUDA device, got {dev}")
+    for name, x, dtype, shape in (("grid", grid, torch.float32, (gh, gw, 12)),
+                                  ("slotg", slotg, torch.int32, (gh, gw, 2)),
+                                  ("fpts", fpts, torch.float32, (P, 3)),
+                                  ("fnrm", fnrm, torch.float32, (P, 3)),
+                                  ("fvalid", fvalid, torch.bool, (P,))):
+        if (x.dtype != dtype or tuple(x.shape) != shape or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"match kernel: {name} must be a contiguous {dtype} {list(shape)} "
+                             f"on {dev}, got {x.dtype} {list(x.shape)} on {x.device} "
+                             f"(contiguous: {x.is_contiguous()})")
+    fn = cuda.load("match_pixels").f3s_match_pixels
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    match = torch.empty(P, dtype=torch.int32, device=dev)
+    matched = torch.empty(P, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(grid.data_ptr(), slotg.data_ptr(), fpts.data_ptr(), fnrm.data_ptr(),
+                 fvalid.data_ptr(), height, width, gh, gw, half, radius, min_cosine,
+                 match.data_ptr(), matched.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("match kernel launch failed: " + (
+            f"the [{gh}, {gw}] grid does not cover {height}x{width} pixels at half={half}"
+            if err == -1 else f"cudaError {err}"))
+    _match_kernel.launches += 1
+    return match, matched
+
+
+_match_kernel.launches = 0
+
+
+def _match_pixels_plain(grid, slotg, fpts, fnrm, fvalid, *, height, width, half, radius,
+                        min_cosine):
+    """`_match_pixels` in PyTorch operations, on any device: the kernel's
+    plain version, and the CPU's path."""
     P = height * width
     gh, gw = grid.shape[:2]
     padg = F.pad(grid, (0, 0, 1, 1, 1, 1)).reshape(gh + 2, gw + 2, 2, 6)
@@ -434,9 +489,13 @@ class _FrameGraph:
         if dev not in _GRAPH_POOLS:
             _GRAPH_POOLS[dev] = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph()
+        launches = _match_kernel.launches
         with torch.cuda.graph(self.graph, pool=_GRAPH_POOLS[dev], stream=side,
                               capture_error_mode="thread_local"):
             self._step()
+        # whether a replay matches its pixels in the kernel: the step's
+        # dispatch, as the capture took it
+        self.match_kernel = _match_kernel.launches > launches
 
     def _step(self) -> None:
         uv2pt, span = self.step(self.buf, *_camera_views(self.cam), *self.frames)
@@ -478,7 +537,9 @@ def _fuse_frames(state, K, quats, trans, points, normals, colors, valid, *, heig
     replay of the step's graph (`_replay_frames`), on the CPU an eager
     step (`_step_frames`); the counters `fuse_graph.frames` and
     `fuse_graph.captures` say how many frames replayed and graphs were
-    captured. The returned state is the loop's own."""
+    captured, `fuse_match.kernel_frames` how many frames matched their
+    pixels in the kernel, as `_match_pixels` dispatched them (every frame
+    on the card, none on the CPU). The returned state is the loop's own."""
     dev = points.device
     nf = points.shape[0]
     uv2pt = torch.empty((nf, height * width), dtype=torch.int32, device=dev)
@@ -510,11 +571,13 @@ def _step_frames(step, state, cam, frames, uv2pt, spans) -> FusionState:
     """The frame loop run eagerly: each frame stepped into a `_buffer` of
     `state`, its uv2pt row and span written to row f. Returns the state."""
     buf = _buffer(state)
+    launches = _match_kernel.launches
     for f in range(len(cam)):
         with timing.range("fuse.frame"):
             uv2pt[f], spans[f] = step(buf, *_camera_views(cam[f]), *(x[f] for x in frames))
     timing.count("fuse_graph.frames", 0)
     timing.count("fuse_graph.captures", 0)
+    timing.count("fuse_match.kernel_frames", _match_kernel.launches - launches)
     return _live(buf)
 
 
@@ -546,6 +609,8 @@ def _replay_frames(key, step, state, cam, frames, uv2pt, spans) -> FusionState:
         done.record()
     timing.count("fuse_graph.frames", len(cam))
     timing.count("fuse_graph.captures", int(captured))
+    # the host sees no replayed launch: the graph's capture says what it holds
+    timing.count("fuse_match.kernel_frames", len(cam) if graph.match_kernel else 0)
     return graph.state()
 
 

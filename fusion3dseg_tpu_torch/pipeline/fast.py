@@ -60,7 +60,8 @@ class FastSegmentation:
     # "stream" (segmenter), "repair", "split", "merge"; each with its
     # ".wait" (the host blocked on the card) and ".dispatch" (the rest);
     # and the engine's counters "fuse_graph.frames" (frames replayed from
-    # a CUDA graph) and "fuse_graph.captures" (graphs captured)
+    # a CUDA graph), "fuse_graph.captures" (graphs captured) and
+    # "fuse_match.kernel_frames" (frames matched by the match kernel)
     stage_seconds: dict = dataclasses.field(default_factory=dict)
 
     @functools.cached_property

@@ -33,7 +33,8 @@ def _device_us(e):
 
 
 # the port's hand-written kernels, by the names their sources give them
-OWN_KERNELS = ("hist_tiled_kernel", "hist_bytes_kernel", "sr_attention_", "nat_")
+OWN_KERNELS = ("hist_tiled_kernel", "hist_bytes_kernel", "sr_attention_", "nat_",
+               "match_pixels_kernel")
 
 
 def graph_ms(fn, iters: int, replays: int = 5) -> float:

@@ -1288,7 +1288,7 @@ def test_one_rank_nccl_group_equals_one_device(cuda_device):
 
     import torch_parallel_ranks
 
-    cuda.build(["histogram"])  # ranks load what the caller built
+    cuda.build(["histogram", "match_pixels"])  # ranks load what the caller built
     rng = np.random.default_rng(0)
     F, npts, nc = 16, 200, 9
     vote = dict(uv2pt=rng.integers(-1, npts, (F, 64)).astype(np.int32),
@@ -1449,3 +1449,123 @@ def test_returned_state_outlives_the_next_session(cuda_device):
         graph_ptrs |= ptrs((*g.buf, g.cam, *g.frames, g.uv2pt, g.span))
     a, b = ptrs(_tensors(first)), ptrs(_tensors(second))
     assert not a & b and not (a | b) & graph_ptrs
+
+
+# ------------------------------------------------------ fusion match kernel
+
+def _match_on(arrays, device):
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def _match_both(arrays, device, **kw):
+    """(kernel, plain version) on the same card tensors; the kernel's one
+    launch counted."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+
+    t = _match_on(arrays, device)
+    before = tf._match_kernel.launches
+    got = tf._match_pixels(*t, **kw)
+    assert tf._match_kernel.launches == before + 1
+    want = tf._match_pixels_plain(*t, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_ties", "boundaries"])
+@pytest.mark.parametrize("half", [1, 2, 3])
+@pytest.mark.parametrize("hw", [(23, 31), (97, 130)], ids=["ragged", "blocks"])
+def test_match_kernel_equals_plain(cuda_device, case, half, hw):
+    """Absent candidates, invalid pixels, equal candidates (the first in
+    candidate-major order wins), distances and cosines exactly on float32
+    `radius` and `min_cosine`: `match` and `matched` bit for bit."""
+    from torch_match_inputs import CASES, MIN_COS, RADIUS
+
+    height, width = hw
+    arrays = CASES[case](np.random.default_rng(100 * half + height), height, width, half)
+    kw = dict(height=height, width=width, half=half, radius=RADIUS, min_cosine=MIN_COS)
+    (match, matched), (want_match, want_matched) = _match_both(arrays, cuda_device, **kw)
+    assert match.dtype == torch.int32 and matched.dtype == torch.bool
+    assert torch.equal(match, want_match) and torch.equal(matched, want_matched)
+    assert 0 < int(matched.sum()) < height * width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [1, 2])
+def test_match_kernel_equals_plain_vga(cuda_device, half):
+    from torch_match_inputs import MIN_COS, RADIUS, random_case
+
+    arrays = random_case(np.random.default_rng(7 + half), 480, 640, half)
+    kw = dict(height=480, width=640, half=half, radius=RADIUS, min_cosine=MIN_COS)
+    (match, matched), (want_match, want_matched) = _match_both(arrays, cuda_device, **kw)
+    assert torch.equal(match, want_match) and torch.equal(matched, want_matched)
+    assert 0.3 < matched.float().mean().item() < 0.95
+
+
+@pytest.mark.cuda
+def test_match_kernel_refuses_what_it_does_not_take(cuda_device):
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+    from torch_match_inputs import MIN_COS, RADIUS, random_case
+
+    grid, slotg, fpts, fnrm, fvalid = _match_on(
+        random_case(np.random.default_rng(1), 20, 24, 2), cuda_device)
+    kw = dict(height=20, width=24, half=2, radius=RADIUS, min_cosine=MIN_COS)
+    with pytest.raises(ValueError, match="grid"):
+        tf._match_kernel(grid.double(), slotg, fpts, fnrm, fvalid, **kw)
+    with pytest.raises(ValueError, match="slotg"):
+        tf._match_kernel(grid, slotg.long(), fpts, fnrm, fvalid, **kw)
+    with pytest.raises(ValueError, match="fpts"):  # a strided view
+        tf._match_kernel(grid, slotg, torch.cat([fpts, fpts], 1)[:, :3], fnrm, fvalid, **kw)
+    with pytest.raises(ValueError, match="fvalid"):
+        tf._match_kernel(grid, slotg, fpts, fnrm, fvalid.to(torch.uint8), **kw)
+    with pytest.raises(ValueError, match="grid"):  # not on the card
+        tf._match_kernel(grid.cpu(), slotg, fpts, fnrm, fvalid, **kw)
+    with pytest.raises(RuntimeError, match="does not cover"):  # the launcher's -1
+        tf._match_kernel(grid[:-1].contiguous(), slotg[:-1].contiguous(), fpts, fnrm, fvalid,
+                         **kw)
+    # the engine's entry makes the frame's inputs contiguous and launches
+    strided = torch.cat([fpts, fpts], 1)[:, :3]
+    assert not strided.is_contiguous()
+    got = tf._match_pixels(grid, slotg, strided, fnrm, fvalid, **kw)
+    want = tf._match_pixels_plain(grid, slotg, fpts, fnrm, fvalid, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_match_kernel_counted_in_replayed_and_eager_frames(cuda_device, monkeypatch):
+    """The engine counts every frame stepped on the card as matched by the
+    kernel, replayed from its graph or stepped eagerly."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+    from fusion3dseg_tpu_torch.utils import timing
+
+    args = _fusion_args(cuda_device, 19)
+    kw = dict(FKW, window=1024, window_policy="split", device=cuda_device)
+    with timing.record() as rec:
+        tf.fuse_session(*args, **kw)
+    assert rec["fuse_match.kernel_frames"] == rec["fuse_graph.frames"] == FRAMES - 1
+    monkeypatch.setattr(tf, "_replay_frames", lambda key, *a: tf._step_frames(*a))
+    launches = tf._match_kernel.launches
+    with timing.record() as rec:
+        tf.fuse_session(*args, **kw)
+    assert rec["fuse_match.kernel_frames"] == FRAMES - 1 and rec["fuse_graph.frames"] == 0
+    assert tf._match_kernel.launches == launches + FRAMES - 1
+
+
+@pytest.mark.cuda
+def test_match_kernel_counter_reads_zero_on_a_plain_card_step(cuda_device, monkeypatch):
+    """The counter follows the dispatch: a card step whose match took the
+    plain version counts no frame, replayed (captured anew) or eager."""
+    from fusion3dseg_tpu_torch.fusion import fusion as tf
+    from fusion3dseg_tpu_torch.utils import timing
+
+    args = _fusion_args(cuda_device, 19)
+    kw = dict(FKW, window=1024, window_policy="split", device=cuda_device)
+    monkeypatch.setattr(tf, "_match_pixels", tf._match_pixels_plain)
+    monkeypatch.setattr(tf, "_GRAPHS", type(tf._GRAPHS)())
+    with timing.record() as rec:
+        tf.fuse_session(*args, **kw)
+    assert rec["fuse_graph.frames"] == FRAMES - 1 and rec["fuse_match.kernel_frames"] == 0
+    monkeypatch.setattr(tf, "_replay_frames", lambda key, *a: tf._step_frames(*a))
+    with timing.record() as rec:
+        tf.fuse_session(*args, **kw)
+    assert rec["fuse_match.kernel_frames"] == 0 and rec["fuse_graph.frames"] == 0

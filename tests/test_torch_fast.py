@@ -42,9 +42,10 @@ def _hold(j, t):
 
 def _hold_stages(t, *stages):
     """Each stage's seconds with its ".dispatch" and ".wait", which add up
-    to it, beside the engine's graph counters (0 on the CPU)."""
+    to it, beside the engine's graph and match-kernel counters (0 on the
+    CPU)."""
     sec = t.stage_seconds
-    counters = {"fuse_graph.frames", "fuse_graph.captures"}
+    counters = {"fuse_graph.frames", "fuse_graph.captures", "fuse_match.kernel_frames"}
     assert set(sec) == {s + part for s in stages for part in ("", ".dispatch", ".wait")} | counters
     assert all(sec[c] == 0 for c in counters)
     for s in stages:

@@ -29,7 +29,7 @@ KW = dict(radius=0.1, angle=25.0, min_pts_per_inst=20, capacity=1 << 14, window=
 STAGES = {"masks": ("fuse_vote", "repair", "split", "merge"),
           "segmenter": ("fuse", "repair", "stream", "split", "merge")}
 # the counters each path records beside its stages
-COUNTERS = ("fuse_graph.frames", "fuse_graph.captures")
+COUNTERS = ("fuse_graph.frames", "fuse_graph.captures", "fuse_match.kernel_frames")
 # the waits each path passes through, whatever the data
 WAITS = {"masks": ("spans", "n", "points", "classes", "masks_upload", "engine_upload",
                    "cameras", "vote_keys"),
@@ -86,7 +86,7 @@ def test_stage_seconds_add_up(runs, path):
     sec = res.stage_seconds
     assert set(sec) == ({s + part for s in STAGES[path] for part in ("", ".dispatch", ".wait")}
                         | set(COUNTERS))
-    # the engine's graph counters: the CPU steps its frames eagerly
+    # the engine's counters: the CPU steps its frames eagerly, in the plain match
     assert all(sec[c] == 0 for c in COUNTERS)
     for s in STAGES[path]:
         assert sec[s] > 0
