@@ -1,14 +1,14 @@
 """One-call in-memory pipeline: session -> fused cloud -> classes -> instances.
 
 Counterpart of `fusion3dseg_tpu/pipeline/fast.py`, the main path of the
-system:
+system. Both label sources take one order, on the device:
 
-  * fusion and voting on the device (`fusion.fuse_session_and_vote`) when
-    masks are given, or fusion followed by the streaming voter
-    (`pipeline.streaming.stream_segment`) when a 2D segmenter runs in the
-    loop;
-  * the overflow repair (`dedup_and_revote` / `dedup_state`) when a frame's
-    visible span passed the merge window;
+  * fuse (`fusion.fuse_session`), reading the per-frame visible spans;
+  * repair (`dedup_state` + `remap_uv2pt`) when a frame's visible span
+    passed the merge window;
+  * vote the given masks (`ops.voting.vote_all_frames`) or the segmenter's
+    logits (`pipeline.streaming.stream_votes`) on the repaired uv2pt, then
+    classify (`ops.voting.classify`);
   * the host instance split over the full radius relation
     (`ops.components.split_into_instances_by_radius`) and the host OBB
     merge (`pipeline.merge_bb`).
@@ -26,11 +26,11 @@ import numpy as np
 import torch
 
 from fusion3dseg_tpu_torch import cuda
-from fusion3dseg_tpu_torch.fusion import fused_pipeline, fusion as fusion_engine
-from fusion3dseg_tpu_torch.ops import components
+from fusion3dseg_tpu_torch.fusion import fusion as fusion_engine
+from fusion3dseg_tpu_torch.ops import components, voting
 from fusion3dseg_tpu_torch.ops.obb import HOST_OBB_MAX_KN
 from fusion3dseg_tpu_torch.pipeline.merge_bb import merge_bb
-from fusion3dseg_tpu_torch.pipeline.streaming import stream_segment
+from fusion3dseg_tpu_torch.pipeline.streaming import stream_votes
 from fusion3dseg_tpu_torch.utils import taxonomy as tax, timing
 
 
@@ -56,8 +56,8 @@ class FastSegmentation:
     overflow_frames: int = 0
     spans: Optional[np.ndarray] = None  # [F] per-frame visible slot span
     # wall seconds of the stages (`utils.timing` spans), each ending where
-    # the host reads the device anyway: "fuse_vote" (masks) or "fuse" +
-    # "stream" (segmenter), "repair", "split", "merge"; each with its
+    # the host reads the device anyway: "fuse", "repair", "vote" (masks) or
+    # "stream" (segmenter), "split", "merge"; each with its
     # ".wait" (the host blocked on the card) and ".dispatch" (the rest);
     # and the engine's counters "fuse_graph.frames" (frames replayed from
     # a CUDA graph), "fuse_graph.captures" (graphs captured) and
@@ -110,12 +110,12 @@ def segment_session_fast(
     if (masks is None) == (segmenter is None):
         raise ValueError("pass exactly one of masks= or segmenter=")
     if segmenter is not None and not dedup:
-        # stream_segment counts one vote per (point, frame); dedup=False
+        # stream_votes counts one vote per (point, frame); dedup=False
         # would silently differ from the masks path's semantics
         raise ValueError("dedup=False is only supported on the masks path")
     dev = cuda.resolve_device(device)
     with timing.record() as seconds:
-        with timing.span("fuse_vote" if masks is not None else "fuse"):
+        with timing.span("fuse"):
             hd, wd = session.depth_hw
             if valid is None:
                 depth = torch.as_tensor(session.depth, device=dev)
@@ -126,57 +126,41 @@ def segment_session_fast(
                      torch.as_tensor(session.colors, device=dev),
                      torch.as_tensor(valid, device=dev))
             min_cosine = float(np.cos(np.deg2rad(angle)))
-            kw = dict(height=hd, width=wd, radius=radius, min_cosine=min_cosine,
-                      max_depth=max_depth, capacity=capacity)
-            fclasses = tuple(filter_classes) if filter_classes is not None else None
-
             if window == "auto":
                 window = fusion_engine.auto_window(
                     fusion_engine.seed_cells_for_frame(fargs[3][0], fargs[4][0], fargs[5][0],
                                                        fargs[6][0], hd, wd, radius, min_cosine,
                                                        max_depth=max_depth),
                     capacity)
-
-            if masks is not None:
-                with timing.wait("masks_upload"):
-                    fmasks = torch.as_tensor(masks, device=dev).reshape(session.nframes, -1)
-                state, uv2pt, _votes, classes_d, spans = fused_pipeline.fuse_session_and_vote(
-                    *fargs, fmasks, nclasses=nclasses, threshold=threshold,
-                    filter_classes=fclasses, window=window, window_policy=window_policy,
-                    dedup=dedup, with_stats=True, device=dev, **kw)
-            else:
-                state, uv2pt, spans = fusion_engine.fuse_session(
-                    *fargs, window=window, window_policy=window_policy, with_stats=True,
-                    device=dev, **kw)
+            state, uv2pt, spans = fusion_engine.fuse_session(
+                *fargs, height=hd, width=wd, radius=radius, min_cosine=min_cosine,
+                max_depth=max_depth, capacity=capacity, window=window,
+                window_policy=window_policy, with_stats=True, device=dev)
             overflow_frames, spans_h = _overflow(spans, window)
 
         with timing.span("repair"):
-            if overflow_frames and auto_dedup and masks is not None:
-                state, uv2pt, _votes, classes_d = fused_pipeline.dedup_and_revote(
-                    state, uv2pt, fmasks, radius, min_cosine, capacity=capacity,
-                    nclasses=nclasses, threshold=threshold, filter_classes=fclasses,
-                    dedup=dedup)
-            elif overflow_frames and auto_dedup:
+            if overflow_frames and auto_dedup:
                 state, slot_map = fusion_engine.dedup_state(state, radius, min_cosine,
                                                             capacity=capacity)
                 uv2pt = fusion_engine.remap_uv2pt(uv2pt, slot_map)
             with timing.wait("n"):
                 n = int(state.n)
-            if masks is not None:
-                points = _read_points(state, n)
-                with timing.wait("classes"):
-                    classes = classes_d[:n].cpu().numpy().astype(np.int32)
+            with timing.wait("points"):
+                points = state.points[:n].cpu().numpy()
 
-        if segmenter is not None:
-            with timing.span("stream"):
-                with timing.wait("uv2pt_to_host"):
-                    uv2pt_h = uv2pt.cpu().numpy()
-                _votes, classes = stream_segment(session, segmenter, uv2pt_h, npts=capacity,
-                                                 nclasses=nclasses, threshold=threshold,
-                                                 conf_threshold=conf_threshold,
-                                                 filter_classes=fclasses)
-                classes = np.asarray(classes)[:n].astype(np.int32)
-                points = _read_points(state, n)
+        label = "vote" if masks is not None else "stream"
+        with timing.span(label):
+            if masks is not None:
+                with timing.wait("masks_upload"):
+                    fmasks = torch.as_tensor(masks, device=dev).reshape(session.nframes, -1)
+                votes = voting.vote_all_frames(uv2pt, fmasks, capacity, nclasses, dedup, dev)
+            else:
+                votes = stream_votes(session, segmenter, uv2pt, capacity, nclasses,
+                                     conf_threshold)
+            with timing.range(label + ".classify"):
+                classes = voting.classify(votes, threshold, nclasses, filter_classes)
+            with timing.wait("classes"):
+                classes = classes[:n].cpu().numpy()
 
         with timing.span("split"):
             _, ids, info, _ = components.split_into_instances_by_radius(
@@ -208,12 +192,6 @@ def segment_session_fast(
         points=points, classes=classes, instance_ids=np.asarray(ids),
         instance_info=list(info), n=n, n_instances_premerge=n_premerge, state=state,
         uv2pt=uv2pt, overflow_frames=overflow_frames, spans=spans_h, stage_seconds=seconds)
-
-
-def _read_points(state, n: int) -> np.ndarray:
-    """The live prefix of the fused cloud, on the host."""
-    with timing.wait("points"):
-        return state.points[:n].cpu().numpy()
 
 
 def _overflow(spans, window) -> Tuple[int, np.ndarray]:

@@ -58,6 +58,17 @@ def resize_bilinear(images: torch.Tensor, out_hw, antialias: bool = False) -> to
     return x.permute(0, 2, 3, 1)
 
 
+def confident_classes(logits: torch.Tensor, conf_threshold: float, unclassified: int):
+    """The confidence rule: the argmax class of `logits` [..., C], its
+    softmax maximum as the confidence, and `unclassified` where that falls
+    below `conf_threshold`. Returns (classes [...] int64, conf [...]
+    float32)."""
+    sem = logits.argmax(dim=-1)
+    conf = torch.softmax(logits, dim=-1).amax(dim=-1)
+    # the threshold as a float32, compared in float32 (no device copy)
+    return torch.where(conf < float(np.float32(conf_threshold)), unclassified, sem), conf
+
+
 class Segmenter2D:
     """Batched semantic inference on one device, around a SegFormer or a
     Mask2Former."""
@@ -120,10 +131,7 @@ class Segmenter2D:
         argmax -> softmax confidence -> threshold. Returns (logits
         [B, h, w, C] float32, sem [B, h, w] uint8, conf [B, h, w] float32)."""
         logits = resize_bilinear(self.model(images), out_hw, antialias=True)
-        sem = logits.argmax(dim=-1)
-        conf = torch.softmax(logits, dim=-1).amax(dim=-1)
-        # the threshold as a float32, compared in float32 (no device copy)
-        sem = torch.where(conf < float(np.float32(conf_threshold)), self.nclasses, sem)
+        sem, conf = confident_classes(logits, conf_threshold, self.nclasses)
         return logits, sem.to(torch.uint8), conf
 
     def predict_batch(self, images: np.ndarray, conf_threshold: float = 0.017) -> np.ndarray:

@@ -69,7 +69,7 @@ def test_masks_branch_matches_jax(tmp_path, F, window, policy):
     assert (tmp_path / "port" / "panoptic_segmentation" / "final_info.json").exists()
     np.testing.assert_array_equal(t.normals, t.state.normals[: t.n].numpy())
     assert t.colors.shape == (t.n, 3)
-    _hold_stages(t, "fuse_vote", "repair", "split", "merge")
+    _hold_stages(t, "fuse", "repair", "vote", "split", "merge")
 
 
 def test_auto_window_and_no_obb_merge():

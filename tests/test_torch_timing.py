@@ -26,15 +26,15 @@ from fusion3dseg_tpu_torch.utils import timing
 
 KW = dict(radius=0.1, angle=25.0, min_pts_per_inst=20, capacity=1 << 14, window=1024,
           window_policy="split", device="cpu")
-STAGES = {"masks": ("fuse_vote", "repair", "split", "merge"),
+STAGES = {"masks": ("fuse", "repair", "vote", "split", "merge"),
           "segmenter": ("fuse", "repair", "stream", "split", "merge")}
 # the counters each path records beside its stages
 COUNTERS = ("fuse_graph.frames", "fuse_graph.captures", "fuse_match.kernel_frames")
 # the waits each path passes through, whatever the data
 WAITS = {"masks": ("spans", "n", "points", "classes", "masks_upload", "engine_upload",
                    "cameras", "vote_keys"),
-         "segmenter": ("spans", "n", "points", "uv2pt_to_host", "uv2pt_upload", "votes",
-                       "classes", "engine_upload", "cameras", "vote_keys")}
+         "segmenter": ("spans", "n", "points", "classes", "engine_upload", "cameras",
+                       "vote_keys")}
 
 
 def _session(F=6):
@@ -255,8 +255,7 @@ def test_segmenter_ranges():
         segment_session_fast(sd, segmenter=seg, conf_threshold=0.0, **KW)
     names = {ev.name() for ev in _events(prof)}
     want = {"f3s.fuse", "f3s.stream", "f3s.stream.resize", "f3s.stream.model",
-            "f3s.stream.vote", "f3s.stream.classify", "f3s.segformer.decoder",
-            "f3s.wait.uv2pt_to_host", "f3s.wait.uv2pt_upload", "f3s.wait.votes"}
+            "f3s.stream.vote", "f3s.stream.classify", "f3s.segformer.decoder"}
     want |= {f"f3s.segformer.stage{s}" for s in range(4)}
     assert want <= names, want - names
 
